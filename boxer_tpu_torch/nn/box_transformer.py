@@ -1,0 +1,271 @@
+"""BoxTransformer (2D) inference; port of `boxer_tpu/nn/box_transformer.py`.
+
+Module names follow the reference e2edet state_dict
+(`transformer.encoder.layers.{i}`, `transformer.encoder.enc_linear.{0,1}`,
+`transformer.decoder.layers.{i}.{self_attn,multihead_attn}`); the encoder is
+an `nn.ModuleList` where the JAX package scans one layer. The encoder
+proposal head (`enc_detector`) sits at the top of the reference model, so
+the transformer takes it as an argument instead of owning it.
+"""
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from boxer_tpu_torch.evaluate.postprocess import paste_and_rescore, select_topk
+from boxer_tpu_torch.nn.attention import BoxAttention, InstanceAttention
+from boxer_tpu_torch.nn.dense_attention import PallasMultiHeadAttention
+from boxer_tpu_torch.nn.position_encoding import box_windows
+from boxer_tpu_torch.nn.predictor import NEG_INF
+from boxer_tpu_torch.utils.general import (flatten_with_shape,
+                                           get_proposal_pos_embed,
+                                           inverse_sigmoid, top_k)
+
+Shapes = Tuple[Tuple[int, int], ...]
+LN_EPS = 1e-6       # flax LayerNorm's epsilon
+
+
+def create_ref_windows_2d(tensor_list, mask_list, ref_size: int):
+    """Per-pixel reference boxes across levels, (B, S, 4) normalized cxcywh
+    f32. tensor_list: NHWC features; mask_list: (B, H, W) bool or None."""
+    wins = [box_windows(t, None if mask_list is None else mask_list[i],
+                        ref_size) for i, t in enumerate(tensor_list)]
+    return torch.cat([w.reshape(w.shape[0], -1, 4) for w in wins], dim=1)
+
+
+def create_valid_ratios(mask_list):
+    """(B, L, 2) per-level [ratio_w, ratio_h] f32; None without masks."""
+    if mask_list is None or mask_list[0] is None:
+        return None
+    ratios = []
+    for mask in mask_list:
+        not_mask = ~mask
+        h, w = mask.shape[1:3]
+        size_h = not_mask[:, :, 0].sum(dim=-1).float()
+        size_w = not_mask[:, 0, :].sum(dim=-1).float()
+        ratios.append(torch.stack([size_w / w, size_h / h], dim=-1))
+    return torch.stack(ratios, dim=1)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, d_model: int, nhead: int, nlevel: int,
+                 dim_feedforward: int):
+        super().__init__()
+        self.self_attn = BoxAttention(d_model, nlevel, nhead)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+
+    def forward(self, src, pos, v_shape: Shapes, src_mask, valid_ratios,
+                ref_windows):
+        q = src if pos is None else src + pos
+        src2, _ = self.self_attn(q, src, v_shape, src_mask, valid_ratios,
+                                 ref_windows)
+        src = self.norm1(src + src2)
+        src = self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        return src
+
+
+class DecoderLayer(nn.Module):
+    """Decoder layer. emit_roi: False (no RoI), True (full RoI) or "defer"
+    (the raw RoI and the residual carriers are returned, and `decode_roi`
+    runs the RoI tail on a selected-query subset)."""
+
+    def __init__(self, d_model: int, nhead: int, nlevel: int,
+                 dim_feedforward: int, use_mask: bool,
+                 residual_mode: str = "v1"):
+        super().__init__()
+        assert residual_mode in ("v1", "v2")
+        self.use_mask, self.residual_mode = use_mask, residual_mode
+        self.self_attn = PallasMultiHeadAttention(d_model, nhead)
+        self.multihead_attn = (
+            InstanceAttention(d_model, nlevel, nhead, kernel_size=14)
+            if use_mask else BoxAttention(d_model, nlevel, nhead))
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.linear1 = nn.Linear(d_model, dim_feedforward)
+        self.linear2 = nn.Linear(dim_feedforward, d_model)
+
+    def _ffn(self, x):
+        return self.linear2(F.relu(self.linear1(x)))
+
+    def forward(self, tgt, query_pos, memory, v_shape: Shapes, memory_mask,
+                valid_ratios, ref_windows, emit_roi=False):
+        defer = emit_roi == "defer"
+        q = k = tgt if query_pos is None else tgt + query_pos
+        tgt = self.norm1(tgt + self.self_attn(q, k, tgt))
+
+        roi = None
+        q2 = tgt if query_pos is None else tgt + query_pos
+        if self.use_mask:
+            tgt2, roi, _ = self.multihead_attn(
+                q2, memory, v_shape, memory_mask, valid_ratios, ref_windows,
+                emit_roi=bool(emit_roi), raw_roi=defer)
+        else:
+            tgt2, _ = self.multihead_attn(
+                q2, memory, v_shape, memory_mask, valid_ratios, ref_windows)
+
+        tgt = self.norm2(tgt + tgt2)
+        tgt_norm2 = tgt
+        if roi is not None and not defer:
+            roi = self.norm2(tgt[:, :, None, None, :] + roi)
+        tgt = self.norm3(tgt + self._ffn(tgt))
+        if roi is not None and not defer:
+            if self.residual_mode == "v1":
+                roi = roi + self._ffn(roi)
+            else:
+                roi = tgt[:, :, None, None, :] + roi
+            roi = self.norm3(roi)
+        if defer:
+            return tgt, (roi, tgt_norm2, tgt)
+        return tgt, roi
+
+    def decode_roi(self, mask_out_sel, tgt_norm2_sel, tgt_final_sel):
+        """RoI tail on a selected-query subset: mask_out_sel (B, K, k, k,
+        H*Ch) raw RoI rows; tgt_norm2_sel / tgt_final_sel (B, K, C) the same
+        layer's post-norm2 / final outputs at those queries. Per-query ops
+        only, so the result equals the full RoI path gathered at the subset."""
+        roi = self.multihead_attn.project_roi(mask_out_sel)
+        roi = self.norm2(tgt_norm2_sel[:, :, None, None, :] + roi)
+        if self.residual_mode == "v1":
+            roi = roi + self._ffn(roi)
+        else:
+            roi = tgt_final_sel[:, :, None, None, :] + roi
+        return self.norm3(roi)
+
+
+class _Encoder(nn.Module):
+    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(d_model, nhead, nlevel, dim_feedforward)
+            for _ in range(num_layers))
+        self.enc_linear = nn.Sequential(nn.Linear(d_model, d_model),
+                                        nn.LayerNorm(d_model, eps=LN_EPS))
+
+
+class _Decoder(nn.Module):
+    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers,
+                 use_mask, residual_mode):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, nhead, nlevel, dim_feedforward, use_mask,
+                         residual_mode) for _ in range(num_layers))
+
+
+class BoxTransformer(nn.Module):
+    def __init__(self, d_model: int = 256, nhead: int = 8, nlevel: int = 4,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 1024, num_queries: int = 300,
+                 use_mask: bool = False, ref_size: int = 4,
+                 residual_mode: str = "v1"):
+        super().__init__()
+        self.d_model, self.num_queries = d_model, num_queries
+        self.use_mask, self.ref_size = use_mask, ref_size
+        self.encoder = _Encoder(d_model, nhead, nlevel, dim_feedforward,
+                                num_encoder_layers)
+        self.decoder = _Decoder(d_model, nhead, nlevel, dim_feedforward,
+                                num_decoder_layers, use_mask, residual_mode)
+
+    def _get_enc_proposals(self, enc_detector, output, src_mask, ref_windows):
+        """Top-num_queries proposal selection. Returns (decoder embed,
+        decoder ref windows f32, decoder pos, selected token indices)."""
+        valid = ((ref_windows[..., :2] > 0.01)
+                 & (ref_windows[..., :2] < 0.99)).all(-1)
+        mask = ~valid if src_mask is None else src_mask | ~valid
+        out_logits = enc_detector.class_embed(output)[..., 0].float()
+        out_logits = out_logits.masked_fill(mask, NEG_INF)
+        _, indexes = top_k(out_logits, self.num_queries)         # (B, nq)
+
+        def gather(arr):
+            return torch.gather(
+                arr, 1, indexes[..., None].expand(-1, -1, arr.shape[-1]))
+
+        output_embed = gather(output)
+        out_embed = self.encoder.enc_linear(output_embed)
+        tmp_ref = enc_detector.bbox_embed(output_embed).float()
+        out_ref_windows = torch.sigmoid(tmp_ref + inverse_sigmoid(
+            gather(ref_windows)))
+        pos = get_proposal_pos_embed(out_ref_windows[..., :2], self.d_model)
+        size = get_proposal_pos_embed(out_ref_windows[..., 2:], self.d_model)
+        return out_embed, out_ref_windows, (pos + size).to(output.dtype), indexes
+
+    def _decode_topk_masks(self, detector, last_layer, deferred, tgt,
+                           dec_ref_windows, postprocess: dict):
+        """Deferred mask decode: logits/boxes on all queries, top-k
+        selection, then the RoI tail, mask head and paste on the selected
+        queries only."""
+        mask_out_raw, tgt_norm2, tgt_final = deferred
+        det_out = detector(tgt[None], dec_ref_windows, roi=None,
+                           defer_mask=True)
+        logits = det_out["pred_logits"]                          # (B, NQ, C)
+        scores, labels, q, xy = select_topk(
+            logits, det_out["pred_boxes"], canvas_hw=postprocess["canvas_hw"],
+            topk=postprocess.get("topk", 100), scale=postprocess.get("scale"))
+
+        def gather_q(x):
+            idx = q.reshape(q.shape + (1,) * (x.dim() - 2))
+            return torch.gather(x, 1, idx.expand(q.shape + x.shape[2:]))
+
+        roi = last_layer.decode_roi(gather_q(mask_out_raw), gather_q(tgt_norm2),
+                                    gather_q(tgt_final))
+        # mask_v1: the class channel at the argmax of the FULL class row
+        top = gather_q(logits).argmax(dim=-1)                    # (B, K)
+        mask_logits = detector.mask_embed(roi[None], select=top.reshape(-1))[0]
+        scores, masks = paste_and_rescore(scores, mask_logits, xy,
+                                          postprocess["canvas_hw"])
+        return {"scores": scores, "labels": labels, "boxes": xy,
+                "masks": masks}
+
+    def forward(self, srcs: Sequence[torch.Tensor], masks, pos_list,
+                enc_detector, detector=None,
+                postprocess: Optional[dict] = None):
+        """Inference. srcs: list of (B, Hi, Wi, C); masks: list of
+        (B, Hi, Wi) bool or None; pos_list: list of (B, Hi, Wi, C).
+
+        Returns (hs (1, B, NQ, C), roi (1, B, NQ, k, k, C) or None,
+        dec_ref_windows, encoder output, src_ref_windows, src_mask,
+        v_shape); with `postprocess` and use_mask, the deferred top-k mask
+        decode's {scores, labels, boxes, masks} instead.
+        """
+        defer_mask = postprocess is not None and self.use_mask
+        assert not defer_mask or detector is not None
+        if masks is not None and masks[0] is None:
+            masks = None
+
+        src_ref_windows = create_ref_windows_2d(srcs, masks, self.ref_size)
+        valid_ratios = create_valid_ratios(masks)
+        src, src_mask, v_shape = flatten_with_shape(srcs, masks)
+        src_pos = torch.cat([p.reshape(p.shape[0], -1, p.shape[-1])
+                             for p in pos_list], dim=1)
+
+        output = src
+        for layer in self.encoder.layers:
+            output = layer(output, src_pos, v_shape, src_mask, valid_ratios,
+                           src_ref_windows)
+
+        tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
+            enc_detector, output, src_mask, src_ref_windows)
+
+        layers = self.decoder.layers
+        roi = deferred = None
+        for i, layer in enumerate(layers):
+            emit_roi = self.use_mask and i == len(layers) - 1
+            if emit_roi and defer_mask:
+                emit_roi = "defer"
+            tgt, roi = layer(tgt, dec_pos, output, v_shape, src_mask,
+                             valid_ratios, dec_ref_windows, emit_roi)
+            if emit_roi == "defer":
+                deferred, roi = roi, None
+
+        if defer_mask:
+            return self._decode_topk_masks(detector, layers[-1], deferred, tgt,
+                                           dec_ref_windows, postprocess)
+        hs = tgt[None]
+        roi = roi[None] if self.use_mask else None
+        return (hs, roi, dec_ref_windows, output, src_ref_windows, src_mask,
+                v_shape)
