@@ -1,10 +1,11 @@
-"""BoxeR-2D inference (detection + instance segmentation); port of
-`boxer_tpu/models/boxer2d.py`.
+"""BoxeR-2D (detection + instance segmentation), inference and training;
+port of `boxer_tpu/models/boxer2d.py`.
 
 ResNet backbone + per-level input projections (1×1 conv + GroupNorm, a
 stride-2 3×3 conv for extra levels), BoxTransformer, and the decoder
-Detector head. Parameter names are the reference e2edet ones, so
-`load_state_dict` takes a reference checkpoint. Training is not ported yet.
+Detector head (+ the encoder `enc_outputs` head in training). Parameter
+names are the reference e2edet ones, so `load_state_dict` takes a reference
+checkpoint.
 """
 
 from typing import Optional
@@ -33,7 +34,9 @@ class BoxeR2D(nn.Module):
                  backbone_arch: str = "resnet50",
                  position_encoding: str = "fixed_box"):
         super().__init__()
-        # dropout is a training knob; inference runs none
+        # every shipped config trains with dropout 0; forward(train=True)
+        # refuses any other value (dropout is not ported)
+        self.dropout = dropout
         self.hidden_dim, self.num_level = hidden_dim, num_level
         self.use_mask, self.ref_size = use_mask, ref_size
         self.backbone = BackBone(backbone_arch, ("layer2", "layer3", "layer4"),
@@ -99,12 +102,19 @@ class BoxeR2D(nn.Module):
         mask (True = padded) or None.
 
         Returns pred_logits (B, nq, C), pred_boxes (B, nq, 4) [+ pred_masks
-        (B, nq, 28, 28)] and aux_outputs. With postprocess (dict with
-        canvas_hw, topk[, scale]): {scores, labels, boxes[, masks]} — for
-        use_mask through the deferred top-k mask decode.
+        (B, nq, 28, 28)] and aux_outputs, plus enc_outputs with
+        inference=False (the training outputs: every decoder layer and the
+        encoder head, through the differentiable sampling). With postprocess
+        (dict with canvas_hw, topk[, scale]; inference only): {scores,
+        labels, boxes[, masks]} — for use_mask through the deferred top-k
+        mask decode.
         """
-        if train or not inference:
-            raise NotImplementedError("training is not ported yet")
+        if train and self.dropout > 0:
+            raise NotImplementedError(
+                f"dropout {self.dropout} in training: the port runs dropout 0 "
+                "only, as every shipped config does")
+        assert postprocess is None or inference, \
+            "postprocess is an inference-only fast path"
         dtype = self.input_proj[0][0].weight.dtype
         outs, pos = self.backbone(image.to(dtype), mask)
 
@@ -134,9 +144,12 @@ class BoxeR2D(nn.Module):
             return self.transformer(features, masks, pos_encodings,
                                     self.enc_detector, detector=self.detector,
                                     postprocess=postprocess)
-        hs, roi, dec_ref_windows, *_ = self.transformer(
-            features, masks, pos_encodings, self.enc_detector)
+        hs, roi, dec_ref_windows, *_, enc_outputs = self.transformer(
+            features, masks, pos_encodings, self.enc_detector,
+            inference=inference)
         out = self.detector(hs, dec_ref_windows, roi=roi)
+        if not inference:
+            out["enc_outputs"] = enc_outputs
         if postprocess is None:
             return out
         return coco_postprocess(out["pred_logits"], out["pred_boxes"], None,

@@ -1,5 +1,5 @@
 """Box / instance attention modules; port of `boxer_tpu/nn/attention.py`
-(inference paths).
+(inference and training paths).
 
 Parameter names are the reference e2edet ones: `linear_box_weight`,
 `linear_box_bias`, `linear_attn_weight`, `linear_attn_bias` as raw
@@ -118,7 +118,9 @@ class BoxAttention(_SamplingAttention):
         self.num_point = kernel_size ** 2
 
     def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
-                ref_windows):
+                ref_windows, fold: bool = True):
+        """fold=True: the inference sampling path; fold=False: the
+        differentiable training path (see `box_attention_qminor`)."""
         b, l1 = query.shape[:2]
         value = self._project_value(value, v_mask)
         attn = F.linear(query, self.linear_attn_weight, self.linear_attn_bias)
@@ -127,7 +129,8 @@ class BoxAttention(_SamplingAttention):
         attn_q = torch.movedim(attn, 1, -1).reshape(
             b, self.num_head, self.num_level, self.num_point, l1)
         gx, gy = _where_to_attend(self, query, v_valid_ratios, ref_windows)
-        out = box_attention_qminor(value, v_shape, gx, gy, attn_q, raw=True)
+        out = box_attention_qminor(value, v_shape, gx, gy, attn_q, raw=True,
+                                   fold=fold)
         attn = attn.reshape(b, l1, self.num_head, self.num_level,
                             self.num_point)
         return self.out_proj.raw(out), attn
@@ -155,11 +158,12 @@ class InstanceAttention(_SamplingAttention):
         return self.out_proj(mask_out)
 
     def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
-                ref_windows, emit_roi: bool = False, raw_roi: bool = False):
+                ref_windows, emit_roi: bool = False, raw_roi: bool = False,
+                train: bool = False):
         """emit_roi=False: attention output only (inference layers), through
         the fused sampling kernel. emit_roi=True: also the k×k mask RoI,
-        projected, or raw (unprojected) when raw_roi=True. Returns (out,
-        roi or None, weights)."""
+        projected, or raw (unprojected) when raw_roi=True, differentiable
+        with train=True. Returns (out, roi or None, weights)."""
         b, l1 = query.shape[:2]
         k = self.kernel_size
         nh, nl = self.num_head, self.num_level
@@ -183,7 +187,7 @@ class InstanceAttention(_SamplingAttention):
             level = self._expand_quadrant_weights(torch.softmax(attn, dim=2))
             out, mask_out = instance_attention_qminor(
                 value, v_shape, gx, gy, spatial, level, kernel_size=k,
-                raw=True)
+                raw=True, train=train)
             if raw_roi:
                 return self.out_proj.raw(out), mask_out, (spatial, level)
             return (self.out_proj.raw(out), self.out_proj(mask_out),

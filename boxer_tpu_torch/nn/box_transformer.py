@@ -1,4 +1,5 @@
-"""BoxTransformer (2D) inference; port of `boxer_tpu/nn/box_transformer.py`.
+"""BoxTransformer (2D), inference and training; port of
+`boxer_tpu/nn/box_transformer.py`.
 
 Module names follow the reference e2edet state_dict
 (`transformer.encoder.layers.{i}`, `transformer.encoder.enc_linear.{0,1}`,
@@ -60,10 +61,10 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, src, pos, v_shape: Shapes, src_mask, valid_ratios,
-                ref_windows):
+                ref_windows, fold: bool = True):
         q = src if pos is None else src + pos
         src2, _ = self.self_attn(q, src, v_shape, src_mask, valid_ratios,
-                                 ref_windows)
+                                 ref_windows, fold=fold)
         src = self.norm1(src + src2)
         src = self.norm2(src + self.linear2(F.relu(self.linear1(src))))
         return src
@@ -72,7 +73,8 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(nn.Module):
     """Decoder layer. emit_roi: False (no RoI), True (full RoI) or "defer"
     (the raw RoI and the residual carriers are returned, and `decode_roi`
-    runs the RoI tail on a selected-query subset)."""
+    runs the RoI tail on a selected-query subset). train=True takes the
+    differentiable sampling paths."""
 
     def __init__(self, d_model: int, nhead: int, nlevel: int,
                  dim_feedforward: int, use_mask: bool,
@@ -94,7 +96,7 @@ class DecoderLayer(nn.Module):
         return self.linear2(F.relu(self.linear1(x)))
 
     def forward(self, tgt, query_pos, memory, v_shape: Shapes, memory_mask,
-                valid_ratios, ref_windows, emit_roi=False):
+                valid_ratios, ref_windows, emit_roi=False, train: bool = False):
         defer = emit_roi == "defer"
         q = k = tgt if query_pos is None else tgt + query_pos
         tgt = self.norm1(tgt + self.self_attn(q, k, tgt))
@@ -104,10 +106,11 @@ class DecoderLayer(nn.Module):
         if self.use_mask:
             tgt2, roi, _ = self.multihead_attn(
                 q2, memory, v_shape, memory_mask, valid_ratios, ref_windows,
-                emit_roi=bool(emit_roi), raw_roi=defer)
+                emit_roi=bool(emit_roi), raw_roi=defer, train=train)
         else:
             tgt2, _ = self.multihead_attn(
-                q2, memory, v_shape, memory_mask, valid_ratios, ref_windows)
+                q2, memory, v_shape, memory_mask, valid_ratios, ref_windows,
+                fold=not train)
 
         tgt = self.norm2(tgt + tgt2)
         tgt_norm2 = tgt
@@ -173,7 +176,9 @@ class BoxTransformer(nn.Module):
 
     def _get_enc_proposals(self, enc_detector, output, src_mask, ref_windows):
         """Top-num_queries proposal selection. Returns (decoder embed,
-        decoder ref windows f32, decoder pos, selected token indices)."""
+        decoder ref windows f32, decoder pos, selected token indices). The
+        decoder embed's input and the ref windows carry no gradient, as the
+        JAX package's `stop_gradient`s rule."""
         valid = ((ref_windows[..., :2] > 0.01)
                  & (ref_windows[..., :2] < 0.99)).all(-1)
         mask = ~valid if src_mask is None else src_mask | ~valid
@@ -186,13 +191,28 @@ class BoxTransformer(nn.Module):
                 arr, 1, indexes[..., None].expand(-1, -1, arr.shape[-1]))
 
         output_embed = gather(output)
-        out_embed = self.encoder.enc_linear(output_embed)
+        out_embed = self.encoder.enc_linear(output_embed.detach())
         tmp_ref = enc_detector.bbox_embed(output_embed).float()
         out_ref_windows = torch.sigmoid(tmp_ref + inverse_sigmoid(
-            gather(ref_windows)))
+            gather(ref_windows))).detach()
         pos = get_proposal_pos_embed(out_ref_windows[..., :2], self.d_model)
         size = get_proposal_pos_embed(out_ref_windows[..., 2:], self.d_model)
         return out_embed, out_ref_windows, (pos + size).to(output.dtype), indexes
+
+    @staticmethod
+    def _compute_enc_outputs(enc_detector, src_embed, src_ref_windows,
+                             src_mask):
+        """Encoder auxiliary head over all source tokens (training only):
+        masked and border tokens get NEG_INF logits and zero boxes."""
+        valid = ((src_ref_windows[..., :2] > 0.01)
+                 & (src_ref_windows[..., :2] < 0.99)).all(-1)
+        mask = ~valid if src_mask is None else src_mask | ~valid
+        src_embed = src_embed.masked_fill(mask[..., None], 0.0)
+        src_ref = src_ref_windows.masked_fill(mask[..., None], 0.0)
+        enc_out = enc_detector(src_embed[None], src_ref[None],
+                               x_mask=mask[None])
+        return [{"pred_logits": enc_out["pred_logits"],
+                 "pred_boxes": enc_out["pred_boxes"]}]
 
     def _decode_topk_masks(self, detector, last_layer, deferred, tgt,
                            dec_ref_windows, postprocess: dict):
@@ -223,17 +243,24 @@ class BoxTransformer(nn.Module):
 
     def forward(self, srcs: Sequence[torch.Tensor], masks, pos_list,
                 enc_detector, detector=None,
-                postprocess: Optional[dict] = None):
-        """Inference. srcs: list of (B, Hi, Wi, C); masks: list of
-        (B, Hi, Wi) bool or None; pos_list: list of (B, Hi, Wi, C).
+                postprocess: Optional[dict] = None, inference: bool = True):
+        """srcs: list of (B, Hi, Wi, C); masks: list of (B, Hi, Wi) bool or
+        None; pos_list: list of (B, Hi, Wi, C).
 
-        Returns (hs (1, B, NQ, C), roi (1, B, NQ, k, k, C) or None,
-        dec_ref_windows, encoder output, src_ref_windows, src_mask,
-        v_shape); with `postprocess` and use_mask, the deferred top-k mask
-        decode's {scores, labels, boxes, masks} instead.
+        Returns (hs (nl, B, NQ, C), roi (nl, B, NQ, k, k, C) or None,
+        dec_ref_windows, encoder output, src_ref_windows, src_mask, v_shape,
+        enc_outputs); nl = 1 and enc_outputs None with inference=True.
+        inference=False is the training path: differentiable sampling, a
+        RoI from every decoder layer, every layer's output and the encoder
+        head's outputs. With `postprocess` and use_mask (inference only),
+        the deferred top-k mask decode's {scores, labels, boxes, masks}
+        instead.
         """
         defer_mask = postprocess is not None and self.use_mask
         assert not defer_mask or detector is not None
+        assert postprocess is None or inference, \
+            "postprocess is an inference-only fast path"
+        train = not inference
         if masks is not None and masks[0] is None:
             masks = None
 
@@ -246,26 +273,34 @@ class BoxTransformer(nn.Module):
         output = src
         for layer in self.encoder.layers:
             output = layer(output, src_pos, v_shape, src_mask, valid_ratios,
-                           src_ref_windows)
+                           src_ref_windows, fold=inference)
 
         tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
             enc_detector, output, src_mask, src_ref_windows)
 
         layers = self.decoder.layers
-        roi = deferred = None
+        inter, inter_roi = [], []
+        deferred = None
         for i, layer in enumerate(layers):
-            emit_roi = self.use_mask and i == len(layers) - 1
+            emit_roi = self.use_mask and (train or i == len(layers) - 1)
             if emit_roi and defer_mask:
                 emit_roi = "defer"
             tgt, roi = layer(tgt, dec_pos, output, v_shape, src_mask,
-                             valid_ratios, dec_ref_windows, emit_roi)
+                             valid_ratios, dec_ref_windows, emit_roi, train)
             if emit_roi == "defer":
                 deferred, roi = roi, None
+            inter.append(tgt)
+            inter_roi.append(roi)
 
         if defer_mask:
             return self._decode_topk_masks(detector, layers[-1], deferred, tgt,
                                            dec_ref_windows, postprocess)
-        hs = tgt[None]
-        roi = roi[None] if self.use_mask else None
+        if inference:
+            inter, inter_roi = inter[-1:], inter_roi[-1:]
+        hs = torch.stack(inter)
+        roi = torch.stack(inter_roi) if self.use_mask else None
+        enc_outputs = (self._compute_enc_outputs(enc_detector, output,
+                                                 src_ref_windows, src_mask)
+                       if train else None)
         return (hs, roi, dec_ref_windows, output, src_ref_windows, src_mask,
-                v_shape)
+                v_shape, enc_outputs)

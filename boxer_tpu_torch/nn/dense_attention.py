@@ -1,5 +1,5 @@
-"""Dense multi-head attention over the flash kernel (K3); port of
-`boxer_tpu/nn/dense_attention.py`.
+"""Dense multi-head attention over the flash kernel (K3, differentiable
+through `attention`); port of `boxer_tpu/nn/dense_attention.py`.
 
 Parameter names are the reference `nn.MultiheadAttention`'s
 (`in_proj_weight`, `in_proj_bias`, `out_proj`), so reference checkpoints
@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from boxer_tpu_torch.nn.init import lecun_normal_
-from boxer_tpu_torch.ops.flash_attention import NEG_INF, flash_attention
+from boxer_tpu_torch.ops.flash_attention import NEG_INF, attention
 
 
 class PallasMultiHeadAttention(nn.Module):
@@ -54,6 +54,6 @@ class PallasMultiHeadAttention(nn.Module):
         if key_padding_mask is not None:
             mask = torch.where(key_padding_mask, NEG_INF, 0.0).float()
             mask = mask.repeat_interleave(h, dim=0).contiguous()
-        out = flash_attention(q, k, v, mask)
+        out = attention(q, k, v, mask)
         out = out.reshape(b, h, lq, d).permute(0, 2, 1, 3).reshape(b, lq, c)
         return self.out_proj(out)

@@ -1,0 +1,186 @@
+"""Hungarian matching on the step's device; port of `boxer_tpu/nn/matcher.py`.
+
+An exact shortest-augmenting-path (Jonker-Volgenant style) solver with dual
+potentials, run in lockstep over every problem of a step: all problems take
+the same outer row loop, and the inner Dijkstra and augmenting loops run
+until the last problem is done, a finished problem keeping its state (what
+the JAX package's vmapped `lax.while_loop` does). Ties break as there:
+`argmin` takes the first minimum, the pruning top-k the lower index.
+
+Cost (focal labels): w_cls * (pos - neg)[q, label_t] + w_l1 * |b_q - b_t|_1
++ w_giou * (-GIoU). Invalid targets get a constant-zero cost row, which can
+take any leftover column without changing the valid rows' optimum. Matching
+carries no gradient: it runs under `torch.no_grad`.
+"""
+
+from typing import Tuple
+
+import torch
+
+from boxer_tpu_torch.utils.box_ops import (box_cxcywh_to_xyxy,
+                                           generalized_box_iou)
+from boxer_tpu_torch.utils.general import top_k
+
+BIG = 1e9
+
+
+def _hungarian_batched(cost):
+    """Min-cost assignment of each (n, m) problem of cost (N, n, m), n <= m.
+    Returns col4row (N, n) int64: the column assigned to each row."""
+    nb, n, m = cost.shape
+    dev = cost.device
+    cost = cost.float()
+    ar = torch.arange(nb, device=dev)
+    # 1-indexed over columns; column 0 is the virtual start column.
+    # p[:, j] = row assigned to column j (-1 = free); u, v duals.
+    u = torch.zeros(nb, n, device=dev)
+    v = torch.zeros(nb, m + 1, device=dev)
+    p = torch.full((nb, m + 1), -1, dtype=torch.long, device=dev)
+
+    for i in range(n):
+        p[:, 0] = i
+        minv = torch.full((nb, m + 1), BIG, device=dev)
+        minv[:, 0] = -BIG
+        way = torch.zeros(nb, m + 1, dtype=torch.long, device=dev)
+        used = torch.zeros(nb, m + 1, dtype=torch.bool, device=dev)
+        j0 = torch.zeros(nb, dtype=torch.long, device=dev)
+
+        while True:
+            i0 = p[ar, j0]
+            active = i0 != -1
+            if not bool(active.any()):
+                break
+            i0 = i0.clamp(min=0)
+            used_n = used.clone()
+            used_n[ar, j0] = True
+            cur = cost[ar, i0] - u[ar, i0][:, None] - v[:, 1:]
+            cur = torch.where(used_n[:, 1:], BIG, cur)
+            better = cur < minv[:, 1:]
+            minv_n = minv.clone()
+            minv_n[:, 1:] = torch.where(better, cur, minv[:, 1:])
+            way_n = way.clone()
+            way_n[:, 1:] = torch.where(better, j0[:, None], way[:, 1:])
+
+            masked = torch.where(used_n[:, 1:], BIG, minv_n[:, 1:])
+            j1 = masked.argmin(dim=1) + 1
+            delta = masked[ar, j1 - 1][:, None]
+            # dual update: rows of used columns += delta, their v -= delta;
+            # unused columns' reduced costs shrink by delta
+            # (a finished problem's last column is free: its p is -1)
+            rows = torch.where(used_n & (p >= 0), p, n)
+            row_mask = torch.zeros(nb, n + 1, dtype=torch.bool, device=dev)
+            row_mask = row_mask.scatter_(1, rows, True)[:, :n]
+            u_n = torch.where(row_mask, u + delta, u)
+            v_n = torch.where(used_n, v - delta, v)
+            minv_n = torch.where(used_n, minv_n, minv_n - delta)
+
+            act = active[:, None]
+            used = torch.where(act, used_n, used)
+            minv = torch.where(act, minv_n, minv)
+            way = torch.where(act, way_n, way)
+            u = torch.where(act, u_n, u)
+            v = torch.where(act, v_n, v)
+            j0 = torch.where(active, j1, j0)
+
+        # augment: walk back along `way`, shifting assignments
+        while True:
+            act = j0 != 0
+            if not bool(act.any()):
+                break
+            j1 = way[ar, j0]
+            p_n = p.clone()
+            p_n[ar, j0] = p[ar, j1]
+            p = torch.where(act[:, None], p_n, p)
+            j0 = torch.where(act, j1, j0)
+
+    # invert: col4row[r] = j such that p[j+1] == r (0-indexed real columns)
+    rows = torch.where(p[:, 1:] >= 0, p[:, 1:], n)
+    cols = torch.arange(m, device=dev).expand(nb, m)
+    col4row = torch.zeros(nb, n + 1, dtype=torch.long, device=dev)
+    return col4row.scatter_(1, rows, cols)[:, :n]
+
+
+@torch.no_grad()
+def hungarian(cost, row_valid):
+    """Batched assignment. cost: (..., NT, NQ); row_valid: (..., NT) bool.
+
+    Invalid rows are replaced by constant zeros. Returns col4row (..., NT)
+    int64; entries of invalid rows are arbitrary columns, to be masked by
+    the caller.
+
+    Column pruning (exact) when NQ > 4*NT: each problem is restricted to
+    the union of every row's NT cheapest columns. An optimal assignment that
+    used a column outside row i's NT best could swap to one of those NT
+    cheaper columns, at most NT-1 of which are taken, without raising the
+    total. Duplicate candidates get a BIG cost, so no column is assigned
+    twice. The encoder-output match (NT=20, NQ~20k) becomes a (20, 400)
+    solve.
+    """
+    cost = torch.where(row_valid[..., None], cost.float(), 0.0)
+    batch_shape = cost.shape[:-2]
+    nt, nq = cost.shape[-2:]
+    if nt > nq:
+        raise ValueError(f"hungarian: {nt} target rows for {nq} query "
+                         "columns; every row needs a column")
+    flat = cost.reshape(-1, nt, nq)
+    nb = flat.shape[0]
+    if nq > 4 * nt:
+        k = min(nt, nq)
+        _, idx = top_k(-flat, k)                          # (N, NT, k)
+        cand = idx.reshape(nb, nt * k).sort(dim=-1).values
+        dup = torch.cat([torch.zeros_like(cand[:, :1], dtype=torch.bool),
+                         cand[:, 1:] == cand[:, :-1]], dim=-1)
+        sub = flat.gather(2, cand[:, None, :].expand(nb, nt, nt * k))
+        sub = torch.where(dup[:, None, :], BIG, sub)
+        out = cand.gather(1, _hungarian_batched(sub))
+    else:
+        out = _hungarian_batched(flat)
+    return out.reshape(*batch_shape, nt)
+
+
+def _focal_class_cost(out_prob, tgt_labels, alpha=0.25, gamma=2.0):
+    """out_prob: (B, NQ, C) sigmoid probs; tgt_labels: (B, NT) int.
+    Returns (B, NQ, NT)."""
+    neg = (1 - alpha) * (out_prob ** gamma) * (-torch.log(1 - out_prob + 1e-8))
+    pos = alpha * ((1 - out_prob) ** gamma) * (-torch.log(out_prob + 1e-8))
+    labels = tgt_labels.long().clamp(0, out_prob.shape[-1] - 1)
+    idx = labels[:, None, :].expand(-1, out_prob.shape[1], -1)
+    return pos.gather(2, idx) - neg.gather(2, idx)
+
+
+class HungarianMatcher:
+    """2D matcher with the focal class cost.
+
+    __call__(outputs, targets) -> (query_idx (B, NT) int64, valid (B, NT)
+    bool) where outputs = {"pred_logits" (B,NQ,C), "pred_boxes" (B,NQ,4)}
+    and targets = {"labels" (B,NT), "boxes" (B,NT,4) cxcywh, "valid"
+    (B,NT)}. The softmax class cost (DETR) is not ported.
+    """
+
+    def __init__(self, cost_class=1.0, cost_bbox=1.0, cost_giou=1.0,
+                 focal_label=True):
+        if not focal_label:
+            raise NotImplementedError("the softmax class cost (DETR) is not "
+                                      "ported; BoxeR matches focal labels")
+        self.cost_class = cost_class
+        self.cost_bbox = cost_bbox
+        self.cost_giou = cost_giou
+
+    @torch.no_grad()
+    def cost_matrix(self, outputs, targets):
+        logits = outputs["pred_logits"].float()
+        out_bbox = outputs["pred_boxes"].float()
+        tgt_bbox = targets["boxes"].float()
+        cost_class = _focal_class_cost(torch.sigmoid(logits),
+                                       targets["labels"])
+        cost_bbox = (out_bbox[:, :, None, :] - tgt_bbox[:, None, :, :]
+                     ).abs().sum(-1)
+        cost_giou = -generalized_box_iou(box_cxcywh_to_xyxy(out_bbox),
+                                         box_cxcywh_to_xyxy(tgt_bbox))
+        return (self.cost_bbox * cost_bbox + self.cost_class * cost_class
+                + self.cost_giou * cost_giou)            # (B, NQ, NT)
+
+    def __call__(self, outputs, targets) -> Tuple[torch.Tensor, torch.Tensor]:
+        c = self.cost_matrix(outputs, targets)
+        valid = targets["valid"]
+        return hungarian(c.transpose(-1, -2), valid), valid

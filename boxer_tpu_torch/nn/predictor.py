@@ -106,10 +106,13 @@ class Detector(nn.Module):
         last.weight.data.zero_()
         last.bias.data.zero_()
 
-    def forward(self, x, ref_windows=None, roi=None, defer_mask: bool = False):
+    def forward(self, x, ref_windows=None, roi=None, x_mask=None,
+                defer_mask: bool = False):
         """x: (nl, B, L, C); ref_windows (B, L, 4) or (nl, B, L, 4); roi:
         (nl, B, L, s, s, C) with a mask head, or None with defer_mask=True
-        (the caller runs mask_embed on a selected-query subset)."""
+        (the caller runs mask_embed on a selected-query subset); x_mask
+        (nl, B, L) bool: masked entries get NEG_INF logits and coordinates
+        (zero boxes after the sigmoid)."""
         outputs_class = self.class_embed(x)
         outputs_coord = self.bbox_embed(x).float()
 
@@ -126,6 +129,11 @@ class Detector(nn.Module):
         if ref_windows is not None:
             assert ref_windows.shape[-1] == 4
             outputs_coord = outputs_coord + inverse_sigmoid(ref_windows.float())
+        if x_mask is not None:
+            outputs_class = outputs_class.masked_fill(x_mask[..., None],
+                                                      NEG_INF)
+            outputs_coord = outputs_coord.masked_fill(x_mask[..., None],
+                                                      NEG_INF)
         outputs_coord = torch.sigmoid(outputs_coord)
 
         out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}

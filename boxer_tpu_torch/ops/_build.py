@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-`csrc/*.cu` is compiled with `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, and loaded with `ctypes`. The build runs at
-first use, into `build/kernels/<hash>/` beside the package, where the hash
-covers the sources and the flags, so a changed source rebuilds. Importing
-this module needs no `nvcc` and no card; only `library()` does.
+`csrc/*.cu` is compiled with `nvcc` for Hopper (`sm_90a`), one `nvcc -c`
+per source, all started together, and linked into one shared library with a
+plain C interface, loaded with `ctypes`. The build runs at first use, into
+`build/kernels/<hash>/` beside the package, where the hash covers the
+sources and the flags, so a changed source rebuilds. Importing this module
+needs no `nvcc` and no card; only `library()` does.
 """
 
 import ctypes
@@ -18,7 +19,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB_NAME = "libboxer_kernels.so"
 
 _lib = None
@@ -51,12 +52,27 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{_LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
+    nvcc, tag = _nvcc(), f"{os.getpid()}"
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    build_log = "".join(logs)
+    failed = [src.name for src, proc in zip(_sources(), procs)
+              if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = out_dir / f".{_LIB_NAME}.{tag}"
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    build_log += proc.stdout + proc.stderr
+    for obj in objs:
+        obj.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{build_log}")
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -74,6 +90,9 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32,
                                             i32, i32, i32, ctypes.c_float, vp]
         lib.flash_attention_fwd.restype = i32
+        lib.scatter_accum.argtypes = [i32, vp, vp, i32, i32, vp, vp, i64, i32,
+                                      i32, vp]
+        lib.scatter_accum.restype = i32
         _lib = lib
     return _lib
 

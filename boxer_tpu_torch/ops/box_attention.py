@@ -1,9 +1,9 @@
-"""Multi-scale box attention / instance attention sampling ops, inference.
+"""Multi-scale box attention / instance attention sampling ops.
 
 PyTorch port of `boxer_tpu/ops/box_attention.py`: the quad-table layout
-(`_build_quad_tables`), the folded inference path of `box_attention_qminor`
-and the dual-output `instance_attention_qminor`, plus the reference-contract
-wrappers:
+(`_build_quad_tables`), `box_attention_qminor` (the folded inference path
+and the per-tap training path) and the dual-output
+`instance_attention_qminor`, plus the reference-contract wrappers:
 
   box_attention(value (B,S,H,Ch), shapes ((H1,W1),...), loc (B,Lq,H,L,P,2),
                 weight (B,Lq,H,L,P)) -> (B, Lq, H*Ch)
@@ -19,11 +19,15 @@ table whose row holds a pixel's 2x2 neighbourhood of the zero-bordered
 level, so one row carries all four bilinear corners and a tap is valid as a
 whole when its top-left corner lies in [-1, W-1] x [-1, H-1].
 
-Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ. The P-sum and
-the corner combine run in `quad_sample_reduce_raw` (K1, corner weights
-formed in the kernel, P <= 8) or `quad_sample_reduce_w4` (K2, precomputed
-corner weights, P > 8). The training path
-(per-tap sampling and custom backward) is not part of this port yet.
+Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ. At inference
+the P-sum and the corner combine run in `quad_sample_reduce_raw` (K1,
+corner weights formed in the kernel, P <= 8) or `quad_sample_reduce_w4`
+(K2, precomputed corner weights, P > 8), outside autograd. In training
+every level goes through `QuadSample`, an autograd Function over K2 whose
+backward scatters the table cotangent with K5 (box attention) or K6
+(instance attention); the corner weights are formed in torch, so autograd
+carries their cotangent back to the sampling grid and the attention
+weights. `floor` has zero gradient, so d frac / d x = 1, as in JAX.
 """
 
 from typing import Tuple
@@ -34,6 +38,8 @@ import torch.nn.functional as F
 from boxer_tpu_torch.ops.combine_reduce import (corner_weights,
                                                 quad_sample_reduce_raw,
                                                 quad_sample_reduce_w4)
+from boxer_tpu_torch.ops.scatter_accum import (
+    scatter_add_rows_pmajor_weighted, scatter_add_rows_weighted)
 from boxer_tpu_torch.utils.general import level_start_index
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -62,6 +68,50 @@ def _build_quad_tables(value, shapes: Shapes):
                        lvl[:, 1:, :-1], lvl[:, 1:, 1:]], dim=-1)
         tables.append(q.reshape(bh * (hl + 1) * (wl + 1), 4 * ch))
     return tables
+
+
+class QuadSample(torch.autograd.Function):
+    """`sample(table, idx, w4)`: the corner combine of quad-table rows, the
+    port of `_sample_taps_vjp` (`boxer_tpu/ops/box_attention.py:221`).
+
+    table (R, 4*ch), idx (P, M) int32, w4 (P, 4, M) f32. With per_tap=False
+    returns sum_p sum_c w4[p, c, m] * table[idx[p, m], c] -> (M, ch) f32 (box
+    attention); with per_tap=True the P taps are not summed -> (P*M, ch) f32
+    in p-major order (instance attention). The forward is K2; the backward
+    returns d_table through K5 (g shared by the P taps) or K6 (g per tap),
+    cast to the table's dtype, and d_w4[p, c, m] = <table[idx[p, m], c],
+    g[row]> in plain torch, as the JAX package computes it in XLA. The same
+    Function runs on both devices; only the kernel wrappers inside dispatch.
+    """
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, table, idx, w4, per_tap: bool):
+        ctx.save_for_backward(table, idx, w4)
+        ctx.per_tap = per_tap
+        if not per_tap:
+            return quad_sample_reduce_w4(table, idx, w4)
+        p, m = idx.shape
+        return quad_sample_reduce_w4(
+            table, idx.reshape(1, p * m),
+            w4.transpose(0, 1).reshape(1, 4, p * m))
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        table, idx, w4 = ctx.saved_tensors
+        p, m = idx.shape
+        g = g.float().contiguous()
+        d_table = d_w4 = None
+        if ctx.needs_input_grad[0]:
+            scatter = (scatter_add_rows_pmajor_weighted if ctx.per_tap
+                       else scatter_add_rows_weighted)
+            d_table = scatter(idx, g, w4, table.shape[0]).to(table.dtype)
+        if ctx.needs_input_grad[2]:
+            vals = table[idx.reshape(-1).long()].float().reshape(p, m, 4, -1)
+            g_row = g.reshape(p if ctx.per_tap else 1, m, 1, -1)
+            d_w4 = (vals * g_row).sum(-1).transpose(1, 2)        # (P, 4, M)
+        return d_table, None, d_w4, None
 
 
 def _tap_rows(gx, gy, hl: int, wl: int):
@@ -97,7 +147,7 @@ def _merge_heads(raw):
 
 
 def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
-                         raw: bool = False):
+                         raw: bool = False, fold: bool = True):
     """Box attention, query-minor inputs.
 
     value:       (B, S, H, Ch)
@@ -105,6 +155,9 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     attn_weight: (B, H, L, P, LQ), softmax-normalized over (L, P)
     returns      (B, LQ, H*Ch), or (B, H, LQ, Ch) when raw=True, in
                  value.dtype; accumulation is f32.
+    fold=True is the inference path (K1/K2, no autograd through them);
+    fold=False the differentiable per-tap path (`QuadSample`: K2, K5), the
+    JAX package's `fold=None` at P <= 8.
     """
     b, s, nh, ch = value.shape
     _, _, nl, npt, lq = gx.shape
@@ -122,7 +175,10 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
         idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
         w_tap = torch.where(valid, aw[li], 0.0)
         idx = idx.reshape(npt, m)
-        if npt <= ONEPASS_MAX_P:
+        if not fold:
+            w4 = corner_weights(lx, ly, w_tap).reshape(npt, 4, m)
+            out = out + QuadSample.apply(tables[li], idx, w4, False)
+        elif npt <= ONEPASS_MAX_P:
             out = out + quad_sample_reduce_raw(
                 tables[li], idx, lx.reshape(npt, m), ly.reshape(npt, m),
                 w_tap.reshape(npt, m))
@@ -149,7 +205,7 @@ def box_attention(value, shapes: Shapes, sampling_loc, attn_weight):
 
 def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
                               level_weight, kernel_size: int,
-                              raw: bool = False):
+                              raw: bool = False, train: bool = False):
     """Instance attention, query-minor inputs: one sampling pass, two sums.
 
       out[b,h,q]    = sum_{l,p} spatial_w * sample(l, p)
@@ -157,8 +213,9 @@ def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
 
     gx/gy/spatial_weight/level_weight: (B, H, L, P=k*k, LQ).
     Returns (out (B,LQ,H*Ch) — or (B,H,LQ,Ch) when raw=True — and mask_out
-    (B,LQ,k,k,H*Ch)), in value.dtype. Plain torch: the JAX package runs this
-    op in XLA with no Pallas kernel.
+    (B,LQ,k,k,H*Ch)), in value.dtype. The per-tap samples are a plain
+    gather at inference (the JAX package runs this op in XLA with no Pallas
+    kernel) and `QuadSample` (K2, K6) with train=True.
     """
     b, s, nh, ch = value.shape
     _, _, nl, npt, lq = gx.shape
@@ -178,8 +235,14 @@ def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
     for li, (hl, wl) in enumerate(shapes):
         idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
         bw4 = corner_weights(lx, ly, valid.float()).reshape(npt, 4, m)
-        g = tables[li][idx.reshape(-1).long()].float().reshape(npt, m, 4, ch)
-        taps = (g * bw4.transpose(1, 2)[..., None]).sum(dim=2)   # (P, M, Ch)
+        idx = idx.reshape(npt, m)
+        if train:
+            taps = QuadSample.apply(tables[li], idx, bw4, True).reshape(
+                npt, m, ch)
+        else:
+            g = tables[li][idx.reshape(-1).long()].float().reshape(
+                npt, m, 4, ch)
+            taps = (g * bw4.transpose(1, 2)[..., None]).sum(dim=2)  # (P,M,Ch)
         out = out + (taps * sw[li].reshape(npt, m, 1)).sum(dim=0)
         mask = mask + taps * lw[li].reshape(npt, m, 1)
 

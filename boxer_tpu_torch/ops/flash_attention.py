@@ -2,7 +2,10 @@
 
 PyTorch port of `boxer_tpu/ops/pallas/flash_attention.py`. `flash_attention`
 launches the CUDA kernel (`boxer_tpu_torch/csrc/flash_attention.cu`) on CUDA
-tensors and runs `flash_attention_plain` on CPU tensors.
+tensors and runs `flash_attention_plain` on CPU tensors. `attention` is the
+differentiable entry: its forward is `flash_attention`, its backward
+recomputes `flash_attention_plain` in f32 under autograd, as the JAX
+package's `_attention_bwd` takes the oracle's AD (no backward kernel).
 """
 
 import math
@@ -69,3 +72,29 @@ def flash_attention(q, k, v, mask: Optional[torch.Tensor] = None,
 
 
 flash_attention.launches = 0
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, mask, sm_scale):
+        ctx.save_for_backward(q, k, v, mask)
+        ctx.sm_scale = sm_scale
+        return flash_attention(q, k, v, mask, sm_scale)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        q, k, v, mask = ctx.saved_tensors
+        qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad(), torch.autocast(q.device.type,
+                                                 enabled=False):
+            out = flash_attention_plain(*qkv, mask, ctx.sm_scale)
+        dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None
+
+
+def attention(q, k, v, mask: Optional[torch.Tensor] = None,
+              sm_scale: Optional[float] = None):
+    """Differentiable `flash_attention` (same arguments and result)."""
+    return _Attention.apply(q, k, v, mask, sm_scale)

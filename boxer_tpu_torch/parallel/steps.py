@@ -1,0 +1,100 @@
+"""The training step; port of `boxer_tpu/parallel/steps.py:make_train_step`.
+
+One update: forward + criterion (matching on the step's device) and
+backward for each microbatch, the gradients summed over microbatches that
+share the update's global `num_boxes`; then the global-norm clip, the
+NaN/Inf skip (no update, no optimizer-state change, step not advanced) and
+the AdamW update at the scheduled LR. On a CUDA card the forward runs under
+`torch.autocast(bfloat16)` when `compute_dtype` is bf16, with parameters in
+f32: the torch idiom for flax's `dtype=bf16` modules.
+"""
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from boxer_tpu_torch.criterion.losses import weighted_total
+from boxer_tpu_torch.optim import clip_by_global_norm, set_lr
+
+
+@dataclass
+class TrainState:
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    schedule: Optional[Callable[[int], float]] = None
+    step: int = 0                  # completed updates
+
+
+def make_train_step(criterion, max_norm: float = 0.0,
+                    compute_dtype: torch.dtype = torch.float32,
+                    debug_grads: bool = False) -> Callable:
+    """Returns train_step(state, batch) -> (state, stats), updating `state`
+    in place.
+
+    batch = {"image": (A, B, H, W, 3), "mask": (A, B, H, W) or None,
+             "targets": {labels (A,B,NT), boxes (A,B,NT,4), valid (A,B,NT)
+                         [, instance_masks (A,B,NT,s,s)]}}
+    with A = iter_per_update microbatches, all on the model's device.
+    stats: every loss term (summed over microbatches), total_loss,
+    grad_norm (before clipping), num_boxes, skipped (1.0 when the update
+    was skipped) as host floats, and with debug_grads `_grads`, the
+    pre-clip summed gradients by parameter name.
+    """
+    weight_dict = criterion.expanded_weight_dict(num_aux=16, num_enc=2)
+
+    def autocast(device):
+        if compute_dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(device.type, dtype=compute_dtype)
+
+    def train_step(state: TrainState, batch):
+        model = state.model
+        params = [p for p in model.parameters() if p.requires_grad]
+        targets = batch["targets"]
+        num_boxes = criterion.compute_num_boxes(targets)
+        model.train()
+        for p in params:
+            p.grad = None
+
+        loss_acc, stats_acc = 0.0, {}
+        for a in range(targets["valid"].shape[0]):
+            mb_targets = {k: v[a] for k, v in targets.items()}
+            mask = batch.get("mask")
+            with autocast(batch["image"].device):
+                out = model(batch["image"][a],
+                            None if mask is None else mask[a],
+                            train=True, inference=False)
+            losses = criterion(out, mb_targets, num_boxes=num_boxes)
+            total, stats = weighted_total(losses, weight_dict)
+            total.backward()
+            loss_acc = loss_acc + total.detach()
+            for k, v in stats.items():
+                stats_acc[k] = stats_acc.get(k, 0.0) + v.detach()
+
+        raw_grads = ({n: None if p.grad is None else p.grad.clone()
+                      for n, p in model.named_parameters() if p.requires_grad}
+                     if debug_grads else None)
+        for p in params:
+            # an unused parameter's gradient is zero, as under jax.grad, so
+            # AdamW still decays it
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grad_norm = clip_by_global_norm([p.grad for p in params], max_norm)
+        ok = bool(torch.isfinite(grad_norm))
+        if ok:
+            set_lr(state.optimizer, state.schedule, state.step)
+            state.optimizer.step()
+            state.step += 1
+
+        out_stats = {k: float(v) for k, v in stats_acc.items()}
+        out_stats.update(total_loss=float(loss_acc),
+                         grad_norm=float(grad_norm),
+                         num_boxes=float(num_boxes),
+                         skipped=0.0 if ok else 1.0)
+        if debug_grads:
+            out_stats["_grads"] = raw_grads
+        return state, out_stats
+
+    return train_step

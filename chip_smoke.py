@@ -4,10 +4,11 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 1. device: requires a CUDA card and prints `nvidia-smi`'s name, power.limit;
-2. build: compiles the CUDA kernels from boxer_tpu_torch/csrc with nvcc;
-3. each kernel against its plain PyTorch version at the inference slice's
-   shapes, with its error and its time beside the plain version's (CUDA
-   events);
+2. build: compiles the CUDA kernels from boxer_tpu_torch/csrc with nvcc (one
+   nvcc per source, all started together);
+3. each kernel against its plain PyTorch version at the slices' shapes, with
+   its error and its time beside the plain version's (CUDA events): K1-K3
+   (inference), then (3b) the d_value scatters K5 and K6 (training);
 4. the full-width slice: BoxeR-2D R50 (hidden 256, 8 heads, 6+6 layers, 300
    queries, 91 classes) in bf16 at batch 1 on an 800x1216 canvas with
    seeded random weights, segm with the deferred top-100 mask decode, then
@@ -17,13 +18,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (kernels) against CPU (plain versions): identical top-k labels, scores
    and boxes within atol 1e-3, fewer than 1e-3 of mask pixels different;
 6. one more segm forward under torch.profiler: the device's busy time
-   against the forward's time, and the kernels that take the most of it.
+   against the forward's time, and the kernels that take the most of it;
+7. the training slice at full width, segm then detection: one train step
+   (matcher, criterion, backward, clip, AdamW) with f32 parameters and the
+   forward under bf16 autocast, on a synthetic batch of 1 at 800x1216 with
+   20 targets; 1 warm-up step and 5 timed on the host clock up to a
+   synchronize; ms/step, peak memory, the loss terms of the first and last
+   step, the kernels' launches per step (which must match every call site),
+   then one more segm step under torch.profiler;
+8. one train step at 256x384 in f32 (no TF32, no autocast) with phase 5's
+   weights, card (kernels) against CPU (plain versions): identical matched
+   query indices in every match, loss terms within rel 1e-4, the gradient
+   norm within 1e-3, pre-clip gradients within a worst-leaf rel err of 0.1
+   (a ReLU input within rounding of 0 takes the other branch on the other
+   device, see `train_card_vs_cpu`); and the same step on the card with
+   K5/K6 swapped for their plain version, the same forward: pre-clip
+   gradients within a worst-leaf rel err of 1e-4.
 
-Prints the slice's img/s and one JSON line of per-kernel results, then last
-{"ok": true, "device": {...}}. Any failed phase raises: the exit code is
-not 0 and no ok line is printed.
+Prints the slices' img/s and ms/step and one JSON line of per-kernel
+results, then last {"ok": true, "device": {...}}. Any failed phase raises:
+the exit code is not 0 and no ok line is printed.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -41,6 +58,21 @@ CANVAS = (800, 1216)
 E2E_CANVAS = (256, 384)
 SEGM_ITERS = 10
 DET_ITERS = 10
+TRAIN_STEPS = 5
+# the JAX recipe of tools/mfu_bench.py:measure_train
+TRAIN_WEIGHTS = {"loss_ce": 2.0, "loss_bbox": 5.0, "loss_giou": 2.0}
+MASK_WEIGHTS = {"loss_mask": 5.0, "loss_dice": 5.0}
+OPTIM = {"type": "adamw", "params": {"lr": 2e-4, "lr_backbone": 2e-5,
+                                     "weight_decay": 1e-4}}
+SCHEDULE = {"type": "multi_step", "params": {"lr_steps": [10 ** 9],
+                                             "lr_ratio": 0.1,
+                                             "use_warmup": False}}
+# launches per train step at every call site: K2 is the forward of every
+# sampling level (6 encoder + 6 decoder layers x 4 levels), K5 the backward
+# of each box-attention level, K6 of each instance-attention level, K3 the 6
+# decoder self-attentions (its backward is plain autograd)
+TRAIN_LAUNCHES = {True: {"K1": 0, "K2": 48, "K3": 6, "K5": 24, "K6": 24},
+                  False: {"K1": 0, "K2": 48, "K3": 6, "K5": 48, "K6": 0}}
 
 
 def log(*args):
@@ -48,7 +80,7 @@ def log(*args):
 
 
 def rel_err(a, b):
-    a, b = a.double(), b.double()
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
 
 
@@ -71,6 +103,7 @@ def check_kernels(dev):
     Returns {name: result dict}."""
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
+    from boxer_tpu_torch.ops import scatter_accum as sa
 
     rs = np.random.RandomState(0)
     # encoder / decoder level 0 at 800x1216: 8 heads x 101 x 153 quad rows
@@ -107,6 +140,22 @@ def check_kernels(dev):
         kernel=lambda: fa.flash_attention(*qkv16),
         plain=lambda: fa.flash_attention_plain(*qkv16),
         tol=1e-2, shape="BH=8 L=300 D=32 bf16")
+
+    # 3b. the backward scatters, f32 cotangents as the backward hands them
+    idx5, *_, w45 = taps(4, m_enc)
+    g5 = torch.from_numpy(rs.randn(m_enc, 32).astype(np.float32)).to(dev)
+    results["K5"] = dict(
+        kernel=lambda: sa.scatter_add_rows_weighted(idx5, g5, w45, rows),
+        plain=lambda: sa.scatter_accum_plain(idx5, g5, w45, rows, False),
+        tol=1e-5, shape=f"P=4 M={m_enc} shared g, table {rows}x128 f32")
+    idx6, *_, w46 = taps(196, m_dec)
+    g6 = torch.from_numpy(rs.randn(196 * m_dec, 32).astype(np.float32)).to(
+        dev)
+    results["K6"] = dict(
+        kernel=lambda: sa.scatter_add_rows_pmajor_weighted(idx6, g6, w46,
+                                                            rows),
+        plain=lambda: sa.scatter_accum_plain(idx6, g6, w46, rows, True),
+        tol=1e-5, shape=f"P=196 M={m_dec} per-tap g, table {rows}x128 f32")
 
     for name, r in results.items():
         got, want = r["kernel"](), r["plain"]()
@@ -150,9 +199,11 @@ def make_image(hw, seed=0):
 def counters():
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
+    from boxer_tpu_torch.ops import scatter_accum as sa
 
     return {"K1": cr.quad_sample_reduce_raw, "K2": cr.quad_sample_reduce_w4,
-            "K3": fa.flash_attention}
+            "K3": fa.flash_attention, "K5": sa.scatter_add_rows_weighted,
+            "K6": sa.scatter_add_rows_pmajor_weighted}
 
 
 def run_slice(dev, use_mask, iters, label):
@@ -195,8 +246,8 @@ def run_slice(dev, use_mask, iters, label):
     # per forward: K1 in 6 encoder layers x 4 levels (+ 6 decoder layers x 4
     # levels when detection only), K2 in 5 decoder layers x 4 levels, K3 in
     # 6 decoder self-attentions
-    per_fwd = ({"K1": 24, "K2": 20, "K3": 6} if use_mask
-               else {"K1": 48, "K2": 0, "K3": 6})
+    per_fwd = ({"K1": 24, "K2": 20, "K3": 6, "K5": 0, "K6": 0} if use_mask
+               else {"K1": 48, "K2": 0, "K3": 6, "K5": 0, "K6": 0})
     expect = {k: v * iters for k, v in per_fwd.items()}
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != {expect}")
@@ -218,7 +269,7 @@ def card_vs_cpu(dev):
                                             postprocess=post).items()}
     torch.cuda.synchronize()
     after = {k: f.launches for k, f in counters().items()}
-    if any(after[k] == before[k] for k in after):
+    if any(after[k] == before[k] for k in ("K1", "K2", "K3")):
         raise AssertionError("card run did not go through every kernel")
     label_eq = bool((got["labels"] == want["labels"]).all())
     score_err = float((got["scores"] - want["scores"]).abs().max())
@@ -233,33 +284,237 @@ def card_vs_cpu(dev):
     return dict(score_err=score_err, box_err=box_err, mask_diff=mask_diff)
 
 
-def profile(dev, forward_ms):
-    """Phase 6: one segm forward under torch.profiler. Prints the device's
-    summed kernel time against the unprofiled forward time (the busy share;
-    the rest the device idles while the host dispatches) and the top
-    kernels by device time."""
+def profile(fn, wall_ms, label):
+    """Run fn() once under torch.profiler after a warm-up call. Prints the
+    device's summed kernel time against the unprofiled wall time `wall_ms`
+    (the busy share; the rest the device idles while the host dispatches)
+    and the top kernels by device time. Returns (busy ms, share)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f"profile, {label}: device busy {busy_ms:.2f} ms of a {wall_ms:.2f} "
+        f"ms run ({100 * busy_ms / wall_ms:.1f}%); top kernels:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
+            f"{e.key[:90]}")
+    return busy_ms, busy_ms / wall_ms
+
+
+def profile_forward(dev, forward_ms):
+    """Phase 6: one segm forward under the profiler."""
     model = build_model(True).to(dev, torch.bfloat16)
     image, mask = (t.to(dev) for t in make_image(CANVAS))
     post = {"canvas_hw": CANVAS, "topk": 100}
     with torch.no_grad():
-        model(image, mask, postprocess=post)
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            model(image, mask, postprocess=post)
-            torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"profile: device busy {busy_ms:.2f} ms of a {forward_ms:.2f} ms "
-        f"segm forward ({100 * busy_ms / forward_ms:.1f}%); top kernels:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
-        log(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
-            f"{e.key[:90]}")
+        profile(lambda: model(image, mask, postprocess=post), forward_ms,
+                "segm forward")
     del model
     torch.cuda.empty_cache()
+
+
+def train_setup(model, use_mask, compute_dtype, debug_grads=False):
+    """The recipe's criterion, AdamW and train step around `model`."""
+    from boxer_tpu_torch.criterion.losses import Boxer2DCriterion
+    from boxer_tpu_torch.nn.matcher import HungarianMatcher
+    from boxer_tpu_torch.optim import build_optimizer, build_schedule
+    from boxer_tpu_torch.parallel.steps import TrainState, make_train_step
+
+    weights = dict(TRAIN_WEIGHTS, **(MASK_WEIGHTS if use_mask else {}))
+    losses = ["boxes", "focal_labels"] + (["masks"] if use_mask else [])
+    criterion = Boxer2DCriterion(BENCH["num_classes"],
+                                 HungarianMatcher(2, 5, 2, focal_label=True),
+                                 weights, losses)
+    state = TrainState(model, build_optimizer(OPTIM, model),
+                       build_schedule(SCHEDULE, base_lr=2e-4))
+    step = make_train_step(criterion, max_norm=0.1,
+                           compute_dtype=compute_dtype,
+                           debug_grads=debug_grads)
+    return criterion, state, step
+
+
+def train_batch(hw, use_mask, dev, seed=0):
+    from boxer_tpu_torch.dataset.synthetic import synthetic_batch
+
+    batch = synthetic_batch(1, *hw, num_targets=20,
+                            num_classes=BENCH["num_classes"],
+                            with_masks=use_mask, seed=seed,
+                            iter_per_update=1)
+
+    def put(x):
+        return {k: put(v) for k, v in x.items()} if isinstance(x, dict) \
+            else torch.from_numpy(x).to(dev)
+
+    return put(batch)
+
+
+def check_grads(grads, label):
+    """Every trainable parameter has a finite gradient, and no sampling
+    layer's value_proj / linear_box_weight / linear_attn_weight gradient is
+    all zero (a detached kernel output would leave them so)."""
+    bad = [n for n, g in grads.items()
+           if g is None or not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"{label}: missing or non-finite grads {bad}")
+    watched = [n for n in grads if "value_proj" in n
+               or n.endswith(("linear_box_weight", "linear_attn_weight"))]
+    zero = [n for n in watched if not bool(grads[n].abs().max() > 0)]
+    n_layers = BENCH["enc_layers"] + BENCH["dec_layers"]
+    if zero or len(watched) != 4 * n_layers:
+        raise AssertionError(f"{label}: zero grads in {zero} "
+                             f"({len(watched)} watched)")
+
+
+def run_train(dev, use_mask, label, profiled=False):
+    """Phase 7: a warm-up step (its pre-clip gradients checked), then
+    TRAIN_STEPS timed steps on the same batch with the launch counters
+    zeroed just before them. Returns (median ms/step, counts)."""
+    from boxer_tpu_torch.parallel.steps import make_train_step
+
+    model = build_model(use_mask).to(dev).train()
+    criterion, state, step = train_setup(model, use_mask, torch.bfloat16)
+    debug_step = make_train_step(criterion, max_norm=0.1,
+                                 compute_dtype=torch.bfloat16,
+                                 debug_grads=True)
+    batch = train_batch(CANVAS, use_mask, dev)
+    terms = (["total_loss", "loss_ce", "loss_bbox", "loss_giou"]
+             + (["loss_mask", "loss_dice"] if use_mask else [])
+             + ["loss_ce_enc_0", "grad_norm"])
+
+    def show(stats):
+        return ", ".join(f"{k} {stats[k]:.5g}" for k in terms)
+
+    state, first = debug_step(state, batch)
+    torch.cuda.synchronize()
+    check_grads(first.pop("_grads"), label)
+    all_stats = [first]
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in counters().values():
+        f.launches = 0
+    times = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, stats = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        all_stats.append(stats)
+    counts = {k: f.launches for k, f in counters().items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms = float(np.median(times))
+    log(f"{label}: {ms:.2f} ms/step median of {TRAIN_STEPS} steps "
+        f"({', '.join(f'{t:.2f}' for t in times)}); peak {peak:.2f} GiB; "
+        f"launches per step {({k: v / TRAIN_STEPS for k, v in counts.items()})}")
+    log(f"  first step: {show(all_stats[0])}")
+    log(f"  last step:  {show(all_stats[-1])}")
+    for i, st in enumerate(all_stats):
+        if st["skipped"] != 0.0 or not all(np.isfinite(v) for k, v in
+                                           st.items() if k != "_grads"):
+            raise AssertionError(f"{label}: step {i} skipped or not finite: "
+                                 f"{st}")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad or state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"{label}: after the last step {bad}, step "
+                             f"{state.step}")
+    expect = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES[use_mask].items()}
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts} != {expect}")
+    busy = profile(lambda: step(state, batch), ms,
+                   f"segm train step") if profiled else None
+    del model, state, step, debug_step
+    torch.cuda.empty_cache()
+    return ms, peak, counts, busy
+
+
+class RecordingMatcher:
+    """A matcher that keeps every match it returns (on the CPU)."""
+
+    def __init__(self, matcher):
+        self.matcher, self.calls = matcher, []
+
+    def __call__(self, outputs, targets):
+        qi, valid = self.matcher(outputs, targets)
+        self.calls.append(torch.where(valid, qi, -1).cpu())
+        return qi, valid
+
+
+def train_card_vs_cpu(dev):
+    """Phase 8: one f32 train step with phase 5's weights on the CPU (plain
+    versions), on the card (kernels), and on the card with K5/K6 swapped for
+    their plain version (the same forward, so the same ReLU branches)."""
+    import copy
+
+    from boxer_tpu_torch.ops import box_attention as ba
+    from boxer_tpu_torch.ops import scatter_accum as sa
+
+    model = build_model(True, seed=1, noise_seed=2).train()
+
+    def run(device):
+        m = copy.deepcopy(model).to(device)
+        criterion, state, step = train_setup(m, True, torch.float32,
+                                             debug_grads=True)
+        criterion.matcher = RecordingMatcher(criterion.matcher)
+        before = {k: f.launches for k, f in counters().items()}
+        _, stats = step(state, train_batch(E2E_CANVAS, True, device, seed=1))
+        after = {k: f.launches for k, f in counters().items()}
+        stats["_grads"] = {n: g.cpu() for n, g in stats["_grads"].items()}
+        return stats, criterion.matcher.calls, {k: after[k] - before[k]
+                                                for k in after}
+
+    want, want_qi, cpu_launches = run(torch.device("cpu"))
+    got, got_qi, launches = run(dev)
+    kernels = (ba.scatter_add_rows_weighted, ba.scatter_add_rows_pmajor_weighted)
+    ba.scatter_add_rows_weighted = functools.partial(sa.scatter_accum_plain,
+                                                     per_tap=False)
+    ba.scatter_add_rows_pmajor_weighted = functools.partial(
+        sa.scatter_accum_plain, per_tap=True)
+    try:
+        plain, _, plain_launches = run(dev)
+    finally:
+        ba.scatter_add_rows_weighted, ba.scatter_add_rows_pmajor_weighted = \
+            kernels
+    if any(cpu_launches.values()) or not all(
+            launches[k] for k in ("K2", "K3", "K5", "K6")) or (
+            plain_launches["K5"] or plain_launches["K6"]):
+        raise AssertionError(f"launches: CPU {cpu_launches}, card "
+                             f"{launches}, card with plain K5/K6 "
+                             f"{plain_launches}")
+    same_match = len(got_qi) == len(want_qi) and all(
+        torch.equal(g, w) for g, w in zip(got_qi, want_qi))
+    keys = [k for k in want if k.startswith("loss_")] + ["total_loss"]
+    loss_err = max(rel_err(got[k], want[k]) for k in keys)
+    norm_err = rel_err(got["grad_norm"], want["grad_norm"])
+
+    def leaf_errs(a, b):
+        errs = {n: rel_err(a["_grads"][n], g) for n, g in b["_grads"].items()}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst, float(np.median(list(errs.values())))
+
+    cpu_err, cpu_leaf, cpu_median = leaf_errs(got, want)
+    k56_err, k56_leaf, _ = leaf_errs(got, plain)
+    log(f"train step at {E2E_CANVAS} f32: card vs CPU {len(got_qi)} matches "
+        f"identical {same_match}, loss terms ({len(keys)}) worst rel err "
+        f"{loss_err:.3e}, grad norm {norm_err:.3e}, pre-clip grads worst "
+        f"leaf rel err {cpu_err:.3e} ({cpu_leaf}), median leaf "
+        f"{cpu_median:.3e}; card K5/K6 vs their plain version in the same "
+        f"step: worst leaf {k56_err:.3e} ({k56_leaf})")
+    # card vs CPU, the gradients: a ReLU whose input lies within rounding of
+    # 0 takes the other branch on the other device and moves every leaf
+    # upstream of it (one such unit of 2.09M in encoder layer 5 moves its
+    # linear1 by 1.8e-2, backbone.layer4.1.conv1 by 2.75e-2), so the bound
+    # there only catches gross faults such as a detached kernel output (rel
+    # err 1); the kernels' own backward is held tightly in the same step
+    if not (same_match and loss_err <= 1e-4 and norm_err <= 1e-3
+            and cpu_err <= 0.1 and k56_err <= 1e-4):
+        raise AssertionError("train step: card and CPU disagree")
+    return dict(loss_err=loss_err, grad_err=cpu_err, k56_err=k56_err)
 
 
 def main():
@@ -288,37 +543,55 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions (3b: K5, K6)
     kern = check_kernels(dev)
 
-    # 4. the slice at full width
+    # 4. the inference slice at full width
     segm_fps, segm_counts = run_slice(dev, True, SEGM_ITERS,
                                       f"segm R50 {CANVAS} bf16 [{smi}]")
-    det_fps, _ = run_slice(dev, False, DET_ITERS,
-                           f"detection R50 {CANVAS} bf16 [{smi}]")
+    det_fps, det_counts = run_slice(dev, False, DET_ITERS,
+                                    f"detection R50 {CANVAS} bf16 [{smi}]")
 
     # 5. card against CPU
     card_vs_cpu(dev)
 
-    # 6. where the device time goes
-    profile(dev, 1e3 / segm_fps)
+    # 6. where the device time of a forward goes
+    profile_forward(dev, 1e3 / segm_fps)
+
+    # 7. the training slice at full width
+    segm_ms, segm_peak, segm_train_counts, segm_busy = run_train(
+        dev, True, f"segm train R50 {CANVAS} bf16 autocast [{smi}]",
+        profiled=True)
+    det_ms, det_peak, det_train_counts, _ = run_train(
+        dev, False, f"detection train R50 {CANVAS} bf16 autocast [{smi}]")
+
+    # 8. one train step, card against CPU
+    train_card_vs_cpu(dev)
 
     sources = {"K1": ("quad_sample_reduce_raw", "quad_sample_reduce.cu",
                       "boxer_tpu/ops/pallas/combine_reduce.py:123"),
                "K2": ("quad_sample_reduce_w4", "quad_sample_reduce.cu",
                       "boxer_tpu/ops/pallas/combine_reduce.py:264"),
                "K3": ("flash_attention", "flash_attention.cu",
-                      "boxer_tpu/ops/pallas/flash_attention.py:69")}
+                      "boxer_tpu/ops/pallas/flash_attention.py:69"),
+               "K5": ("scatter_add_rows_weighted", "scatter_accum.cu",
+                      "boxer_tpu/ops/pallas/scatter_accum.py:330"),
+               "K6": ("scatter_add_rows_pmajor_weighted", "scatter_accum.cu",
+                      "boxer_tpu/ops/pallas/scatter_accum.py:401")}
+    runs = (segm_counts, det_counts, segm_train_counts, det_train_counts)
     kernels = []
     for key, (name, src, replaces) in sources.items():
         r = kern[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"boxer_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": segm_counts[key], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"]})
-    log(f"slice [{smi}]: segm {segm_fps:.3f} img/s, detection "
-        f"{det_fps:.3f} img/s")
+            "launches": sum(c[key] for c in runs),
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"]})
+    log(f"slices [{smi}]: segm {segm_fps:.3f} img/s, detection "
+        f"{det_fps:.3f} img/s; train segm {segm_ms:.2f} ms/step (peak "
+        f"{segm_peak:.2f} GiB, device busy {100 * segm_busy[1]:.1f}%), "
+        f"train detection {det_ms:.2f} ms/step (peak {det_peak:.2f} GiB)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

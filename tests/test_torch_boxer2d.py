@@ -163,14 +163,6 @@ def test_port_weights_load_into_jax_model():
     _compare_outputs(got, want)
 
 
-def test_training_is_not_ported():
-    from boxer_tpu_torch.models.boxer2d import BoxeR2D
-
-    tm = BoxeR2D(**TINY)
-    with pytest.raises(NotImplementedError):
-        tm(torch.zeros(1, H, W, 3), train=True)
-
-
 def test_port_imports_no_jax():
     """Importing every module of the port leaves jax and the JAX package
     out of the process."""

@@ -3,8 +3,10 @@ kernels.
 
 On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
 its Pallas kernel in the TPU interpret mode (as tests/test_flash_attention.py
-does), with the gathered rows `g = table[idx]` taken in numpy. Both
-accumulate in f32 and differ only in summation order: rel err <= 1e-5.
+and tests/test_scatter_interpret.py do), with the gathered rows
+`g = table[idx]` taken in numpy. Both accumulate in f32 and differ only in
+summation order: rel err <= 1e-5. The scatters (K5, K6) take global table
+rows where the JAX kernels take rows relative to each (batch*head) slice.
 
 The cases that compare a CUDA kernel with its plain version need a card
 (marker `gpu`) and skip without one. jax is imported only inside the JAX
@@ -22,6 +24,9 @@ from boxer_tpu_torch.ops.combine_reduce import (quad_sample_reduce_plain,
                                                 quad_sample_reduce_w4)
 from boxer_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
+from boxer_tpu_torch.ops.scatter_accum import (
+    scatter_accum_plain, scatter_add_rows_pmajor_weighted,
+    scatter_add_rows_weighted)
 
 RTOL = 1e-5
 
@@ -46,6 +51,22 @@ def interp():
         f.cache_clear()
     with pltpu.force_tpu_interpret_mode():
         yield cr
+    for f in caches:
+        f.cache_clear()
+
+
+@pytest.fixture()
+def interp_scatter():
+    """As `interp`, for the weighted scatter kernels."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    import boxer_tpu.ops.pallas.scatter_accum as sa
+
+    caches = (sa._build_call_weighted, sa._build_call_pmajor_weighted)
+    for f in caches:
+        f.cache_clear()
+    with pltpu.force_tpu_interpret_mode():
+        yield sa
     for f in caches:
         f.cache_clear()
 
@@ -126,17 +147,81 @@ def test_k3_matches_pallas(masked):
     assert _rel_err(got.numpy(), np.asarray(want)) <= RTOL
 
 
+def _scatter_case(p, bh, n, rb, seed):
+    """Slice-relative rows with the slice's first and last row and many
+    repeats (rb is small), g and corner weights."""
+    rs = np.random.RandomState(seed)
+    idx = rs.randint(0, rb, (p, bh, n)).astype(np.int32)
+    idx[:, :, :2] = [0, rb - 1]
+    g = rs.randn(p, bh, n, 32).astype(np.float32)
+    w4 = rs.rand(p, bh, 4, n).astype(np.float32)
+    return idx, g, w4
+
+
+def _global_rows(idx, rb):
+    """(P, BH, N) slice-relative rows -> (P, BH*N) global rows."""
+    p, bh, n = idx.shape
+    return (idx + (np.arange(bh, dtype=np.int32) * rb)[None, :, None]
+            ).reshape(p, bh * n)
+
+
+def test_k5_matches_pallas(interp_scatter):
+    """K5: two tap sets sharing g. The JAX per-tap path calls its kernel
+    once per tap with the same d_out; here both tap sets go into one call,
+    side by side along its tap axis."""
+    import jax.numpy as jnp
+
+    p, bh, n, rb = 2, 2, 300, 40
+    idx, g, w4 = _scatter_case(p, bh, n, rb, seed=0)
+    g = np.broadcast_to(g[:1], g.shape)
+
+    def taps_side_by_side(x):             # (P, BH, ..., N) -> (BH, ..., P*N)
+        return jnp.asarray(np.concatenate(list(x), axis=-1))
+
+    want = np.asarray(interp_scatter.scatter_add_rows_weighted(
+        taps_side_by_side(idx), jnp.asarray(np.concatenate(list(g), axis=1)),
+        taps_side_by_side(w4), rb))
+    got = scatter_add_rows_weighted(
+        torch.from_numpy(_global_rows(idx, rb)),
+        torch.from_numpy(g[0].reshape(bh * n, 32).copy()),
+        torch.from_numpy(w4.transpose(0, 2, 1, 3).reshape(p, 4, bh * n)
+                         .copy()), bh * rb)
+    assert got.shape == (bh * rb, 128) and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want.reshape(bh * rb, 128)) <= RTOL
+
+
+def test_k6_matches_pallas(interp_scatter):
+    """K6: per-tap g in p-major order."""
+    import jax.numpy as jnp
+
+    p, bh, lq, rb = 4, 2, 30, 40
+    idx, g, w4 = _scatter_case(p, bh, lq, rb, seed=1)
+    want = interp_scatter.scatter_add_rows_pmajor_weighted(
+        jnp.asarray(idx), jnp.asarray(g), jnp.asarray(w4), rb)
+    got = scatter_add_rows_pmajor_weighted(
+        torch.from_numpy(_global_rows(idx, rb)),
+        torch.from_numpy(g.reshape(p * bh * lq, 32)),
+        torch.from_numpy(w4.transpose(0, 2, 1, 3).reshape(p, 4, bh * lq)
+                         .copy()), bh * rb)
+    assert _rel_err(got.numpy(), np.asarray(want).reshape(bh * rb, 128)) \
+        <= RTOL
+
+
 def test_cpu_tensors_take_the_plain_version_only():
     """A CPU call launches nothing; a device that is neither CPU nor CUDA
     raises instead of falling back."""
     table, idx, lx, ly, wt, w4 = (torch.from_numpy(a)
                                   for a in _quad_case(2, 10, 50, seed=3))
-    wrappers = (quad_sample_reduce_raw, quad_sample_reduce_w4, flash_attention)
+    g = table[:10, :32].contiguous()
+    wrappers = (quad_sample_reduce_raw, quad_sample_reduce_w4, flash_attention,
+                scatter_add_rows_weighted, scatter_add_rows_pmajor_weighted)
     launches = [f.launches for f in wrappers]
     quad_sample_reduce_raw(table, idx, lx, ly, wt)
     quad_sample_reduce_w4(table, idx, w4)
     flash_attention(table[None, :8, :32], table[None, :8, :32],
                     table[None, :8, :32])
+    scatter_add_rows_weighted(idx, g, w4, 50)
+    scatter_add_rows_pmajor_weighted(idx, table[:20, :32], w4, 50)
     assert [f.launches for f in wrappers] == launches
     meta = [t.to("meta") for t in (table, idx, lx, ly, wt, w4)]
     with pytest.raises(ValueError):
@@ -145,8 +230,12 @@ def test_cpu_tensors_take_the_plain_version_only():
         quad_sample_reduce_w4(meta[0], meta[1], meta[5])
     with pytest.raises(ValueError):
         flash_attention(*(table[None, :8, :32].to("meta"),) * 3)
+    with pytest.raises(ValueError):
+        scatter_add_rows_weighted(meta[1], g.to("meta"), meta[5], 50)
     with pytest.raises(IndexError):
         quad_sample_reduce_w4(table, idx + 50, w4)
+    with pytest.raises(IndexError):
+        scatter_add_rows_weighted(idx, g, w4, 49)
 
 
 @pytest.mark.gpu
@@ -185,3 +274,28 @@ def test_flash_attention_cuda_matches_plain(cuda, masked, dtype, rtol):
     assert got.dtype == dtype
     assert _rel_err(got.float().cpu().numpy(),
                     want.float().cpu().numpy()) <= rtol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_tap", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_accum_cuda_matches_plain(cuda, per_tap, dtype):
+    """K5 (g shared by the P taps) and K6 (g per tap) at P=196 over a small
+    table, so rows repeat many times; float atomics add in no fixed order,
+    hence a tolerance."""
+    p, m, rows = 196, 2400 + 3, 5000
+    rs = np.random.RandomState(11)
+    idx = torch.from_numpy(rs.randint(0, rows, (p, m)).astype(np.int32))
+    idx[0, :2] = torch.tensor([0, rows - 1], dtype=torch.int32)
+    g = torch.from_numpy(rs.randn(p * m if per_tap else m, 32).astype(
+        np.float32))
+    w4 = torch.from_numpy(rs.rand(p, 4, m).astype(np.float32))
+    idx, g, w4 = idx.to(cuda), g.to(cuda, dtype), w4.to(cuda)
+    wrapper = (scatter_add_rows_pmajor_weighted if per_tap
+               else scatter_add_rows_weighted)
+    before = wrapper.launches
+    got = wrapper(idx, g, w4, rows)
+    want = scatter_accum_plain(idx, g, w4, rows, per_tap)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
