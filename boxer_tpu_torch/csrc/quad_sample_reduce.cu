@@ -1,18 +1,27 @@
 // Fused quad-table gather + bilinear corner combine + P-tap reduce.
 //
-//   out[m, :] = sum_p sum_c w[p, c, m] * table[idx[p, m], c*ch:(c+1)*ch]
+//   out[m, :] = sum_p sum_c w[p, c, m] * table[idx[t(p, m)], c*ch:(c+1)*ch]
 //
-// Replaces the TPU kernels `fused_combine_reduce_raw` and
-// `fused_combine_reduce` (boxer_tpu/ops/pallas/combine_reduce.py) together
-// with the `jnp.take` that feeds them (boxer_tpu/ops/box_attention.py,
+// Replaces the TPU kernels `fused_combine_reduce_raw` (K1),
+// `fused_combine_reduce` (K2) and `fused_combine_reduce_mmajor` (K8)
+// (boxer_tpu/ops/pallas/combine_reduce.py) together with the `jnp.take`
+// that feeds them (boxer_tpu/ops/box_attention.py,
 // `_box_attention_qminor_folded`). On the TPU the gathered rows are a
 // materialised (P*M, 4*ch) tensor in device memory; here each row is read
 // straight from the quad table and never written back.
 //
 // Two weight modes:
-//   raw: lx, ly, wt (P, M) f32; corner weights formed in the kernel as
-//        (1-lx)(1-ly)wt, lx(1-ly)wt, (1-lx)ly wt, lx ly wt  (P <= 8 callers)
-//   w4:  precomputed w4 (P, 4, M) f32                        (P > 8 callers)
+//   raw: lx, ly, wt f32 in idx's shape; corner weights formed in the kernel
+//        as (1-lx)(1-ly)wt, lx(1-ly)wt, (1-lx)ly wt, lx ly wt  (K1, K8)
+//   w4:  precomputed w4 (P, 4, M) f32                          (K2)
+// and two tap orders (raw mode only for m-major):
+//   p-major: idx (P, M), t(p, m) = p*M + m                     (K1, K2)
+//   m-major: idx (M, P), t(p, m) = m*P + p, the P taps of an output
+//            contiguous in idx and the weights                 (K8)
+// The TPU's m-major kernel exists to reduce each output's P taps inside one
+// VMEM block without an accumulator carried across grid steps; on the card
+// every order keeps the P-sum of an output row in one warp's registers, so
+// the order changes only which index and weight addresses a warp reads.
 //
 // What bounds it on an H100: device-memory bytes. Each tap reads one
 // 4*ch-wide table row (256 B in bf16) plus 12-16 B of index and weights,
@@ -20,7 +29,9 @@
 // rows are gathered at random, so the design keeps each row read whole by
 // one warp (one lane per channel, 4 coalesced 64 B reads in bf16) and keeps
 // the P-sum in a register, writing each output row once. A later version
-// can widen the loads and spread the index/weight loads across lanes.
+// can widen the loads and spread the index/weight loads across lanes (in
+// m-major order a warp's P indices and weights are contiguous, so one
+// coalesced load could fetch them all).
 //
 // Indices are not clamped: the caller clamps them. An index outside
 // [0, rows) traps, which surfaces as a launch failure at the next sync.
@@ -38,7 +49,7 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, bool kRaw>
+template <typename T, bool kRaw, bool kMmajor>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 quad_sample_reduce_kernel(const T* __restrict__ table, long long rows,
                           const int* __restrict__ idx,
@@ -53,7 +64,8 @@ quad_sample_reduce_kernel(const T* __restrict__ table, long long rows,
 
   float acc = 0.f;
   for (int p = 0; p < p_taps; ++p) {
-    const long long t = static_cast<long long>(p) * m_rows + m;
+    const long long t = kMmajor ? m * p_taps + p
+                                : static_cast<long long>(p) * m_rows + m;
     const int r = __ldg(idx + t);
     if (r < 0 || r >= rows) __trap();
     float w0, w1, w2, w3;
@@ -81,41 +93,47 @@ quad_sample_reduce_kernel(const T* __restrict__ table, long long rows,
 
 template <typename T>
 void launch(const void* table, long long rows, const int* idx, const float* a,
-            const float* b, const float* c, int raw, float* out, int p_taps,
-            int m_rows, cudaStream_t stream) {
+            const float* b, const float* c, int raw, int mmajor, float* out,
+            int p_taps, int m_rows, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((m_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const T* t = static_cast<const T*>(table);
-  if (raw) {
-    quad_sample_reduce_kernel<T, true><<<grid, block, 0, stream>>>(
+  if (mmajor) {
+    quad_sample_reduce_kernel<T, true, true><<<grid, block, 0, stream>>>(
+        t, rows, idx, a, b, c, out, p_taps, m_rows);
+  } else if (raw) {
+    quad_sample_reduce_kernel<T, true, false><<<grid, block, 0, stream>>>(
         t, rows, idx, a, b, c, out, p_taps, m_rows);
   } else {
-    quad_sample_reduce_kernel<T, false><<<grid, block, 0, stream>>>(
+    quad_sample_reduce_kernel<T, false, false><<<grid, block, 0, stream>>>(
         t, rows, idx, a, b, c, out, p_taps, m_rows);
   }
 }
 
 }  // namespace
 
-// table: (rows, 4*32) bf16 (table_is_bf16=1) or f32; idx: (P, M) int32.
-// raw=1: a, b, c = lx, ly, wt (P, M) f32; raw=0: a = w4 (P, 4, M) f32.
-// out: (M, 32) f32, all on card `device`. Returns cudaGetLastError() after
-// the launch.
+// table: (rows, 4*32) bf16 (table_is_bf16=1) or f32; idx: (P, M) int32, or
+// (M, P) with mmajor=1. raw=1: a, b, c = lx, ly, wt f32 in idx's shape;
+// raw=0: a = w4 (P, 4, M) f32 (p-major only). out: (M, 32) f32, all on card
+// `device`. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for m-major with raw=0.
 extern "C" int quad_sample_reduce(int device, const void* table,
                                   int table_is_bf16, long long rows,
                                   const int* idx, const float* a,
                                   const float* b, const float* c, int raw,
-                                  float* out, int p_taps, int m_rows,
-                                  void* stream) {
+                                  int mmajor, float* out, int p_taps,
+                                  int m_rows, void* stream) {
+  if (mmajor && !raw) return static_cast<int>(cudaErrorInvalidValue);
   if (m_rows <= 0) return static_cast<int>(cudaSuccess);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (table_is_bf16) {
-    launch<__nv_bfloat16>(table, rows, idx, a, b, c, raw, out, p_taps, m_rows,
-                          s);
+    launch<__nv_bfloat16>(table, rows, idx, a, b, c, raw, mmajor, out, p_taps,
+                          m_rows, s);
   } else {
-    launch<float>(table, rows, idx, a, b, c, raw, out, p_taps, m_rows, s);
+    launch<float>(table, rows, idx, a, b, c, raw, mmajor, out, p_taps, m_rows,
+                  s);
   }
   return static_cast<int>(cudaGetLastError());
 }

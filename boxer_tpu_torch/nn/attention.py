@@ -118,9 +118,9 @@ class BoxAttention(_SamplingAttention):
         self.num_point = kernel_size ** 2
 
     def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
-                ref_windows, fold: bool = True):
-        """fold=True: the inference sampling path; fold=False: the
-        differentiable training path (see `box_attention_qminor`)."""
+                ref_windows, fold=None):
+        """fold=True: the inference sampling path; fold=None (or False):
+        the differentiable training path (see `box_attention_qminor`)."""
         b, l1 = query.shape[:2]
         value = self._project_value(value, v_mask)
         attn = F.linear(query, self.linear_attn_weight, self.linear_attn_bias)
@@ -193,5 +193,6 @@ class InstanceAttention(_SamplingAttention):
             return (self.out_proj.raw(out), self.out_proj(mask_out),
                     (spatial, level))
 
-        out = box_attention_qminor(value, v_shape, gx, gy, spatial, raw=True)
+        out = box_attention_qminor(value, v_shape, gx, gy, spatial, raw=True,
+                                   fold=True)
         return self.out_proj.raw(out), None, (spatial,)

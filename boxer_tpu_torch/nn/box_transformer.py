@@ -61,7 +61,7 @@ class EncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, src, pos, v_shape: Shapes, src_mask, valid_ratios,
-                ref_windows, fold: bool = True):
+                ref_windows, fold=None):
         q = src if pos is None else src + pos
         src2, _ = self.self_attn(q, src, v_shape, src_mask, valid_ratios,
                                  ref_windows, fold=fold)
@@ -110,7 +110,7 @@ class DecoderLayer(nn.Module):
         else:
             tgt2, _ = self.multihead_attn(
                 q2, memory, v_shape, memory_mask, valid_ratios, ref_windows,
-                fold=not train)
+                fold=None if train else True)
 
         tgt = self.norm2(tgt + tgt2)
         tgt_norm2 = tgt
@@ -273,7 +273,7 @@ class BoxTransformer(nn.Module):
         output = src
         for layer in self.encoder.layers:
             output = layer(output, src_pos, v_shape, src_mask, valid_ratios,
-                           src_ref_windows, fold=inference)
+                           src_ref_windows, fold=True if inference else None)
 
         tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
             enc_detector, output, src_mask, src_ref_windows)

@@ -85,7 +85,7 @@ def library() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         # the library links its own CUDA runtime, so each call names its card
         lib.quad_sample_reduce.argtypes = [i32, vp, i32, i64, vp, vp, vp, vp,
-                                           i32, vp, i32, i32, vp]
+                                           i32, i32, vp, i32, i32, vp]
         lib.quad_sample_reduce.restype = i32
         lib.flash_attention_fwd.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32,
                                             i32, i32, i32, ctypes.c_float, vp]
@@ -93,6 +93,8 @@ def library() -> ctypes.CDLL:
         lib.scatter_accum.argtypes = [i32, vp, vp, i32, i32, vp, vp, i64, i32,
                                       i32, vp]
         lib.scatter_accum.restype = i32
+        lib.scatter_rows.argtypes = [i32, vp, vp, i32, vp, i64, i32, vp]
+        lib.scatter_rows.restype = i32
         _lib = lib
     return _lib
 

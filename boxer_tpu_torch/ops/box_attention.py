@@ -1,8 +1,8 @@
 """Multi-scale box attention / instance attention sampling ops.
 
 PyTorch port of `boxer_tpu/ops/box_attention.py`: the quad-table layout
-(`_build_quad_tables`), `box_attention_qminor` (the folded inference path
-and the per-tap training path) and the dual-output
+(`_build_quad_tables`), `box_attention_qminor` (the fused inference path,
+the per-tap and the folded differentiable paths) and the dual-output
 `instance_attention_qminor`, plus the reference-contract wrappers:
 
   box_attention(value (B,S,H,Ch), shapes ((H1,W1),...), loc (B,Lq,H,L,P,2),
@@ -19,27 +19,48 @@ table whose row holds a pixel's 2x2 neighbourhood of the zero-bordered
 level, so one row carries all four bilinear corners and a tap is valid as a
 whole when its top-left corner lies in [-1, W-1] x [-1, H-1].
 
-Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ. At inference
-the P-sum and the corner combine run in `quad_sample_reduce_raw` (K1,
-corner weights formed in the kernel, P <= 8) or `quad_sample_reduce_w4`
-(K2, precomputed corner weights, P > 8), outside autograd. In training
-every level goes through `QuadSample`, an autograd Function over K2 whose
-backward scatters the table cotangent with K5 (box attention) or K6
-(instance attention); the corner weights are formed in torch, so autograd
-carries their cotangent back to the sampling grid and the attention
-weights. `floor` has zero gradient, so d frac / d x = 1, as in JAX.
+Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
+`box_attention_qminor` has the JAX package's three `fold` modes:
+
+- fold=True, the inference path, outside autograd: the P-sum and the corner
+  combine run in one kernel per level, `quad_sample_reduce_raw` (K1, corner
+  weights formed in the kernel, P <= 8) or `quad_sample_reduce_w4` (K2,
+  precomputed corner weights, P > 8), or `quad_sample_reduce_mmajor` (K8,
+  taps in (m, p) order, every P) when `COMBINE_IMPL` is "mmajor";
+- fold=False, the per-tap path at any P: every level goes through
+  `QuadSample`, an autograd Function over K2 whose backward scatters the
+  table cotangent with K5 (box attention) or K6 (instance attention);
+- fold=None (the default) folds, differentiably, when P >
+  `FOLD_TAP_THRESHOLD` and otherwise runs per tap. The folded path gathers
+  all P*M quad rows of a level with `TakeRows` (backward K7b), combines the
+  corners in f32, casts the taps to the value dtype and tree-reduces them
+  over P in that dtype (`_reduce_pmajor`), as
+  `_box_attention_qminor_folded(fused=False)` does.
+
+The corner weights are formed in torch, so autograd carries their cotangent
+back to the sampling grid and the attention weights. `floor` has zero
+gradient, so d frac / d x = 1, as in JAX.
+
+Two module constants read the JAX package's environment variables once, at
+import: `FOLD_TAP_THRESHOLD` (`BOXER_FOLD_THRESHOLD`, default 8) and
+`COMBINE_IMPL` (`BOXER_COMBINE`, "pmajor" or "mmajor"; the JAX package's
+"slices" is an XLA formulation with no kernel, and the fused path raises
+on it).
 """
 
+import os
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from boxer_tpu_torch.ops.combine_reduce import (corner_weights,
+                                                quad_sample_reduce_mmajor,
                                                 quad_sample_reduce_raw,
                                                 quad_sample_reduce_w4)
 from boxer_tpu_torch.ops.scatter_accum import (
-    scatter_add_rows_pmajor_weighted, scatter_add_rows_weighted)
+    scatter_add_rows_pmajor, scatter_add_rows_pmajor_weighted,
+    scatter_add_rows_weighted)
 from boxer_tpu_torch.utils.general import level_start_index
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -47,6 +68,11 @@ Shapes = Tuple[Tuple[int, int], ...]
 # taps per output up to which the raw-weight mode (K1) is used; above it the
 # corner weights are precomputed (K2), as in the JAX package
 ONEPASS_MAX_P = 8
+# taps per level above which fold=None takes the folded path
+# (`_FOLD_TAP_THRESHOLD`, boxer_tpu/ops/box_attention.py:612-617)
+FOLD_TAP_THRESHOLD = int(os.environ.get("BOXER_FOLD_THRESHOLD", "8"))
+# the fused inference combine: "pmajor" (K1/K2) or "mmajor" (K8)
+COMBINE_IMPL = os.environ.get("BOXER_COMBINE", "pmajor")
 
 
 def _build_quad_tables(value, shapes: Shapes):
@@ -114,6 +140,73 @@ class QuadSample(torch.autograd.Function):
         return d_table, None, d_w4, None
 
 
+class TakeRows(torch.autograd.Function):
+    """`take(table, idx)` = `table[idx]`, (P*M, 4*ch) in idx's p-major
+    order: the port of `_take_rows_vjp` (`boxer_tpu/ops/box_attention.py:
+    147`). The forward is a plain gather, as the JAX package's `jnp.take`
+    in XLA; the backward scatters the row cotangent into a zeroed table with
+    K7b and casts it to the table's dtype."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table[idx.reshape(-1).long()]
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        d_table = scatter_add_rows_pmajor(idx, g.contiguous(), ctx.rows)
+        return d_table.to(ctx.dtype), None
+
+
+def _smallest_factor(n: int) -> int:
+    for f in range(2, int(n ** 0.5) + 1):
+        if n % f == 0:
+            return f
+    return n
+
+
+def _reduce_pmajor(x, n: int, m: int):
+    """Sum a (n*m, ch) p-major tensor over its n leading blocks -> (m, ch),
+    in x's dtype, by the JAX package's tree of factor-f row slices."""
+    while n > 1:
+        f = 2 if n % 2 == 0 else _smallest_factor(n)
+        blk = n // f
+        x = sum(x[i * blk * m:(i + 1) * blk * m] for i in range(f))
+        n = blk
+    return x
+
+
+def _fused_level(table, idx, lx, ly, w_tap):
+    """fold=True: one combine kernel for the level's (P, M) taps, outside
+    autograd. Returns (M, ch) f32."""
+    if COMBINE_IMPL not in ("pmajor", "mmajor"):
+        raise ValueError(f"COMBINE_IMPL {COMBINE_IMPL!r}: the port has "
+                         "'pmajor' and 'mmajor'")
+    if COMBINE_IMPL == "mmajor":
+        return quad_sample_reduce_mmajor(
+            table, *(t.t().contiguous() for t in (idx, lx, ly, w_tap)))
+    if idx.shape[0] <= ONEPASS_MAX_P:
+        return quad_sample_reduce_raw(table, idx, lx, ly, w_tap)
+    return quad_sample_reduce_w4(table, idx, corner_weights(lx, ly, w_tap))
+
+
+def _folded_level(table, idx, lx, ly, w_tap, dtype):
+    """The differentiable folded path of one level: `TakeRows`, the corner
+    combine in f32, the taps cast to `dtype` and reduced over P in it.
+    Returns (M, ch) f32."""
+    p, m = idx.shape
+    ch = table.shape[1] // 4
+    vals = TakeRows.apply(table, idx)                      # (P*M, 4*ch)
+    w4 = corner_weights(lx, ly, w_tap)                     # (P, 4, M)
+    taps = sum(vals[:, c * ch:(c + 1) * ch].float() * w4[:, c].reshape(-1, 1)
+               for c in range(4)).to(dtype)
+    return _reduce_pmajor(taps, p, m).float()
+
+
 def _tap_rows(gx, gy, hl: int, wl: int):
     """gx, gy: (P, BH, LQ) f32 in [0,1] -> quad-table rows (P, BH, LQ) int32
     (with the per-BH slice offset), bilinear fractions lx, ly and the
@@ -147,7 +240,7 @@ def _merge_heads(raw):
 
 
 def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
-                         raw: bool = False, fold: bool = True):
+                         raw: bool = False, fold=None):
     """Box attention, query-minor inputs.
 
     value:       (B, S, H, Ch)
@@ -155,15 +248,19 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     attn_weight: (B, H, L, P, LQ), softmax-normalized over (L, P)
     returns      (B, LQ, H*Ch), or (B, H, LQ, Ch) when raw=True, in
                  value.dtype; accumulation is f32.
-    fold=True is the inference path (K1/K2, no autograd through them);
-    fold=False the differentiable per-tap path (`QuadSample`: K2, K5), the
-    JAX package's `fold=None` at P <= 8.
+    fold=True is the inference path (K1/K2 or K8, no autograd through
+    them); fold=False the differentiable per-tap path (`QuadSample`: K2,
+    K5); fold=None the differentiable folded path (`TakeRows`: K7b) when P >
+    FOLD_TAP_THRESHOLD, else the per-tap one, as in the JAX package.
     """
     b, s, nh, ch = value.shape
     _, _, nl, npt, lq = gx.shape
     assert nl == len(shapes)
     bh = b * nh
     m = bh * lq
+    fused = fold is True
+    if fold is None:
+        fold = npt > FOLD_TAP_THRESHOLD
 
     tables = _build_quad_tables(value, shapes)
     gx = _pmajor(gx, bh, nl, npt, lq)
@@ -174,17 +271,15 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     for li, (hl, wl) in enumerate(shapes):
         idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
         w_tap = torch.where(valid, aw[li], 0.0)
-        idx = idx.reshape(npt, m)
-        if not fold:
-            w4 = corner_weights(lx, ly, w_tap).reshape(npt, 4, m)
-            out = out + QuadSample.apply(tables[li], idx, w4, False)
-        elif npt <= ONEPASS_MAX_P:
-            out = out + quad_sample_reduce_raw(
-                tables[li], idx, lx.reshape(npt, m), ly.reshape(npt, m),
-                w_tap.reshape(npt, m))
+        idx, lx, ly, w_tap = (t.reshape(npt, m) for t in (idx, lx, ly, w_tap))
+        if fused:
+            out = out + _fused_level(tables[li], idx, lx, ly, w_tap)
+        elif fold:
+            out = out + _folded_level(tables[li], idx, lx, ly, w_tap,
+                                      value.dtype)
         else:
-            w4 = corner_weights(lx, ly, w_tap).reshape(npt, 4, m)
-            out = out + quad_sample_reduce_w4(tables[li], idx, w4)
+            out = out + QuadSample.apply(tables[li], idx,
+                                         corner_weights(lx, ly, w_tap), False)
     out = out.to(value.dtype).reshape(b, nh, lq, ch)
     return out if raw else _merge_heads(out)
 

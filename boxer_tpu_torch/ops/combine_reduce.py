@@ -1,27 +1,34 @@
-"""Fused quad-table gather + bilinear combine + P-tap reduce (K1 + K2).
+"""Fused quad-table gather + bilinear combine + P-tap reduce (K1, K2, K8).
 
 PyTorch port of `boxer_tpu/ops/pallas/combine_reduce.py` with the
 `jnp.take` that feeds it fused in:
 
     out[m, :] = sum_p sum_c w[p, c, m] * table[idx[p, m], c*ch:(c+1)*ch]
 
-Two wrappers over one CUDA kernel (`boxer_tpu_torch/csrc/
-quad_sample_reduce.cu`), one per weight mode and per TPU kernel replaced:
+Three wrappers over one CUDA kernel (`boxer_tpu_torch/csrc/
+quad_sample_reduce.cu`), one per weight mode or tap order and per TPU kernel
+replaced:
 
 - `quad_sample_reduce_raw` (K1, `fused_combine_reduce_raw`): raw bilinear
   fractions and tap weight, corners formed in the kernel (P <= 8 callers);
 - `quad_sample_reduce_w4` (K2, `fused_combine_reduce`): precomputed corner
-  weights (P > 8 callers).
+  weights (P > 8 callers);
+- `quad_sample_reduce_mmajor` (K8, `fused_combine_reduce_mmajor`): raw
+  weights with the P taps of an output contiguous, idx and weights (M, P)
+  (every P, under the m-major combine).
 
-Each launches the kernel on a CUDA tensor and runs
-`quad_sample_reduce_plain` on a CPU tensor; there is no other fallback.
+Each launches the kernel on a CUDA tensor and runs its plain version
+(`quad_sample_reduce_plain`, `quad_sample_reduce_mmajor_plain`) on a CPU
+tensor; there is no other fallback.
 """
 
 import torch
 
 from boxer_tpu_torch.ops import _build
 
-CH = 32     # the only head width any shipped config uses
+# channels per head, the only head width any shipped config uses; a quad
+# row is 4*CH wide in every mode
+CH = 32
 
 
 def corner_weights(lx, ly, wt):
@@ -33,23 +40,40 @@ def corner_weights(lx, ly, wt):
                         lx * ly * wt], dim=1)
 
 
-def quad_sample_reduce_plain(table, idx, w4=None, lx=None, ly=None, wt=None):
-    """Plain version of both modes: `table[idx]`, then the corner combine
-    and the P-sum, all in f32. Returns (M, ch) f32."""
-    p, m = idx.shape
+def _gather_rows(table, idx):
+    """`table[idx]` as f32, (idx.numel(), 4*ch); raises on an index outside
+    the table."""
     if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= table.shape[0]):
         raise IndexError("quad_sample_reduce: index outside the table")
+    return table[idx.reshape(-1).long()].float()
+
+
+def quad_sample_reduce_plain(table, idx, w4=None, lx=None, ly=None, wt=None):
+    """Plain version of K1 and K2: `table[idx]`, then the corner combine
+    and the P-sum, all in f32. Returns (M, ch) f32."""
+    p, m = idx.shape
     if w4 is None:
         w4 = corner_weights(lx, ly, wt)
-    g = table[idx.reshape(-1).long()].float().reshape(p, m, 4, -1)
+    g = _gather_rows(table, idx).reshape(p, m, 4, -1)
     return (g * w4.float().transpose(1, 2)[..., None]).sum(dim=(0, 2))
 
 
-def _launch(name, table, idx, weights, raw: bool):
+def quad_sample_reduce_mmajor_plain(table, idx, lx, ly, wt):
+    """Plain version of K8: idx, lx, ly, wt (M, P), the taps of output m in
+    row m. Returns (M, ch) f32."""
+    m, p = idx.shape
+    g = _gather_rows(table, idx).reshape(m, p, 4, -1)
+    w4 = corner_weights(lx, ly, wt)                            # (M, 4, P)
+    return (g * w4.transpose(1, 2)[..., None]).sum(dim=(1, 2))
+
+
+def _launch(name, table, idx, weights, raw: bool, mmajor: bool = False):
     """Check the arguments and launch the kernel; returns (M, 32) f32."""
     if not table.is_cuda:
         raise ValueError(f"{name}: unsupported device {table.device}")
-    p, m = idx.shape
+    if idx.dim() != 2:
+        raise ValueError(f"{name}: idx must be 2-D, got {tuple(idx.shape)}")
+    m, p = idx.shape if mmajor else idx.shape[::-1]
     if table.dim() != 2 or table.shape[1] != 4 * CH:
         raise ValueError(f"{name}: table must be (R, {4 * CH}), "
                          f"got {tuple(table.shape)}")
@@ -59,7 +83,7 @@ def _launch(name, table, idx, weights, raw: bool):
         raise ValueError(f"{name}: table rows exceed int32 indices")
     if idx.dtype != torch.int32:
         raise TypeError(f"{name}: idx must be int32")
-    want = ((p, m),) * 3 if raw else ((p, 4, m),)
+    want = (tuple(idx.shape),) * 3 if raw else ((p, 4, m),)
     for t, shp in zip(weights, want):
         if t.dtype != torch.float32 or tuple(t.shape) != shp:
             raise ValueError(f"{name}: weights must be f32 {shp}, "
@@ -77,7 +101,7 @@ def _launch(name, table, idx, weights, raw: bool):
             table.device.index, table.data_ptr(),
             int(table.dtype == torch.bfloat16),
             table.shape[0], idx.data_ptr(), a.data_ptr(), b.data_ptr(),
-            c.data_ptr(), int(raw), out.data_ptr(), p, m,
+            c.data_ptr(), int(raw), int(mmajor), out.data_ptr(), p, m,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     return out
@@ -104,5 +128,17 @@ def quad_sample_reduce_w4(table, idx, w4):
     return out
 
 
+def quad_sample_reduce_mmajor(table, idx, lx, ly, wt):
+    """K8. As `quad_sample_reduce_raw` with the taps in (m, p) order: idx
+    (M, P) int32 rows and lx, ly, wt (M, P) f32. Returns (M, 32) f32."""
+    if table.device.type == "cpu":
+        return quad_sample_reduce_mmajor_plain(table, idx, lx, ly, wt)
+    out = _launch("quad_sample_reduce_mmajor", table, idx, (lx, ly, wt),
+                  raw=True, mmajor=True)
+    quad_sample_reduce_mmajor.launches += 1
+    return out
+
+
 quad_sample_reduce_raw.launches = 0
 quad_sample_reduce_w4.launches = 0
+quad_sample_reduce_mmajor.launches = 0

@@ -1,30 +1,41 @@
-"""Weighted quad-row cotangent scatter (K5 + K6), the backward of sampling.
+"""Quad-row cotangent scatters (K5, K6, K7a, K7b), the backward of sampling.
 
-PyTorch port of `boxer_tpu/ops/pallas/scatter_accum.py`'s weighted kernels:
+PyTorch port of `boxer_tpu/ops/pallas/scatter_accum.py`. The weighted
+kernels expand a 32-channel cotangent into the quad row:
 
     d_table[idx[p, m], c*ch:(c+1)*ch] += w4[p, c, m] * g[grow(p, m)]
 
-accumulated in f32 into a zeroed (rows, 4*ch) table. Two wrappers over one
-CUDA kernel (`boxer_tpu_torch/csrc/scatter_accum.cu`), one per TPU kernel
-replaced:
+and the row kernels add a whole 128-wide payload row per tap:
 
-- `scatter_add_rows_weighted` (K5): g (M, ch) shared by the P taps of each
+    d_table[idx[t], :] += payload[t, :]
+
+both accumulated in f32 into a zeroed (rows, 128) table. Four wrappers over
+one CUDA kernel (`boxer_tpu_torch/csrc/scatter_accum.cu`), one per TPU
+kernel replaced:
+
+- `scatter_add_rows_weighted` (K5): g (M, 32) shared by the P taps of each
   output row, grow = m (the box-attention backward, g = d_out);
-- `scatter_add_rows_pmajor_weighted` (K6): g (P*M, ch), one row per tap,
-  grow = p*M + m (the instance-attention backward).
+- `scatter_add_rows_pmajor_weighted` (K6): g (P*M, 32), one row per tap,
+  grow = p*M + m (the instance-attention backward);
+- `scatter_add_rows` (K7a): idx (N,), payload (N, 128) (an op contract with
+  no caller in the package);
+- `scatter_add_rows_pmajor` (K7b): idx (P, M), payload (P*M, 128) in the
+  same p-major order (the backward of `TakeRows`, the folded path).
 
 Indices are global rows of the flat per-level table. Each wrapper launches
-the kernel on a CUDA tensor and runs `scatter_accum_plain` on a CPU tensor;
-there is no other fallback. The kernel's float atomics add in no fixed
-order, so its result matches the plain version within f32 rounding, not bit
-for bit.
+the kernel on a CUDA tensor and runs its plain version (`scatter_accum_plain`,
+`scatter_rows_plain`) on a CPU tensor; there is no other fallback. The
+kernel's float atomics add in no fixed order, so its result matches the
+plain version within f32 rounding, not bit for bit.
 """
 
 import torch
 
 from boxer_tpu_torch.ops import _build
 
-CH = 32     # the only head width any shipped config uses
+# channels per head, the only head width any shipped config uses; a quad
+# row is 4*CH wide in every mode
+CH = 32
 
 
 def _g_rows(g, p: int, m: int, per_tap: bool):
@@ -32,29 +43,50 @@ def _g_rows(g, p: int, m: int, per_tap: bool):
     return g.reshape(p, m, -1) if per_tap else g.reshape(1, m, -1)
 
 
-def scatter_accum_plain(idx, g, w4, rows: int, per_tap: bool):
-    """Plain version of both modes: the (P*M, 4*ch) quad-row cotangent,
-    then `index_add_` into a zeroed f32 (rows, 4*ch) table."""
-    p, m = idx.shape
+def scatter_rows_plain(idx, payload, rows: int):
+    """Plain version of K7a and K7b: `index_add_` of the payload rows, in
+    f32, into a zeroed f32 (rows, width) table. idx: any shape with N
+    entries; payload: (N, width)."""
     if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= rows):
         raise IndexError("scatter_accum: index outside the table")
+    out = torch.zeros((rows, payload.shape[-1]), dtype=torch.float32,
+                      device=idx.device)
+    return out.index_add_(0, idx.reshape(-1).long(), payload.float())
+
+
+def scatter_accum_plain(idx, g, w4, rows: int, per_tap: bool):
+    """Plain version of K5 and K6: the (P*M, 4*ch) quad-row cotangent,
+    then `scatter_rows_plain`."""
+    p, m = idx.shape
     gp = _g_rows(g.float(), p, m, per_tap)                    # (·, M, ch)
     payload = w4.float().transpose(1, 2)[..., None] * gp[:, :, None, :]
-    ch = gp.shape[-1]
-    out = torch.zeros((rows, 4 * ch), dtype=torch.float32, device=idx.device)
-    return out.index_add_(0, idx.reshape(-1).long(),
-                          payload.reshape(p * m, 4 * ch))
+    return scatter_rows_plain(idx, payload.reshape(p * m, -1), rows)
+
+
+def _zeroed_output(name, idx, idx_dim: int, rows: int, tensors):
+    """The checks both modes share; returns the zeroed (rows, 128) f32
+    table the kernel accumulates into."""
+    if not idx.is_cuda:
+        raise ValueError(f"{name}: unsupported device {idx.device}")
+    if idx.dim() != idx_dim or idx.dtype != torch.int32:
+        raise TypeError(f"{name}: idx must be {idx_dim}-D int32, got "
+                        f"{idx.dtype} {tuple(idx.shape)}")
+    if not 0 < rows < 2 ** 31 or idx.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {rows} table rows or {idx.numel()} taps "
+                         "do not fit int32")
+    for t in (idx, *tensors):
+        if t.device != idx.device:
+            raise ValueError(f"{name}: tensors on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    return torch.zeros((rows, 4 * CH), dtype=torch.float32, device=idx.device)
 
 
 def _launch(name, idx, g, w4, rows: int, per_tap: bool):
-    """Check the arguments and launch the kernel; returns (rows, 128) f32."""
-    if not idx.is_cuda:
-        raise ValueError(f"{name}: unsupported device {idx.device}")
-    if idx.dim() != 2 or idx.dtype != torch.int32:
-        raise TypeError(f"{name}: idx must be (P, M) int32")
+    """Check the arguments and launch a weighted mode; returns (rows, 128)
+    f32."""
+    out = _zeroed_output(name, idx, 2, rows, (g, w4))
     p, m = idx.shape
-    if not 0 < rows < 2 ** 31:
-        raise ValueError(f"{name}: {rows} table rows do not fit int32 indices")
     g_rows = p * m if per_tap else m
     if tuple(g.shape) != (g_rows, CH) or g.dtype not in (torch.bfloat16,
                                                          torch.float32):
@@ -63,18 +95,31 @@ def _launch(name, idx, g, w4, rows: int, per_tap: bool):
     if tuple(w4.shape) != (p, 4, m) or w4.dtype != torch.float32:
         raise ValueError(f"{name}: w4 must be f32 {(p, 4, m)}, "
                          f"got {w4.dtype} {tuple(w4.shape)}")
-    for t in (idx, g, w4):
-        if t.device != idx.device:
-            raise ValueError(f"{name}: tensors on different devices")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: tensors must be contiguous")
-    out = torch.zeros((rows, 4 * CH), dtype=torch.float32, device=idx.device)
     lib = _build.library()
     with torch.cuda.device(idx.device):
         err = lib.scatter_accum(
             idx.device.index, idx.data_ptr(), g.data_ptr(),
             int(g.dtype == torch.bfloat16), int(per_tap), w4.data_ptr(),
             out.data_ptr(), rows, p, m,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    return out
+
+
+def _launch_rows(name, idx, payload, rows: int, idx_dim: int):
+    """Check the arguments and launch the rows mode; returns (rows, 128)
+    f32."""
+    out = _zeroed_output(name, idx, idx_dim, rows, (payload,))
+    n = idx.numel()
+    if tuple(payload.shape) != (n, 4 * CH) or payload.dtype not in (
+            torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: payload must be ({n}, {4 * CH}) bf16 or "
+                         f"f32, got {payload.dtype} {tuple(payload.shape)}")
+    lib = _build.library()
+    with torch.cuda.device(idx.device):
+        err = lib.scatter_rows(
+            idx.device.index, idx.data_ptr(), payload.data_ptr(),
+            int(payload.dtype == torch.bfloat16), out.data_ptr(), rows, n,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     return out
@@ -103,5 +148,29 @@ def scatter_add_rows_pmajor_weighted(idx, g, w4, rows: int):
     return out
 
 
+def scatter_add_rows(idx, payload, rows: int):
+    """K7a. idx: (N,) int32 global rows of a (rows, 4*32) table; payload:
+    (N, 4*32) bf16 or f32. Returns the (rows, 4*32) f32 sum of the payload
+    rows at their indices."""
+    if idx.device.type == "cpu":
+        return scatter_rows_plain(idx, payload, rows)
+    out = _launch_rows("scatter_add_rows", idx, payload, rows, idx_dim=1)
+    scatter_add_rows.launches += 1
+    return out
+
+
+def scatter_add_rows_pmajor(idx, payload, rows: int):
+    """K7b. As `scatter_add_rows` with idx: (P, M) and payload: (P*M, 4*32)
+    in the same p-major order."""
+    if idx.device.type == "cpu":
+        return scatter_rows_plain(idx, payload, rows)
+    out = _launch_rows("scatter_add_rows_pmajor", idx, payload, rows,
+                       idx_dim=2)
+    scatter_add_rows_pmajor.launches += 1
+    return out
+
+
 scatter_add_rows_weighted.launches = 0
 scatter_add_rows_pmajor_weighted.launches = 0
+scatter_add_rows.launches = 0
+scatter_add_rows_pmajor.launches = 0

@@ -7,13 +7,24 @@ Run from the root of a checkout:  python3 chip_smoke.py
 2. build: compiles the CUDA kernels from boxer_tpu_torch/csrc with nvcc (one
    nvcc per source, all started together);
 3. each kernel against its plain PyTorch version at the slices' shapes, with
-   its error and its time beside the plain version's (CUDA events): K1-K3
-   (inference), then (3b) the d_value scatters K5 and K6 (training);
+   its error, its time beside the plain version's and the library call's
+   (CUDA events) and its bound (bytes at 3.35 TB/s or operations at the
+   peak of their type): K1-K3 (inference), then (3b) the d_value scatters
+   K5 and K6 (training), then (3c) the row scatters K7a and K7b and the
+   m-major combine K8 at the folded encoder level 0 (P=4, M=161,576) and at
+   P=196, M=2,400, K7b at P=16, LQ=600; the combine shootout T1-T3
+   (`boxer_tpu_torch/tools/bench_combine.py`); and the gradients of
+   `box_attention` at P=16 (the folded path, through `TakeRows` and K7b),
+   whose output must carry a grad_fn, against the same op with K7b swapped
+   for its plain version (rel err 1e-5);
 4. the full-width slice: BoxeR-2D R50 (hidden 256, 8 heads, 6+6 layers, 300
    queries, 91 classes) in bf16 at batch 1 on an 800x1216 canvas with
    seeded random weights, segm with the deferred top-100 mask decode, then
    detection only; img/s, and the kernels' launch counts over the timed
-   forwards, which must match every call site;
+   forwards, which must match every call site; (4c) the same with the
+   m-major combine (`COMBINE_IMPL = "mmajor"`: K8 at every sampling level),
+   one profiled m-major segm forward, then card against CPU as in phase 5
+   under it;
 5. the same weights and image on a 256x384 canvas in f32 (no TF32), card
    (kernels) against CPU (plain versions): identical top-k labels, scores
    and boxes within atol 1e-3, fewer than 1e-3 of mask pixels different;
@@ -25,7 +36,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    20 targets; 1 warm-up step and 5 timed on the host clock up to a
    synchronize; ms/step, peak memory, the loss terms of the first and last
    step, the kernels' launches per step (which must match every call site),
-   then one more segm step under torch.profiler;
+   then one more segm step under torch.profiler; (7c) the detection step
+   folded (`FOLD_TAP_THRESHOLD = 0`: every level through `TakeRows`, K7b in
+   the backward), with the same checks, a loss that falls after a step of
+   norm 1e-3 against its gradient from the initial weights, and a
+   profiled step;
 8. one train step at 256x384 in f32 (no TF32, no autocast) with phase 5's
    weights, card (kernels) against CPU (plain versions): identical matched
    query indices in every match, loss terms within rel 1e-4, the gradient
@@ -33,13 +48,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (a ReLU input within rounding of 0 takes the other branch on the other
    device, see `train_card_vs_cpu`); and the same step on the card with
    K5/K6 swapped for their plain version, the same forward: pre-clip
-   gradients within a worst-leaf rel err of 1e-4.
+   gradients within a worst-leaf rel err of 1e-4; (8c) one f32 detection
+   step at 256x384 on the card, folded against per-tap with the same
+   weights and batch (identical matches, loss terms 1e-4, gradient norm
+   1e-3, worst leaf 0.1), and the folded step with K7b swapped for its plain
+   version (worst leaf 1e-4).
 
 Prints the slices' img/s and ms/step and one JSON line of per-kernel
 results, then last {"ok": true, "device": {...}}. Any failed phase raises:
 the exit code is not 0 and no ok line is printed.
 """
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -67,12 +87,30 @@ OPTIM = {"type": "adamw", "params": {"lr": 2e-4, "lr_backbone": 2e-5,
 SCHEDULE = {"type": "multi_step", "params": {"lr_steps": [10 ** 9],
                                              "lr_ratio": 0.1,
                                              "use_warmup": False}}
+KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7a", "K7b", "K8")
+
+
+def per_run(**counts):
+    """Launches of every kernel in one run: those given, 0 elsewhere."""
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+# launches per forward at every call site: K1 in 6 encoder layers x 4 levels
+# (+ 6 decoder layers x 4 levels when detection only), K2 in 5 decoder
+# layers x 4 levels, K3 in 6 decoder self-attentions; under the m-major
+# combine K8 takes every level of K1 and K2
+INFER_LAUNCHES = {("pmajor", True): per_run(K1=24, K2=20, K3=6),
+                  ("pmajor", False): per_run(K1=48, K3=6),
+                  ("mmajor", True): per_run(K8=44, K3=6),
+                  ("mmajor", False): per_run(K8=48, K3=6)}
 # launches per train step at every call site: K2 is the forward of every
 # sampling level (6 encoder + 6 decoder layers x 4 levels), K5 the backward
 # of each box-attention level, K6 of each instance-attention level, K3 the 6
-# decoder self-attentions (its backward is plain autograd)
-TRAIN_LAUNCHES = {True: {"K1": 0, "K2": 48, "K3": 6, "K5": 24, "K6": 24},
-                  False: {"K1": 0, "K2": 48, "K3": 6, "K5": 48, "K6": 0}}
+# decoder self-attentions (its backward is plain autograd); folded, every
+# box-attention level gathers with `TakeRows` and scatters with K7b
+TRAIN_LAUNCHES = {True: per_run(K2=48, K3=6, K5=24, K6=24),
+                  False: per_run(K2=48, K3=6, K5=48)}
+FOLDED_TRAIN_LAUNCHES = per_run(K3=6, K7b=48)
 
 
 def log(*args):
@@ -84,26 +122,14 @@ def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-6))
 
 
-def cuda_ms(fn, iters=20):
-    """Mean device time of fn() over `iters` launches after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def check_kernels(dev):
-    """Phase 3: each kernel against its plain version at the slice's shapes.
+    """Phases 3, 3b, 3c: each kernel against its plain version at the slices'
+    shapes, timed beside its plain version, its library call and its bound.
     Returns {name: result dict}."""
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
     from boxer_tpu_torch.ops import scatter_accum as sa
+    from boxer_tpu_torch.tools import bench_combine as bc
 
     rs = np.random.RandomState(0)
     # encoder / decoder level 0 at 800x1216: 8 heads x 101 x 153 quad rows
@@ -111,65 +137,174 @@ def check_kernels(dev):
     table = torch.from_numpy(rs.randn(rows, 128).astype(np.float32)).to(
         dev, torch.bfloat16)
 
-    def taps(p, m):
-        idx = torch.from_numpy(rs.randint(0, rows, (p, m)).astype(np.int32))
+    def taps(p, m, n_rows=rows):
+        idx = torch.from_numpy(rs.randint(0, n_rows, (p, m)).astype(np.int32))
         return idx.to(dev), *(torch.from_numpy(
             rs.rand(*s).astype(np.float32)).to(dev)
             for s in ((p, m), (p, m), (p, m), (p, 4, m)))
 
+    def nbytes(*tensors):
+        return sum(t.numel() * t.element_size() for t in tensors)
+
     results = {}
     idx, lx, ly, wt, _ = taps(4, m_enc)
     results["K1"] = dict(
+        wrapper=cr.quad_sample_reduce_raw,
         kernel=lambda: cr.quad_sample_reduce_raw(table, idx, lx, ly, wt),
         plain=lambda: cr.quad_sample_reduce_plain(table, idx, lx=lx, ly=ly,
                                                   wt=wt),
+        library=bc.library_call(table, *bc.bag_inputs(
+            idx.t(), cr.corner_weights(lx, ly, wt).permute(2, 1, 0))),
+        nbytes=bc.gather_bytes(table, idx, (lx, ly, wt), m_enc * 32 * 4),
+        flops=idx.numel() * 256,
         tol=1e-5, shape=f"P=4 M={m_enc} table {rows}x128 bf16")
     idx2, _, _, _, w4 = taps(196, m_dec)
-    results["K2"] = dict(
-        kernel=lambda: cr.quad_sample_reduce_w4(table, idx2, w4),
-        plain=lambda: cr.quad_sample_reduce_plain(table, idx2, w4=w4),
-        tol=1e-5, shape=f"P=196 M={m_dec} table {rows}x128 bf16")
+    results["K2"] = dict(bc.pmajor_case(table, idx2, w4), tol=1e-5,
+                         shape=f"P=196 M={m_dec} table {rows}x128 bf16")
     qkv = [torch.from_numpy(rs.randn(8, 300, 32).astype(np.float32)).to(dev)
            for _ in range(3)]
+    # QK^T and PV: 2 x 2 x BH x L x L x D
+    attn_flops = 4 * 8 * 300 * 300 * 32
     results["K3_f32"] = dict(
+        wrapper=fa.flash_attention,
         kernel=lambda: fa.flash_attention(*qkv),
         plain=lambda: fa.flash_attention_plain(*qkv),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(*qkv),
+        nbytes=4 * nbytes(qkv[0]), flops=attn_flops,
         tol=1e-5, shape="BH=8 L=300 D=32 f32")
     qkv16 = [t.to(torch.bfloat16) for t in qkv]
     results["K3"] = dict(
+        wrapper=fa.flash_attention,
         kernel=lambda: fa.flash_attention(*qkv16),
         plain=lambda: fa.flash_attention_plain(*qkv16),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            *qkv16),
+        nbytes=4 * nbytes(qkv16[0]), flops=attn_flops, dtype="bf16",
         tol=1e-2, shape="BH=8 L=300 D=32 bf16")
 
     # 3b. the backward scatters, f32 cotangents as the backward hands them
     idx5, *_, w45 = taps(4, m_enc)
     g5 = torch.from_numpy(rs.randn(m_enc, 32).astype(np.float32)).to(dev)
     results["K5"] = dict(
+        wrapper=sa.scatter_add_rows_weighted,
         kernel=lambda: sa.scatter_add_rows_weighted(idx5, g5, w45, rows),
         plain=lambda: sa.scatter_accum_plain(idx5, g5, w45, rows, False),
+        library=None, nbytes=nbytes(idx5, g5, w45) + rows * 128 * 4,
+        flops=idx5.numel() * 256,
         tol=1e-5, shape=f"P=4 M={m_enc} shared g, table {rows}x128 f32")
     idx6, *_, w46 = taps(196, m_dec)
     g6 = torch.from_numpy(rs.randn(196 * m_dec, 32).astype(np.float32)).to(
         dev)
     results["K6"] = dict(
+        wrapper=sa.scatter_add_rows_pmajor_weighted,
         kernel=lambda: sa.scatter_add_rows_pmajor_weighted(idx6, g6, w46,
                                                             rows),
         plain=lambda: sa.scatter_accum_plain(idx6, g6, w46, rows, True),
+        library=None, nbytes=nbytes(idx6, g6, w46) + rows * 128 * 4,
+        flops=idx6.numel() * 256,
         tol=1e-5, shape=f"P=196 M={m_dec} per-tap g, table {rows}x128 f32")
+
+    # 3c. the row scatters (bf16 payload, the folded backward's cotangent)
+    # and the m-major combine: the folded encoder level 0 first (the row the
+    # kernels line reports), then P=196 M=2,400, then K7b at the JAX package's
+    # chip-test shape (2 heads, levels (80,120) and (40,60), LQ=600, P=16)
+    def scatter_rows(key, p, m, n_rows, flat):
+        ix = taps(p, m, n_rows)[0]
+        ix = ix.reshape(-1) if flat else ix
+        pay = torch.from_numpy(rs.randn(p * m, 128).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        out = torch.zeros((n_rows, 128), dtype=torch.float32, device=dev)
+        ix_long, pay_f32 = ix.reshape(-1).long(), pay.float()
+        wrapper = sa.scatter_add_rows if flat else sa.scatter_add_rows_pmajor
+        results[key] = dict(
+            wrapper=wrapper, kernel=lambda: wrapper(ix, pay, n_rows),
+            plain=lambda: sa.scatter_rows_plain(ix, pay, n_rows),
+            library=lambda: out.index_add_(0, ix_long, pay_f32),
+            nbytes=nbytes(ix, pay) + n_rows * 128 * 4, flops=ix.numel() * 128,
+            tol=1e-5, shape=f"P={p} M={m} bf16 payload, table {n_rows}x128")
+
+    def mmajor(key, p, m):
+        ix, lx8, ly8, wt8, _ = taps(m, p)
+        results[key] = dict(bc.mmajor_case(table, ix, lx8, ly8, wt8),
+                            tol=1e-5, shape=f"P={p} M={m} m-major, table "
+                            f"{rows}x128 bf16")
+
+    for sfx, p, m in (("", 4, m_enc), (" P=196", 196, m_dec)):
+        scatter_rows("K7a" + sfx, p, m, rows, flat=True)
+        scatter_rows("K7b" + sfx, p, m, rows, flat=False)
+        mmajor("K8" + sfx, p, m)
+    scatter_rows("K7b P=16", 16, 2 * 600, 2 * 81 * 121, flat=False)
 
     for name, r in results.items():
         got, want = r["kernel"](), r["plain"]()
         torch.cuda.synchronize()
         r["rel_err"] = rel_err(got.float(), want.float())
         r["max_abs_err"] = float((got.float() - want.float()).abs().max())
-        r["ms"] = cuda_ms(r["kernel"])
-        r["plain_ms"] = cuda_ms(r["plain"])
+        before = r["wrapper"].launches
+        r["ms"] = bc.cuda_ms(r["kernel"])
+        r["op_launches"] = r["wrapper"].launches - before
+        r["plain_ms"] = bc.cuda_ms(r["plain"])
+        r["library_ms"] = (bc.cuda_ms(r["library"]) if r["library"]
+                           else None)
+        r["bound_ms"], r["bound_by"] = bc.bound_ms(
+            r["nbytes"], r["flops"], r.get("dtype", "f32"))
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         log(f"{name} [{r['shape']}]: rel err {r['rel_err']:.3e} "
             f"(tol {r['tol']:g}), max abs err {r['max_abs_err']:.3e}, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         if not r["rel_err"] <= r["tol"]:
             raise AssertionError(f"{name} disagrees with its plain version")
-    return results
+    # numbers only: the callables hold the inputs, which would otherwise
+    # stay allocated through the later phases and their peak memory
+    return {name: {k: v for k, v in r.items() if not callable(v)}
+            for name, r in results.items()}
+
+
+def box_attention_grads(dev):
+    """Phase 3c: the gradients of `box_attention` (reference contract,
+    default fold) at P=16, the folded path through `TakeRows` and K7b, at the
+    JAX package's chip-test shape, against the same op with K7b swapped for
+    its plain version. The output must carry a grad_fn."""
+    from boxer_tpu_torch.ops import box_attention as ba
+    from boxer_tpu_torch.ops import scatter_accum as sa
+
+    shapes, nh, ch, lq, p = ((80, 120), (40, 60)), 2, 32, 600, 16
+    rs = np.random.RandomState(5)
+    value = rs.rand(1, sum(h * w for h, w in shapes), nh, ch).astype(
+        np.float32) * 0.01
+    loc = rs.uniform(0.05, 0.95, (1, lq, nh, 2, p, 2)).astype(np.float32)
+    weight = rs.rand(1, lq, nh, 2, p).astype(np.float32)
+    weight /= weight.sum(axis=(-1, -2), keepdims=True)
+    cot = torch.from_numpy(rs.randn(1, lq, nh * ch).astype(np.float32)).to(
+        dev)
+
+    def grads():
+        ts = [torch.from_numpy(a).to(dev).requires_grad_()
+              for a in (value, loc, weight)]
+        out = ba.box_attention(ts[0], shapes, ts[1], ts[2])
+        if out.grad_fn is None:
+            raise AssertionError("box_attention's output has no grad_fn")
+        before = sa.scatter_add_rows_pmajor.launches
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        return ([t.grad for t in ts],
+                sa.scatter_add_rows_pmajor.launches - before)
+
+    got, n_kernel = grads()
+    kernel = ba.scatter_add_rows_pmajor
+    ba.scatter_add_rows_pmajor = sa.scatter_rows_plain
+    try:
+        want, n_plain = grads()
+    finally:
+        ba.scatter_add_rows_pmajor = kernel
+    errs = [rel_err(g, w) for g, w in zip(got, want)]
+    log(f"box_attention P=16 grads on the card, K7b vs its plain version: "
+        f"value {errs[0]:.3e}, loc {errs[1]:.3e}, weight {errs[2]:.3e} "
+        f"(K7b launches {n_kernel}, with the plain version {n_plain})")
+    if n_kernel != len(shapes) or n_plain or max(errs) > 1e-5:
+        raise AssertionError("box_attention's gradients through K7b disagree")
 
 
 def build_model(use_mask, seed=0, noise_seed=None):
@@ -203,18 +338,37 @@ def counters():
 
     return {"K1": cr.quad_sample_reduce_raw, "K2": cr.quad_sample_reduce_w4,
             "K3": fa.flash_attention, "K5": sa.scatter_add_rows_weighted,
-            "K6": sa.scatter_add_rows_pmajor_weighted}
+            "K6": sa.scatter_add_rows_pmajor_weighted,
+            "K7a": sa.scatter_add_rows, "K7b": sa.scatter_add_rows_pmajor,
+            "K8": cr.quad_sample_reduce_mmajor}
 
 
-def run_slice(dev, use_mask, iters, label):
-    """Phase 4: a warm-up forward, then `iters` forwards each timed on the
-    host clock up to a synchronize, with the launch counters zeroed just
-    before them. Returns (img/s at the median forward, counts)."""
+@contextlib.contextmanager
+def sampling(**constants):
+    """Set module constants of the sampling op (`COMBINE_IMPL`,
+    `FOLD_TAP_THRESHOLD`) for a phase and restore them after it."""
+    from boxer_tpu_torch.ops import box_attention as ba
+
+    saved = {k: getattr(ba, k) for k in constants}
+    for k, v in constants.items():
+        setattr(ba, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(ba, k, v)
+
+
+def run_slice(dev, use_mask, iters, label, combine="pmajor"):
+    """Phases 4 and 4c: a warm-up forward, then `iters` forwards each timed
+    on the host clock up to a synchronize, with the launch counters zeroed
+    just before them, under the given combine. Returns (img/s at the median
+    forward, counts)."""
     model = build_model(use_mask).to(dev, torch.bfloat16)
     image, mask = (t.to(dev) for t in make_image(CANVAS))
     post = {"canvas_hw": CANVAS, "topk": 100}
     times = []
-    with torch.no_grad():
+    with torch.no_grad(), sampling(COMBINE_IMPL=combine):
         model(image, mask, postprocess=post)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -243,12 +397,8 @@ def run_slice(dev, use_mask, iters, label):
                                  f"!= {shape}")
         if out[key].is_floating_point() and not torch.isfinite(out[key]).all():
             raise AssertionError(f"{label}: {key} not finite")
-    # per forward: K1 in 6 encoder layers x 4 levels (+ 6 decoder layers x 4
-    # levels when detection only), K2 in 5 decoder layers x 4 levels, K3 in
-    # 6 decoder self-attentions
-    per_fwd = ({"K1": 24, "K2": 20, "K3": 6, "K5": 0, "K6": 0} if use_mask
-               else {"K1": 48, "K2": 0, "K3": 6, "K5": 0, "K6": 0})
-    expect = {k: v * iters for k, v in per_fwd.items()}
+    expect = {k: v * iters
+              for k, v in INFER_LAUNCHES[(combine, use_mask)].items()}
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != {expect}")
     del model
@@ -256,12 +406,14 @@ def run_slice(dev, use_mask, iters, label):
     return fps, counts
 
 
-def card_vs_cpu(dev):
-    """Phase 5: same weights and image, f32, card (kernels) vs CPU (plain)."""
+def card_vs_cpu(dev, combine="pmajor"):
+    """Phases 5 and 4c: same weights and image, f32, card (kernels) vs CPU
+    (plain), under the given combine."""
     model = build_model(True, seed=1, noise_seed=2)
     image, mask = make_image(E2E_CANVAS, seed=1)
     post = {"canvas_hw": E2E_CANVAS, "topk": 100}
-    with torch.no_grad():
+    used = ("K8", "K3") if combine == "mmajor" else ("K1", "K2", "K3")
+    with torch.no_grad(), sampling(COMBINE_IMPL=combine):
         want = model(image, mask, postprocess=post)
         model.to(dev)
         before = {k: f.launches for k, f in counters().items()}
@@ -269,13 +421,14 @@ def card_vs_cpu(dev):
                                             postprocess=post).items()}
     torch.cuda.synchronize()
     after = {k: f.launches for k, f in counters().items()}
-    if any(after[k] == before[k] for k in ("K1", "K2", "K3")):
+    if any(after[k] == before[k] for k in used):
         raise AssertionError("card run did not go through every kernel")
     label_eq = bool((got["labels"] == want["labels"]).all())
     score_err = float((got["scores"] - want["scores"]).abs().max())
     box_err = float((got["boxes"] - want["boxes"]).abs().max())
     mask_diff = float((got["masks"] != want["masks"]).float().mean())
-    log(f"card vs CPU at {E2E_CANVAS} f32: labels equal {label_eq}, "
+    log(f"card vs CPU at {E2E_CANVAS} f32, {combine} combine: labels equal "
+        f"{label_eq}, "
         f"score max abs err {score_err:.3e}, box max abs err {box_err:.3e} px,"
         f" mask pixels differing {mask_diff:.3e}")
     if not (label_eq and score_err <= 1e-3 and box_err <= 1e-3
@@ -308,14 +461,14 @@ def profile(fn, wall_ms, label):
     return busy_ms, busy_ms / wall_ms
 
 
-def profile_forward(dev, forward_ms):
-    """Phase 6: one segm forward under the profiler."""
+def profile_forward(dev, forward_ms, combine="pmajor"):
+    """Phases 6 and 4c: one segm forward under the profiler."""
     model = build_model(True).to(dev, torch.bfloat16)
     image, mask = (t.to(dev) for t in make_image(CANVAS))
     post = {"canvas_hw": CANVAS, "topk": 100}
-    with torch.no_grad():
+    with torch.no_grad(), sampling(COMBINE_IMPL=combine):
         profile(lambda: model(image, mask, postprocess=post), forward_ms,
-                "segm forward")
+                f"segm forward, {combine} combine")
     del model
     torch.cuda.empty_cache()
 
@@ -372,10 +525,63 @@ def check_grads(grads, label):
                              f"({len(watched)} watched)")
 
 
-def run_train(dev, use_mask, label, profiled=False):
-    """Phase 7: a warm-up step (its pre-clip gradients checked), then
+def loss_falls_along_gradient(model, criterion, batch, label,
+                              step_norm=1e-3):
+    """The total loss of the step's forward (bf16 autocast) on its batch
+    falls after a parameter step of L2 norm `step_norm` against its
+    gradient: the backward is a descent direction of the full-width loss.
+    The parameters are restored after it. Over a few AdamW steps the loss
+    moves up and down on either path, and a finite step can flip a top-k
+    proposal or a match (the loss is discontinuous there), so the check
+    starts from the initial weights with a small step. Returns (loss
+    before, loss after, predicted after)."""
+    from boxer_tpu_torch.criterion.losses import weighted_total
+
+    weight_dict = criterion.expanded_weight_dict(num_aux=16, num_enc=2)
+    targets = {k: v[0] for k, v in batch["targets"].items()}
+    num_boxes = criterion.compute_num_boxes(batch["targets"])
+    mask = batch.get("mask")
+
+    def total():
+        with torch.autocast(batch["image"].device.type, dtype=torch.bfloat16):
+            out = model(batch["image"][0], None if mask is None else mask[0],
+                        train=True, inference=False)
+        return weighted_total(criterion(out, targets, num_boxes=num_boxes),
+                              weight_dict)[0]
+
+    params = [p for p in model.parameters() if p.requires_grad]
+    saved = [p.detach().clone() for p in params]
+    before = total()
+    before.backward()
+    norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in params
+                          if p.grad is not None))
+    with torch.no_grad():
+        for p in params:
+            if p.grad is not None:
+                p.sub_(p.grad * (step_norm / norm))
+        after = float(total())
+        for p, s in zip(params, saved):
+            p.copy_(s)
+            p.grad = None
+    before, norm = float(before.detach()), float(norm)
+    predicted = before - step_norm * norm
+    log(f"  a step of norm {step_norm:g} against the gradient (norm "
+        f"{norm:.5g}) from the initial weights: total loss {before:.6g} -> "
+        f"{after:.6g} (linear prediction {predicted:.6g})")
+    if not after < before:
+        raise AssertionError(f"{label}: the loss did not fall along its "
+                             "gradient")
+    return before, after, predicted
+
+
+def run_train(dev, use_mask, label, profiled=False, per_step=None,
+              falling=False):
+    """Phases 7 and 7c: with `falling`, first the loss must fall along its
+    gradient; then a warm-up step (its pre-clip gradients checked), then
     TRAIN_STEPS timed steps on the same batch with the launch counters
-    zeroed just before them. Returns (median ms/step, counts)."""
+    zeroed just before them; the counts must be `per_step` (by default the
+    per-tap step's) per step. Returns (median ms/step, peak GiB, counts,
+    profile)."""
     from boxer_tpu_torch.parallel.steps import make_train_step
 
     model = build_model(use_mask).to(dev).train()
@@ -384,6 +590,8 @@ def run_train(dev, use_mask, label, profiled=False):
                                  compute_dtype=torch.bfloat16,
                                  debug_grads=True)
     batch = train_batch(CANVAS, use_mask, dev)
+    if falling:
+        loss_falls_along_gradient(model, criterion, batch, label)
     terms = (["total_loss", "loss_ce", "loss_bbox", "loss_giou"]
              + (["loss_mask", "loss_dice"] if use_mask else [])
              + ["loss_ce_enc_0", "grad_norm"])
@@ -413,6 +621,8 @@ def run_train(dev, use_mask, label, profiled=False):
         f"launches per step {({k: v / TRAIN_STEPS for k, v in counts.items()})}")
     log(f"  first step: {show(all_stats[0])}")
     log(f"  last step:  {show(all_stats[-1])}")
+    losses = [st["total_loss"] for st in all_stats]
+    log(f"  total loss by step: {', '.join(f'{v:.5g}' for v in losses)}")
     for i, st in enumerate(all_stats):
         if st["skipped"] != 0.0 or not all(np.isfinite(v) for k, v in
                                            st.items() if k != "_grads"):
@@ -423,11 +633,12 @@ def run_train(dev, use_mask, label, profiled=False):
     if bad or state.step != TRAIN_STEPS + 1:
         raise AssertionError(f"{label}: after the last step {bad}, step "
                              f"{state.step}")
-    expect = {k: v * TRAIN_STEPS for k, v in TRAIN_LAUNCHES[use_mask].items()}
+    per_step = TRAIN_LAUNCHES[use_mask] if per_step is None else per_step
+    expect = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != {expect}")
     busy = profile(lambda: step(state, batch), ms,
-                   f"segm train step") if profiled else None
+                   f"{label}, one step") if profiled else None
     del model, state, step, debug_step
     torch.cuda.empty_cache()
     return ms, peak, counts, busy
@@ -517,6 +728,78 @@ def train_card_vs_cpu(dev):
     return dict(loss_err=loss_err, grad_err=cpu_err, k56_err=k56_err)
 
 
+def train_folded_vs_pertap(dev):
+    """Phase 8c: one f32 detection step at 256x384 on the card with phase 5's
+    weights and phase 8's batch, folded (`FOLD_TAP_THRESHOLD = 0`: every
+    level through `TakeRows`, K7b in the backward) against per-tap
+    (`QuadSample`: K2, K5), then folded with K7b swapped for its plain
+    version (the same forward, so the same ReLU branches)."""
+    import copy
+
+    from boxer_tpu_torch.ops import box_attention as ba
+    from boxer_tpu_torch.ops import scatter_accum as sa
+
+    model = build_model(False, seed=1, noise_seed=2).train()
+
+    def run(threshold):
+        m = copy.deepcopy(model).to(dev)
+        criterion, state, step = train_setup(m, False, torch.float32,
+                                             debug_grads=True)
+        criterion.matcher = RecordingMatcher(criterion.matcher)
+        before = {k: f.launches for k, f in counters().items()}
+        with sampling(FOLD_TAP_THRESHOLD=threshold):
+            _, stats = step(state, train_batch(E2E_CANVAS, False, dev,
+                                               seed=1))
+        torch.cuda.synchronize()
+        after = {k: f.launches for k, f in counters().items()}
+        stats["_grads"] = {n: g.cpu() for n, g in stats["_grads"].items()}
+        return stats, criterion.matcher.calls, {k: after[k] - before[k]
+                                                for k in after}
+
+    folded, folded_qi, folded_launches = run(0)
+    # P=4 taps per level: a threshold of 4 keeps every level per tap
+    pertap, pertap_qi, pertap_launches = run(4)
+    kernel = ba.scatter_add_rows_pmajor
+    ba.scatter_add_rows_pmajor = sa.scatter_rows_plain
+    try:
+        plain, _, plain_launches = run(0)
+    finally:
+        ba.scatter_add_rows_pmajor = kernel
+    if not (folded_launches["K7b"] and not folded_launches["K5"]
+            and not folded_launches["K2"] and pertap_launches["K5"]
+            and not pertap_launches["K7b"] and not plain_launches["K7b"]):
+        raise AssertionError(f"launches: folded {folded_launches}, per-tap "
+                             f"{pertap_launches}, folded with plain K7b "
+                             f"{plain_launches}")
+    same_match = len(folded_qi) == len(pertap_qi) and all(
+        torch.equal(a, b) for a, b in zip(folded_qi, pertap_qi))
+    keys = [k for k in pertap if k.startswith("loss_")] + ["total_loss"]
+    loss_err = max(rel_err(folded[k], pertap[k]) for k in keys)
+    norm_err = rel_err(folded["grad_norm"], pertap["grad_norm"])
+
+    def worst_leaf(a, b):
+        errs = {n: rel_err(a["_grads"][n], g) for n, g in b["_grads"].items()}
+        worst = max(errs, key=errs.get)
+        return errs[worst], worst
+
+    fold_err, fold_leaf = worst_leaf(folded, pertap)
+    k7b_err, k7b_leaf = worst_leaf(folded, plain)
+    log(f"detection train step at {E2E_CANVAS} f32 on the card, folded vs "
+        f"per-tap: {len(folded_qi)} matches identical {same_match}, loss "
+        f"terms ({len(keys)}) worst rel err {loss_err:.3e}, grad norm "
+        f"{norm_err:.3e}, pre-clip grads worst leaf {fold_err:.3e} "
+        f"({fold_leaf}); K7b vs its plain version in the folded step: worst "
+        f"leaf {k7b_err:.3e} ({k7b_leaf}); K7b launches "
+        f"{folded_launches['K7b']}")
+    # the folded and per-tap forwards sum the taps in another order, so a
+    # ReLU input within rounding of 0 may take the other branch (phase 8):
+    # the leaves are held at 0.1 there and K7b at 1e-4 in the same forward
+    if not (same_match and loss_err <= 1e-4 and norm_err <= 1e-3
+            and fold_err <= 0.1 and k7b_err <= 1e-4):
+        raise AssertionError("folded and per-tap train steps disagree")
+    return dict(loss_err=loss_err, grad_err=fold_err, k7b_err=k7b_err)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -543,14 +826,28 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas:", line.strip())
 
-    # 3. kernels against their plain versions (3b: K5, K6)
+    # 3. kernels against their plain versions (3b: K5, K6; 3c: K7a, K7b, K8)
     kern = check_kernels(dev)
+    # 3c. the combine shootout (T1-T3) and the folded op's gradients
+    from boxer_tpu_torch.tools import bench_combine
 
-    # 4. the inference slice at full width
-    segm_fps, segm_counts = run_slice(dev, True, SEGM_ITERS,
-                                      f"segm R50 {CANVAS} bf16 [{smi}]")
-    det_fps, det_counts = run_slice(dev, False, DET_ITERS,
-                                    f"detection R50 {CANVAS} bf16 [{smi}]")
+    shootout = bench_combine.run(dev, log=log)
+    box_attention_grads(dev)
+
+    # 4. the inference slice at full width; 4c. under the m-major combine
+    runs = {}
+    segm_fps, runs["segm"] = run_slice(dev, True, SEGM_ITERS,
+                                       f"segm R50 {CANVAS} bf16 [{smi}]")
+    det_fps, runs["det"] = run_slice(dev, False, DET_ITERS,
+                                     f"detection R50 {CANVAS} bf16 [{smi}]")
+    mm_segm_fps, runs["segm mmajor"] = run_slice(
+        dev, True, SEGM_ITERS, f"segm R50 {CANVAS} bf16, m-major combine "
+        f"[{smi}]", combine="mmajor")
+    mm_det_fps, runs["det mmajor"] = run_slice(
+        dev, False, DET_ITERS, f"detection R50 {CANVAS} bf16, m-major "
+        f"combine [{smi}]", combine="mmajor")
+    profile_forward(dev, 1e3 / mm_segm_fps, combine="mmajor")
+    card_vs_cpu(dev, combine="mmajor")
 
     # 5. card against CPU
     card_vs_cpu(dev)
@@ -558,45 +855,74 @@ def main():
     # 6. where the device time of a forward goes
     profile_forward(dev, 1e3 / segm_fps)
 
-    # 7. the training slice at full width
-    segm_ms, segm_peak, segm_train_counts, segm_busy = run_train(
+    # 7. the training slice at full width; 7c. the detection step folded
+    segm_ms, segm_peak, runs["segm train"], segm_busy = run_train(
         dev, True, f"segm train R50 {CANVAS} bf16 autocast [{smi}]",
         profiled=True)
-    det_ms, det_peak, det_train_counts, _ = run_train(
+    det_ms, det_peak, runs["det train"], _ = run_train(
         dev, False, f"detection train R50 {CANVAS} bf16 autocast [{smi}]")
+    with sampling(FOLD_TAP_THRESHOLD=0):
+        fold_ms, fold_peak, runs["det train folded"], fold_busy = run_train(
+            dev, False, f"detection train R50 {CANVAS} bf16 autocast, folded "
+            f"[{smi}]", profiled=True, per_step=FOLDED_TRAIN_LAUNCHES,
+            falling=True)
 
-    # 8. one train step, card against CPU
+    # 8. one train step, card against CPU; 8c. folded against per-tap
     train_card_vs_cpu(dev)
+    train_folded_vs_pertap(dev)
 
-    sources = {"K1": ("quad_sample_reduce_raw", "quad_sample_reduce.cu",
-                      "boxer_tpu/ops/pallas/combine_reduce.py:123"),
-               "K2": ("quad_sample_reduce_w4", "quad_sample_reduce.cu",
-                      "boxer_tpu/ops/pallas/combine_reduce.py:264"),
-               "K3": ("flash_attention", "flash_attention.cu",
-                      "boxer_tpu/ops/pallas/flash_attention.py:69"),
-               "K5": ("scatter_add_rows_weighted", "scatter_accum.cu",
-                      "boxer_tpu/ops/pallas/scatter_accum.py:330"),
-               "K6": ("scatter_add_rows_pmajor_weighted", "scatter_accum.cu",
-                      "boxer_tpu/ops/pallas/scatter_accum.py:401")}
-    runs = (segm_counts, det_counts, segm_train_counts, det_train_counts)
+    # K7a has no caller in the package: its launches are those of its
+    # op-level run in phase 3c; the T rows' those of the shootout
+    qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
+    pallas = "boxer_tpu/ops/pallas/"
+    rows = [("K1", "quad_sample_reduce_raw", qsr,
+             pallas + "combine_reduce.py:123"),
+            ("K2", "quad_sample_reduce_w4", qsr,
+             pallas + "combine_reduce.py:264"),
+            ("K3", "flash_attention", "flash_attention.cu",
+             pallas + "flash_attention.py:69"),
+            ("K5", "scatter_add_rows_weighted", sacc,
+             pallas + "scatter_accum.py:330"),
+            ("K6", "scatter_add_rows_pmajor_weighted", sacc,
+             pallas + "scatter_accum.py:401"),
+            ("K7a", "scatter_add_rows", sacc, pallas + "scatter_accum.py:428"),
+            ("K7b", "scatter_add_rows_pmajor", sacc,
+             pallas + "scatter_accum.py:208"),
+            ("K8", "quad_sample_reduce_mmajor", qsr,
+             pallas + "combine_reduce.py:249")]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     kernels = []
-    for key, (name, src, replaces) in sources.items():
+    for key, name, src, replaces in rows:
         r = kern[key]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"boxer_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": sum(c[key] for c in runs),
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"]})
+        launches = (r["op_launches"] if key == "K7a"
+                    else sum(c[key] for c in runs.values()))
+        kernels.append(dict(name=name, route="cuda",
+                            source=f"boxer_tpu_torch/csrc/{src}",
+                            replaces=replaces, launches=launches,
+                            **{k: r[k] for k in keys}))
+    for t, label, name, wrapper_src in (
+            ("T1", "T1 f32 out", "quad_sample_reduce_mmajor", qsr),
+            ("T2", "T2 onepass/early", "quad_sample_reduce_w4", qsr),
+            ("T3", "T3 onepass_big", "quad_sample_reduce_w4", qsr)):
+        variants = [r for r in shootout if r["label"].startswith(t + " ")]
+        r = next(v for v in variants if v["label"] == label)
+        kernels.append(dict(name=f"{t}: {name}", route="cuda",
+                            source=f"boxer_tpu_torch/csrc/{wrapper_src}",
+                            replaces=r["replaces"],
+                            launches=sum(v["launches"] for v in variants),
+                            **{k: r[k] for k in keys}))
     log(f"slices [{smi}]: segm {segm_fps:.3f} img/s, detection "
-        f"{det_fps:.3f} img/s; train segm {segm_ms:.2f} ms/step (peak "
+        f"{det_fps:.3f} img/s (m-major combine: {mm_segm_fps:.3f}, "
+        f"{mm_det_fps:.3f}); train segm {segm_ms:.2f} ms/step (peak "
         f"{segm_peak:.2f} GiB, device busy {100 * segm_busy[1]:.1f}%), "
-        f"train detection {det_ms:.2f} ms/step (peak {det_peak:.2f} GiB)")
+        f"train detection {det_ms:.2f} ms/step (peak {det_peak:.2f} GiB), "
+        f"folded {fold_ms:.2f} ms/step (peak {fold_peak:.2f} GiB, device busy "
+        f"{100 * fold_busy[1]:.1f}%)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
-
 
 if __name__ == "__main__":
     main()

@@ -8,9 +8,12 @@ the ~128 proposal logits do not tie). Held: the encoder's proposal logits
 (rel err <= 1e-4) and the selected proposal indices (exactly equal), then
 scores within atol 1e-4, boxes within atol 1e-4 of the canvas size (the
 pixel values reach ~100, where f32 noise alone is ~1e-5), identical labels,
-and fewer than 1e-3 of mask pixels different.
+and fewer than 1e-3 of mask pixels different. The same holds under the
+m-major combine (`BOXER_COMBINE=mmajor`: K8's plain version in the port,
+the JAX package's XLA formulation on the CPU).
 """
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -90,12 +93,7 @@ def _compare_outputs(got, want):
         assert np.mean(got["masks"].numpy() != np.asarray(want["masks"])) < 1e-3
 
 
-@pytest.mark.parametrize("use_mask,residual_mode,padded", [
-    (True, "v1", True),      # segm + deferred mask decode, padding mask
-    (True, "v2", False),     # segm, the other residual mode, no padding
-    (False, "v1", True),     # detection only
-], ids=["segm-v1-padded", "segm-v2", "det-padded"])
-def test_boxer2d_matches_jax(use_mask, residual_mode, padded):
+def _boxer2d_matches_jax(use_mask, residual_mode, padded):
     from boxer_tpu.nn.predictor import NEG_INF
 
     image, mask = _inputs(padded)
@@ -124,6 +122,34 @@ def test_boxer2d_matches_jax(use_mask, residual_mode, padded):
 
     assert set(got) == set(want)
     _compare_outputs(got, want)
+
+
+@pytest.mark.parametrize("use_mask,residual_mode,padded", [
+    (True, "v1", True),      # segm + deferred mask decode, padding mask
+    (True, "v2", False),     # segm, the other residual mode, no padding
+    (False, "v1", True),     # detection only
+], ids=["segm-v1-padded", "segm-v2", "det-padded"])
+def test_boxer2d_matches_jax(use_mask, residual_mode, padded):
+    _boxer2d_matches_jax(use_mask, residual_mode, padded)
+
+
+@pytest.mark.parametrize("use_mask", [True, False], ids=["segm", "det"])
+def test_boxer2d_mmajor_combine_matches_jax(monkeypatch, use_mask):
+    """Every fused sampling level through K8 (its plain version): the 4
+    levels of the encoder layer and of each decoder layer but a segm
+    model's last (its dual-output instance attention has no combine)."""
+    from boxer_tpu_torch.ops import box_attention as tb
+
+    monkeypatch.setattr(importlib.import_module("boxer_tpu.ops.box_attention"),
+                        "_COMBINE_IMPL", "mmajor")
+    monkeypatch.setattr(tb, "COMBINE_IMPL", "mmajor")
+    calls = []
+    k8 = tb.quad_sample_reduce_mmajor
+    monkeypatch.setattr(tb, "quad_sample_reduce_mmajor",
+                        lambda *a: calls.append(1) or k8(*a))
+    _boxer2d_matches_jax(use_mask, "v1", padded=True)
+    assert len(calls) == 4 * (TINY["enc_layers"] + TINY["dec_layers"]
+                              - use_mask)
 
 
 def test_port_weights_load_into_jax_model():
@@ -183,3 +209,4 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert "boxer_tpu_torch.models.boxer2d" in res.stdout
     assert "boxer_tpu_torch.ops._build" in res.stdout
+    assert "boxer_tpu_torch.tools.bench_combine" in res.stdout

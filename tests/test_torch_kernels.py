@@ -5,8 +5,12 @@ On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
 its Pallas kernel in the TPU interpret mode (as tests/test_flash_attention.py
 and tests/test_scatter_interpret.py do), with the gathered rows
 `g = table[idx]` taken in numpy. Both accumulate in f32 and differ only in
-summation order: rel err <= 1e-5. The scatters (K5, K6) take global table
-rows where the JAX kernels take rows relative to each (batch*head) slice.
+summation order: rel err <= 1e-5. The scatters (K5, K6, K7a, K7b) take
+global table rows where the JAX kernels take rows relative to each
+(batch*head) slice. The combine shootout's variants (T1-T3, through the
+port's `tools/bench_combine.py`) are held against the production Pallas
+kernels whose functions they compute (the JAX tools themselves are not
+imported: they set jax's compilation cache on import).
 
 The cases that compare a CUDA kernel with its plain version need a card
 (marker `gpu`) and skip without one. jax is imported only inside the JAX
@@ -19,14 +23,16 @@ import numpy as np
 import pytest
 import torch
 
-from boxer_tpu_torch.ops.combine_reduce import (quad_sample_reduce_plain,
-                                                quad_sample_reduce_raw,
-                                                quad_sample_reduce_w4)
+from boxer_tpu_torch.ops.combine_reduce import (
+    quad_sample_reduce_mmajor, quad_sample_reduce_mmajor_plain,
+    quad_sample_reduce_plain, quad_sample_reduce_raw, quad_sample_reduce_w4)
 from boxer_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
 from boxer_tpu_torch.ops.scatter_accum import (
-    scatter_accum_plain, scatter_add_rows_pmajor_weighted,
-    scatter_add_rows_weighted)
+    scatter_accum_plain, scatter_add_rows, scatter_add_rows_pmajor,
+    scatter_add_rows_pmajor_weighted, scatter_add_rows_weighted,
+    scatter_rows_plain)
+from boxer_tpu_torch.tools import bench_combine
 
 RTOL = 1e-5
 
@@ -46,7 +52,7 @@ def interp():
     import boxer_tpu.ops.pallas.combine_reduce as cr
 
     caches = (cr._build_call, cr._build_call_onepass,
-              cr._build_call_onepass_raw)
+              cr._build_call_onepass_raw, cr._build_mmajor_call)
     for f in caches:
         f.cache_clear()
     with pltpu.force_tpu_interpret_mode():
@@ -57,12 +63,13 @@ def interp():
 
 @pytest.fixture()
 def interp_scatter():
-    """As `interp`, for the weighted scatter kernels."""
+    """As `interp`, for the scatter kernels."""
     from jax.experimental.pallas import tpu as pltpu
 
     import boxer_tpu.ops.pallas.scatter_accum as sa
 
-    caches = (sa._build_call_weighted, sa._build_call_pmajor_weighted)
+    caches = (sa._build_call, sa._build_call_pmajor, sa._build_call_weighted,
+              sa._build_call_pmajor_weighted)
     for f in caches:
         f.cache_clear()
     with pltpu.force_tpu_interpret_mode():
@@ -207,21 +214,133 @@ def test_k6_matches_pallas(interp_scatter):
         <= RTOL
 
 
+def test_k7a_matches_pallas(interp_scatter):
+    """K7a: 300 taps per slice, not a multiple of the kernel's 4096-tap
+    chunk, so the JAX side pads into its dump rows."""
+    import jax.numpy as jnp
+
+    bh, n, rb = 2, 300, 40
+    rs = np.random.RandomState(2)
+    idx = rs.randint(0, rb, (bh, n)).astype(np.int32)
+    idx[:, :2] = [0, rb - 1]
+    payload = rs.randn(bh, n, 128).astype(np.float32)
+    want = np.asarray(interp_scatter.scatter_add_rows(
+        jnp.asarray(idx), jnp.asarray(payload), rb))
+    got = scatter_add_rows(torch.from_numpy(_global_rows(idx[None], rb)[0]),
+                           torch.from_numpy(payload.reshape(bh * n, 128)),
+                           bh * rb)
+    assert got.shape == (bh * rb, 128) and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want.reshape(bh * rb, 128)) <= RTOL
+
+
+def test_k7b_matches_pallas(interp_scatter):
+    """K7b: p-major taps, LQ=30 per slice, padded to the kernel's 128-tap
+    block on the JAX side."""
+    import jax.numpy as jnp
+
+    p, bh, lq, rb = 3, 2, 30, 40
+    rs = np.random.RandomState(3)
+    idx = rs.randint(0, rb, (p, bh, lq)).astype(np.int32)
+    idx[:, :, :2] = [0, rb - 1]
+    payload = rs.randn(p, bh, lq, 128).astype(np.float32)
+    want = np.asarray(interp_scatter.scatter_add_rows_pmajor(
+        jnp.asarray(idx), jnp.asarray(payload), rb))
+    got = scatter_add_rows_pmajor(
+        torch.from_numpy(_global_rows(idx, rb)),
+        torch.from_numpy(payload.reshape(p * bh * lq, 128)), bh * rb)
+    assert got.shape == (bh * rb, 128) and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want.reshape(bh * rb, 128)) <= RTOL
+
+
+def _mmajor_case(p, m, rows, seed):
+    """The taps of `_quad_case` in (m, p) order."""
+    table, idx, lx, ly, wt, _ = _quad_case(p, m, rows, seed)
+    return (table,) + tuple(np.ascontiguousarray(a.T)
+                            for a in (idx, lx, ly, wt))
+
+
+@pytest.mark.parametrize("p,m", [(4, 3000), (196, 100)])
+def test_k8_mmajor_matches_pallas(interp, p, m):
+    """K8: M not a multiple of the kernel's outputs per block (1024 at P=4,
+    16 at P=196)."""
+    import jax.numpy as jnp
+
+    table, idx, lx, ly, wt = _mmajor_case(p, m, rows=700, seed=p + 1)
+    g = table[idx.reshape(-1)]
+    want = interp.fused_combine_reduce_mmajor(
+        jnp.asarray(g), *(jnp.asarray(a.reshape(1, -1)) for a in (lx, ly, wt)),
+        p, m)
+    got = quad_sample_reduce_mmajor(*(torch.from_numpy(a) for a in
+                                      (table, idx, lx, ly, wt)))
+    assert got.shape == (m, 32) and got.dtype == torch.float32
+    assert _rel_err(got.numpy(), want) <= RTOL
+
+
+@pytest.mark.parametrize("variant,p,m", [
+    ("T1", 4, 3000), ("T1 bf16 out", 4, 3000), ("T1", 196, 100),
+    ("T2", 4, 3000), ("T2", 16, 600), ("T3", 4, 5000), ("gather-fed", 4, 600),
+])
+def test_shootout_matches_pallas(interp, variant, p, m):
+    """The shootout's cases on the CPU (their plain versions) against the
+    Pallas kernels of the same function: T1 (m-major rows gathered
+    beforehand, identity index) against `fused_combine_reduce_mmajor`, T2
+    and T3 (p-major, identity index) and the gather-fed variant against
+    `fused_combine_reduce` (its one-pass kernel at P <= 8, the accumulator
+    carry above)."""
+    import jax.numpy as jnp
+
+    rs = np.random.RandomState(p * 7 + m)
+    bc = bench_combine
+    if variant.startswith("T1"):
+        g = rs.randn(p * m, 128).astype(np.float32)
+        lx, ly, wt = rs.rand(3, m, p).astype(np.float32)
+        case = bc.mmajor_case(torch.from_numpy(g),
+                              bc.identity_rows(p, m, True, "cpu"),
+                              *(torch.from_numpy(a) for a in (lx, ly, wt)),
+                              out_bf16=variant == "T1 bf16 out")
+        want = np.asarray(interp.fused_combine_reduce_mmajor(
+            jnp.asarray(g), *(jnp.asarray(a.reshape(1, -1))
+                              for a in (lx, ly, wt)), p, m))
+    else:
+        w4 = rs.rand(p, 4, m).astype(np.float32)
+        if variant == "gather-fed":
+            table = rs.randn(900, 128).astype(np.float32)
+            idx = rs.randint(0, 900, (p, m)).astype(np.int32)
+            g = table[idx.reshape(-1)]
+        else:
+            g = table = rs.randn(p * m, 128).astype(np.float32)
+            idx = bc.identity_rows(p, m, False, "cpu").numpy()
+        case = bc.pmajor_case(torch.from_numpy(table), torch.from_numpy(idx),
+                              torch.from_numpy(w4))
+        want = np.asarray(interp.fused_combine_reduce(
+            jnp.asarray(g), jnp.asarray(w4), p, m))
+    got = case["kernel"]().float().numpy()
+    tol = 1e-2 if variant == "T1 bf16 out" else RTOL
+    assert got.shape == (m, 32)
+    assert _rel_err(got, want) <= tol
+
+
 def test_cpu_tensors_take_the_plain_version_only():
     """A CPU call launches nothing; a device that is neither CPU nor CUDA
     raises instead of falling back."""
     table, idx, lx, ly, wt, w4 = (torch.from_numpy(a)
                                   for a in _quad_case(2, 10, 50, seed=3))
     g = table[:10, :32].contiguous()
-    wrappers = (quad_sample_reduce_raw, quad_sample_reduce_w4, flash_attention,
-                scatter_add_rows_weighted, scatter_add_rows_pmajor_weighted)
+    idx_m, lx_m, ly_m, wt_m = (t.t().contiguous() for t in (idx, lx, ly, wt))
+    wrappers = (quad_sample_reduce_raw, quad_sample_reduce_w4,
+                quad_sample_reduce_mmajor, flash_attention,
+                scatter_add_rows_weighted, scatter_add_rows_pmajor_weighted,
+                scatter_add_rows, scatter_add_rows_pmajor)
     launches = [f.launches for f in wrappers]
     quad_sample_reduce_raw(table, idx, lx, ly, wt)
     quad_sample_reduce_w4(table, idx, w4)
+    quad_sample_reduce_mmajor(table, idx_m, lx_m, ly_m, wt_m)
     flash_attention(table[None, :8, :32], table[None, :8, :32],
                     table[None, :8, :32])
     scatter_add_rows_weighted(idx, g, w4, 50)
     scatter_add_rows_pmajor_weighted(idx, table[:20, :32], w4, 50)
+    scatter_add_rows(idx.reshape(-1), table[:20], 50)
+    scatter_add_rows_pmajor(idx, table[:20], 50)
     assert [f.launches for f in wrappers] == launches
     meta = [t.to("meta") for t in (table, idx, lx, ly, wt, w4)]
     with pytest.raises(ValueError):
@@ -231,11 +350,20 @@ def test_cpu_tensors_take_the_plain_version_only():
     with pytest.raises(ValueError):
         flash_attention(*(table[None, :8, :32].to("meta"),) * 3)
     with pytest.raises(ValueError):
+        quad_sample_reduce_mmajor(meta[0], *(t.to("meta") for t in
+                                             (idx_m, lx_m, ly_m, wt_m)))
+    with pytest.raises(ValueError):
         scatter_add_rows_weighted(meta[1], g.to("meta"), meta[5], 50)
+    with pytest.raises(ValueError):
+        scatter_add_rows_pmajor(meta[1], table[:20].to("meta"), 50)
     with pytest.raises(IndexError):
         quad_sample_reduce_w4(table, idx + 50, w4)
     with pytest.raises(IndexError):
+        quad_sample_reduce_mmajor(table, idx_m + 50, lx_m, ly_m, wt_m)
+    with pytest.raises(IndexError):
         scatter_add_rows_weighted(idx, g, w4, 49)
+    with pytest.raises(IndexError):
+        scatter_add_rows(idx.reshape(-1) + 50, table[:20], 50)
 
 
 @pytest.mark.gpu
@@ -298,4 +426,40 @@ def test_scatter_accum_cuda_matches_plain(cuda, per_tap, dtype):
     want = scatter_accum_plain(idx, g, w4, rows, per_tap)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
+    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pmajor", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scatter_rows_cuda_matches_plain(cuda, pmajor, dtype):
+    """K7a (idx (N,)) and K7b (idx (P, M)) at P=196 over a small table, so
+    rows repeat many times; float atomics add in no fixed order."""
+    p, m, rows = 196, 2400 + 3, 5000
+    rs = np.random.RandomState(12)
+    idx = torch.from_numpy(rs.randint(0, rows, (p, m)).astype(np.int32))
+    idx[0, :2] = torch.tensor([0, rows - 1], dtype=torch.int32)
+    payload = torch.from_numpy(rs.randn(p * m, 128).astype(np.float32))
+    idx, payload = idx.to(cuda), payload.to(cuda, dtype)
+    wrapper = scatter_add_rows_pmajor if pmajor else scatter_add_rows
+    before = wrapper.launches
+    got = wrapper(idx if pmajor else idx.reshape(-1), payload, rows)
+    want = scatter_rows_plain(idx, payload, rows)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [4, 196])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quad_sample_reduce_mmajor_cuda_matches_plain(cuda, p, dtype):
+    table, idx, lx, ly, wt = (torch.from_numpy(a).to(cuda) for a in
+                              _mmajor_case(p, 2400 + 3, 5000, seed=9))
+    table = table.to(dtype)
+    before = quad_sample_reduce_mmajor.launches
+    got = quad_sample_reduce_mmajor(table, idx, lx, ly, wt)
+    want = quad_sample_reduce_mmajor_plain(table, idx, lx, ly, wt)
+    torch.cuda.synchronize()
+    assert quad_sample_reduce_mmajor.launches == before + 1
     assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL

@@ -4,11 +4,19 @@ whole train step against the JAX package, on the CPU.
 - `QuadSample` (box and instance attention): grads of value, gx, gy and the
   attention weights against `jax.grad` of the JAX ops in train mode (rel
   err <= 1e-4; f32 sums in another order).
+- The folded differentiable path (`TakeRows`, K7b's plain version in the
+  backward): `box_attention` at its default fold with P=16, and
+  `box_attention_qminor(fold=None)` at P=4 with both packages' fold
+  thresholds set below 4, output and grads against `jax.grad` (rel 1e-4);
+  and the graph of `box_attention`'s output holds the port's autograd
+  Function (`QuadSample` at P <= 8, `TakeRows` above), so the CPU runs the
+  card's backward.
 - K3's Function backward against autograd of `flash_attention_plain`.
 - The whole step: a tiny r10 model (hidden 64 in 2 heads of 32, 1 encoder
   and 2 decoder layers, 16 queries) on a 64x96 canvas, f32, weights from a
   numpy seed, through `make_train_step(..., debug_grads=True)` on both
-  sides. Every loss term within rel 1e-4 and the pre-clip grads within a
+  sides; segm and detection per tap, and detection folded (both fold
+  thresholds below the 4 taps of a box-attention level). Every loss term within rel 1e-4 and the pre-clip grads within a
   worst-leaf rel err (max abs diff over the leaf's max abs) of 2e-3, the
   JAX package's own starting tolerance against the reference. Hidden 64
   gives each of the 32 GroupNorm groups two channels: with one, the input
@@ -78,6 +86,91 @@ def test_box_sampling_grads_match_jax():
         value, gx, gy, aw)
     for name, g, wa in zip(("value", "gx", "gy", "attn_weight"), got, want):
         assert _rel_err(g, wa) <= 1e-4, name
+
+
+def _graph_functions(t):
+    """Names of the autograd nodes behind tensor t."""
+    seen, stack = set(), [t.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is not None and node not in seen:
+            seen.add(node)
+            stack.extend(n for n, _ in node.next_functions)
+    return {type(n).__name__ for n in seen}
+
+
+def test_box_attention_p16_folded_grads_match_jax():
+    """The reference-contract op at its default fold: P=16 folds on both
+    sides (`_take_rows_vjp` in JAX, `TakeRows` in the port)."""
+    jb = importlib.import_module("boxer_tpu.ops.box_attention")
+    from boxer_tpu_torch.ops.box_attention import box_attention
+
+    rs = np.random.RandomState(4)
+    nh, ch, lq, p = 2, 32, 30, 16
+    value = rs.randn(1, sum(h * w for h, w in SHAPES), nh, ch).astype(
+        np.float32)
+    loc = rs.uniform(-0.1, 1.1, (1, lq, nh, len(SHAPES), p, 2)).astype(
+        np.float32)
+    weight = rs.rand(1, lq, nh, len(SHAPES), p).astype(np.float32)
+    cot = rs.randn(1, lq, nh * ch).astype(np.float32)
+
+    def j_loss(v, loc_, w):
+        return (jb.box_attention(v, SHAPES, loc_, w) * cot).sum()
+
+    want_out = jb.box_attention(_j(value), SHAPES, _j(loc), _j(weight))
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(_j(value), _j(loc),
+                                                _j(weight))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (value, loc, weight)]
+    out = box_attention(ts[0], SHAPES, ts[1], ts[2])
+    assert "TakeRowsBackward" in _graph_functions(out)
+    assert _rel_err(out.detach().numpy(), want_out) <= 1e-4
+    (out * _t(cot)).sum().backward()
+    for name, t, wa in zip(("value", "loc", "weight"), ts, want):
+        assert _rel_err(t.grad.numpy(), wa) <= 1e-4, name
+
+
+def test_box_sampling_folded_above_threshold_matches_jax(monkeypatch):
+    """fold=None folds the P=4 taps once both thresholds are below 4."""
+    jb = importlib.import_module("boxer_tpu.ops.box_attention")
+    from boxer_tpu_torch.ops import box_attention as tb
+
+    monkeypatch.setattr(jb, "_FOLD_TAP_THRESHOLD", 3)
+    monkeypatch.setattr(tb, "FOLD_TAP_THRESHOLD", 3)
+    value, gx, gy, aw, _, cot = _sampling_inputs(5, npt=4)
+
+    def j_loss(v, x, y, a):
+        out = jb.box_attention_qminor(v, SHAPES, x, y, a, raw=True)
+        return (out * cot).sum()
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (value, gx, gy, aw)))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (value, gx, gy, aw)]
+    out = tb.box_attention_qminor(*ts[:1], SHAPES, *ts[1:], raw=True)
+    assert "TakeRowsBackward" in _graph_functions(out)
+    (out * _t(cot)).sum().backward()
+    for name, t, wa in zip(("value", "gx", "gy", "attn_weight"), ts, want):
+        assert _rel_err(t.grad.numpy(), wa) <= 1e-4, name
+
+
+@pytest.mark.parametrize("p,function", [(4, "QuadSampleBackward"),
+                                        (16, "TakeRowsBackward")])
+def test_box_attention_output_holds_the_autograd_function(p, function):
+    """The reference-contract op is differentiable through the port's own
+    Function (the card's backward), not through the plain version's ops."""
+    from boxer_tpu_torch.ops.box_attention import box_attention
+
+    rs = np.random.RandomState(p)
+    value = torch.from_numpy(rs.randn(1, sum(h * w for h, w in SHAPES), 1,
+                                      32).astype(np.float32))
+    loc = torch.from_numpy(rs.rand(1, 5, 1, len(SHAPES), p, 2).astype(
+        np.float32))
+    weight = torch.from_numpy(rs.rand(1, 5, 1, len(SHAPES), p).astype(
+        np.float32))
+    out = box_attention(value.requires_grad_(), SHAPES, loc, weight)
+    functions = _graph_functions(out)
+    assert function in functions
+    assert not {"QuadSampleBackward", "TakeRowsBackward"} - {function} \
+        & functions
 
 
 def test_instance_sampling_grads_match_jax():
@@ -165,8 +258,7 @@ def _port_setup(use_mask, variables=None, seed=0, debug_grads=True):
                                   debug_grads=debug_grads)
 
 
-@pytest.mark.parametrize("use_mask", [True, False], ids=["segm", "det"])
-def test_train_step_matches_jax(use_mask):
+def _train_step_matches_jax(use_mask):
     from boxer_tpu.criterion.losses import Boxer2DCriterion as JCrit
     from boxer_tpu.models.boxer2d import BoxeR2D as JaxBoxeR2D
     from boxer_tpu.nn.matcher import HungarianMatcher as JMatcher
@@ -204,6 +296,28 @@ def test_train_step_matches_jax(use_mask):
     worst = max(_rel_err(got["_grads"][n].numpy(), j_grads[n])
                 for n in j_grads)
     assert worst <= 2e-3, worst
+
+
+@pytest.mark.parametrize("use_mask", [True, False], ids=["segm", "det"])
+def test_train_step_matches_jax(use_mask):
+    _train_step_matches_jax(use_mask)
+
+
+def test_folded_train_step_matches_jax(monkeypatch):
+    """Detection with every box-attention level folded on both sides: the
+    port's backward scatters through K7b's plain version at each of the 4
+    levels of the 1 encoder and 2 decoder layers."""
+    from boxer_tpu_torch.ops import box_attention as tb
+
+    monkeypatch.setattr(importlib.import_module("boxer_tpu.ops.box_attention"),
+                        "_FOLD_TAP_THRESHOLD", 3)
+    monkeypatch.setattr(tb, "FOLD_TAP_THRESHOLD", 3)
+    scatters = []
+    scatter = tb.scatter_add_rows_pmajor
+    monkeypatch.setattr(tb, "scatter_add_rows_pmajor",
+                        lambda *a: scatters.append(1) or scatter(*a))
+    _train_step_matches_jax(use_mask=False)
+    assert len(scatters) == 4 * (TINY["enc_layers"] + TINY["dec_layers"])
 
 
 def _worst_leaf(a, b):
