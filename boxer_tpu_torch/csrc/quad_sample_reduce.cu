@@ -10,28 +10,46 @@
 // materialised (P*M, 4*ch) tensor in device memory; here each row is read
 // straight from the quad table and never written back.
 //
-// Two weight modes:
-//   raw: lx, ly, wt f32 in idx's shape; corner weights formed in the kernel
-//        as (1-lx)(1-ly)wt, lx(1-ly)wt, (1-lx)ly wt, lx ly wt  (K1, K8)
-//   w4:  precomputed w4 (P, 4, M) f32                          (K2)
-// and two tap orders (raw mode only for m-major):
-//   p-major: idx (P, M), t(p, m) = p*M + m                     (K1, K2)
-//   m-major: idx (M, P), t(p, m) = m*P + p, the P taps of an output
-//            contiguous in idx and the weights                 (K8)
-// The TPU's m-major kernel exists to reduce each output's P taps inside one
-// VMEM block without an accumulator carried across grid steps; on the card
-// every order keeps the P-sum of an output row in one warp's registers, so
-// the order changes only which index and weight addresses a warp reads.
+// Two kernels, by weight mode:
 //
-// What bounds it on an H100: device-memory bytes. Each tap reads one
-// 4*ch-wide table row (256 B in bf16) plus 12-16 B of index and weights,
-// and does 4*ch FMAs on it, far below the card's compute line. The table
-// rows are gathered at random, so the design keeps each row read whole by
-// one warp (one lane per channel, 4 coalesced 64 B reads in bf16) and keeps
-// the P-sum in a register, writing each output row once. A later version
-// can widen the loads and spread the index/weight loads across lanes (in
-// m-major order a warp's P indices and weights are contiguous, so one
-// coalesced load could fetch them all).
+// raw (K1, K8): lx, ly, wt f32 in idx's shape; corner weights formed in the
+//   kernel as (1-lx)(1-ly)wt, lx(1-ly)wt, (1-lx)ly wt, lx ly wt. Tap order
+//   p-major, idx (P, M), t(p, m) = p*M + m (K1), or m-major, idx (M, P),
+//   t(p, m) = m*P + p (K8). One warp owns one output row, one lane per
+//   channel, and walks its P taps in series (P <= 8 on K1's path). The
+//   TPU's m-major kernel exists to reduce each output's P taps inside one
+//   VMEM block; on the card every order keeps the P-sum in a register, so
+//   the order changes only which addresses a warp reads.
+//
+// w4 (K2): precomputed w4 (P, 4, M) f32, idx (P, M). Its main-path shapes
+//   are P=196, M=2,400 (the decoder's instance attention at inference) and
+//   P=4 at M=161,576 and 2,400, P=1 at M=470,400 (`QuadSample`'s forward in
+//   training). What bounds it on an H100: device-memory bytes. At P=196,
+//   M=2,400 over encoder level 0's 123,624-row bf16 table it must read the
+//   distinct table rows (31.6 MB), idx (1.9 MB) and w4 (7.5 MB) and write
+//   0.3 MB: 40.5 MB, 0.0121 ms at 3.35 TB/s. Its 470,400 row reads (120 MB)
+//   mostly hit the 50 MB L2. A warp walking one output's 196 taps in
+//   series, as the raw kernel does, waits on 196 dependent index -> row
+//   round trips with only 2,400 warps on the card: latency-bound, 17x its
+//   bound. So the w4 kernel
+//   - above 8 taps, spreads an output's taps: a tap is one "group" of
+//     lanes reading its whole quad row with 16-byte loads (16 lanes in
+//     bf16, 32 in f32), so a warp fetches two bf16 rows per instruction,
+//     four taps' rows in flight a group; kG = 2 groups share an output,
+//     each walking every 2nd tap; the corners of a channel block meet
+//     across lanes with `__shfl_xor_sync`, the 2 groups in shared memory;
+//   - above 8 taps, stages idx and w4: a block covers kThreads / (lanes *
+//     kG) consecutive outputs and copies a (kChunk taps x outputs) tile of
+//     idx and of each corner's w4 into shared memory with `cp.async`
+//     (consecutive threads on consecutive m), double-buffered so the next
+//     chunk's copy overlaps this chunk's gathers; every tap's index and
+//     weight is then a shared-memory read;
+//   - up to 8 taps (the training forward), gives each output 4 lanes (8 in
+//     f32), each owning 16 bytes of channels and reading them from all 4
+//     corners, two taps in flight: corners and taps sum in registers with
+//     no shuffle and no barrier, and the lane stores its own channels. The
+//     16-lane groups cost 16 shuffles an output, more than 1-4 taps repay
+//     (at P=1 they ran slower than the raw mode's warp-an-output loop).
 //
 // Indices are not clamped: the caller clamps them. An index outside
 // [0, rows) traps, which surfaces as a launch failure at the next sync.
@@ -41,22 +59,27 @@
 
 namespace {
 
-constexpr int kCh = 32;            // channels per head; one lane each
-constexpr int kWarpsPerBlock = 8;  // output rows per block
+constexpr int kCh = 32;            // channels per head
+constexpr int kWarpsPerBlock = 8;  // raw mode: output rows per block
+constexpr int kThreads = 256;      // w4 mode: threads per block
+constexpr int kChunk = 32;         // w4 mode: taps per staged chunk
+constexpr int kDirectMaxP = 8;     // w4 mode: up to it, no staging
+constexpr int kG = 2;              // w4 mode, staged: groups an output
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, bool kRaw, bool kMmajor>
+template <typename T, bool kMmajor>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-quad_sample_reduce_kernel(const T* __restrict__ table, long long rows,
-                          const int* __restrict__ idx,
-                          const float* __restrict__ a,
-                          const float* __restrict__ b,
-                          const float* __restrict__ c,
-                          float* __restrict__ out, int p_taps, int m_rows) {
+quad_sample_reduce_raw_kernel(const T* __restrict__ table, long long rows,
+                              const int* __restrict__ idx,
+                              const float* __restrict__ lxs,
+                              const float* __restrict__ lys,
+                              const float* __restrict__ wts,
+                              float* __restrict__ out, int p_taps,
+                              int m_rows) {
   const int lane = threadIdx.x & 31;
   const long long m =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -68,20 +91,9 @@ quad_sample_reduce_kernel(const T* __restrict__ table, long long rows,
                                 : static_cast<long long>(p) * m_rows + m;
     const int r = __ldg(idx + t);
     if (r < 0 || r >= rows) __trap();
-    float w0, w1, w2, w3;
-    if (kRaw) {
-      const float lx = __ldg(a + t), ly = __ldg(b + t), wt = __ldg(c + t);
-      w0 = (1.f - lx) * (1.f - ly) * wt;
-      w1 = lx * (1.f - ly) * wt;
-      w2 = (1.f - lx) * ly * wt;
-      w3 = lx * ly * wt;
-    } else {
-      const long long base = static_cast<long long>(p) * 4 * m_rows + m;
-      w0 = __ldg(a + base);
-      w1 = __ldg(a + base + m_rows);
-      w2 = __ldg(a + base + 2LL * m_rows);
-      w3 = __ldg(a + base + 3LL * m_rows);
-    }
+    const float lx = __ldg(lxs + t), ly = __ldg(lys + t), wt = __ldg(wts + t);
+    const float w0 = (1.f - lx) * (1.f - ly) * wt, w1 = lx * (1.f - ly) * wt;
+    const float w2 = (1.f - lx) * ly * wt, w3 = lx * ly * wt;
     const T* row = table + static_cast<long long>(r) * (4 * kCh) + lane;
     acc += w0 * to_f32(row[0 * kCh]);
     acc += w1 * to_f32(row[1 * kCh]);
@@ -91,32 +103,276 @@ quad_sample_reduce_kernel(const T* __restrict__ table, long long rows,
   out[m * kCh + lane] = acc;
 }
 
+// A quad row read as 16-byte vectors: kLanes lanes of kVals values each,
+// lane l holding corner l / (kLanes / 4), channels (l % (kLanes / 4)) *
+// kVals onwards.
+template <typename T>
+struct Row;
+
+template <>
+struct Row<__nv_bfloat16> {
+  static constexpr int kLanes = 16, kVals = 8;
+  static __device__ __forceinline__ void fma(float* acc, uint4 v, float w) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      acc[2 * i] = fmaf(w, f.x, acc[2 * i]);
+      acc[2 * i + 1] = fmaf(w, f.y, acc[2 * i + 1]);
+    }
+  }
+};
+
+template <>
+struct Row<float> {
+  static constexpr int kLanes = 32, kVals = 4;
+  static __device__ __forceinline__ void fma(float* acc, uint4 v, float w) {
+    acc[0] = fmaf(w, __uint_as_float(v.x), acc[0]);
+    acc[1] = fmaf(w, __uint_as_float(v.y), acc[1]);
+    acc[2] = fmaf(w, __uint_as_float(v.z), acc[2]);
+    acc[3] = fmaf(w, __uint_as_float(v.w), acc[3]);
+  }
+};
+
+// 4-byte asynchronous copy into shared memory; zero-fills when !ok (src is
+// then not read).
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// P > 8: kG groups an output, idx and w4 staged
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quad_sample_reduce_w4_kernel(const T* __restrict__ table, long long rows,
+                             const int* __restrict__ idx,
+                             const float* __restrict__ w4,
+                             float* __restrict__ out, int p_taps,
+                             int m_rows) {
+  constexpr int kLanes = Row<T>::kLanes, kVals = Row<T>::kVals;
+  constexpr int kGroups = kThreads / kLanes;
+  constexpr int kTile = kGroups / kG;  // outputs per block
+  __shared__ int s_idx[2][kChunk][kTile];
+  __shared__ float s_w[2][kChunk][4][kTile];
+  __shared__ float s_red[kGroups][kCh];
+
+  const int tid = threadIdx.x;
+  const int group = tid / kLanes, lane = tid % kLanes;
+  const int mo = group / kG, sub = group % kG;  // output in tile, tap phase
+  const int corner = lane / (kLanes / 4);
+  const long long m0 = static_cast<long long>(blockIdx.x) * kTile;
+  const int n_chunks = (p_taps + kChunk - 1) / kChunk;
+
+  // chunk k's (taps x outputs) tile of idx and the 4 corners' w4 -> buffer b
+  auto stage = [&](int k, int b) {
+    const int pc = min(kChunk, p_taps - k * kChunk);
+    for (int e = tid; e < pc * 5 * kTile; e += kThreads) {
+      const int ml = e % kTile, which = (e / kTile) % 5, pl = e / (kTile * 5);
+      const long long p = static_cast<long long>(k) * kChunk + pl;
+      const long long m = m0 + ml;
+      const bool ok = m < m_rows;
+      if (which == 0) {
+        cp_async4(&s_idx[b][pl][ml], idx + (ok ? p * m_rows + m : 0), ok);
+      } else {
+        cp_async4(&s_w[b][pl][which - 1][ml],
+                  w4 + (ok ? (p * 4 + which - 1) * m_rows + m : 0), ok);
+      }
+    }
+  };
+
+  const uint4* rows16 = reinterpret_cast<const uint4*>(table);
+  constexpr int kRow16 = 4 * kCh * sizeof(T) / 16;  // 16-byte vectors a row
+  auto load = [&](int b, int pl, float& w) {
+    const int r = s_idx[b][pl][mo];
+    if (r < 0 || r >= rows) __trap();
+    w = s_w[b][pl][corner][mo];
+    return __ldg(rows16 + static_cast<long long>(r) * kRow16 + lane);
+  };
+
+  float acc[kVals];
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) acc[i] = 0.f;
+
+  if (n_chunks > 0) stage(0, 0);
+  cp_async_commit();
+  for (int k = 0; k < n_chunks; ++k) {
+    const int b = k & 1;
+    if (k + 1 < n_chunks) {
+      stage(k + 1, b ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int pc = min(kChunk, p_taps - k * kChunk);
+    int pl = sub;
+    // four taps' rows in flight, then their products
+    for (; pl + 3 * kG < pc; pl += 4 * kG) {
+      uint4 v[4];
+      float w[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = load(b, pl + u * kG, w[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) Row<T>::fma(acc, v[u], w[u]);
+    }
+    for (; pl < pc; pl += kG) {
+      float w;
+      const uint4 v = load(b, pl, w);
+      Row<T>::fma(acc, v, w);
+    }
+    __syncthreads();  // buffer b is restaged by the next iteration
+  }
+
+  // the 4 corners of a channel block sit kLanes / 4 lanes apart
+#pragma unroll
+  for (int s = kLanes / 4; s < kLanes; s *= 2) {
+#pragma unroll
+    for (int i = 0; i < kVals; ++i)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], s);
+  }
+  if (corner == 0) {
+#pragma unroll
+    for (int i = 0; i < kVals; ++i) s_red[group][lane * kVals + i] = acc[i];
+  }
+  __syncthreads();
+  // the kG groups of each output, one thread per output channel
+  for (int t = tid; t < kTile * kCh; t += kThreads) {
+    const int o = t / kCh, c = t % kCh;
+    const long long m = m0 + o;
+    float sum = 0.f;
+#pragma unroll
+    for (int s = 0; s < kG; ++s) sum += s_red[o * kG + s][c];
+    if (m < m_rows) out[m * kCh + c] = sum;
+  }
+}
+
+// P <= kDirectMaxP: kLanes = 4 lanes an output (8 in f32), each owning 16
+// bytes of channels and reading them from all four corners, so the
+// corners and taps sum in its registers and it writes its channels itself
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quad_sample_reduce_w4_direct_kernel(const T* __restrict__ table,
+                                    long long rows,
+                                    const int* __restrict__ idx,
+                                    const float* __restrict__ w4,
+                                    float* __restrict__ out, int p_taps,
+                                    int m_rows) {
+  constexpr int kVals = 16 / sizeof(T);  // channels a lane
+  constexpr int kLanes = kCh / kVals;    // lanes an output
+  constexpr int kRow16 = 4 * kCh * sizeof(T) / 16;
+  constexpr int kU = 2;                  // taps in flight
+  const int lane = threadIdx.x % kLanes;
+  const long long m = static_cast<long long>(blockIdx.x) *
+                          (kThreads / kLanes) + threadIdx.x / kLanes;
+  if (m >= m_rows) return;
+  const uint4* rows16 = reinterpret_cast<const uint4*>(table);
+  float acc[kVals];
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) acc[i] = 0.f;
+  for (int p = 0; p < p_taps; p += kU) {
+    int r[kU];
+    float w[kU][4];
+    uint4 v[kU][4];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (p + u < p_taps) {
+        r[u] = __ldg(idx + static_cast<long long>(p + u) * m_rows + m);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          w[u][c] = __ldg(w4 + (static_cast<long long>(p + u) * 4 + c) *
+                                   m_rows + m);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (p + u < p_taps) {
+        if (r[u] < 0 || r[u] >= rows) __trap();
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          v[u][c] = __ldg(rows16 + static_cast<long long>(r[u]) * kRow16 +
+                          c * kLanes + lane);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (p + u < p_taps) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) Row<T>::fma(acc, v[u][c], w[u][c]);
+      }
+    }
+  }
+  float4* o = reinterpret_cast<float4*>(out + m * kCh + lane * kVals);
+#pragma unroll
+  for (int j = 0; j < kVals / 4; ++j)
+    o[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2],
+                       acc[4 * j + 3]);
+}
+
+template <typename T>
+void launch_raw(const T* table, long long rows, const int* idx,
+                const float* a, const float* b, const float* c, int mmajor,
+                float* out, int p_taps, int m_rows, cudaStream_t stream) {
+  const dim3 block(kWarpsPerBlock * 32);
+  const dim3 grid((m_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  if (mmajor) {
+    quad_sample_reduce_raw_kernel<T, true><<<grid, block, 0, stream>>>(
+        table, rows, idx, a, b, c, out, p_taps, m_rows);
+  } else {
+    quad_sample_reduce_raw_kernel<T, false><<<grid, block, 0, stream>>>(
+        table, rows, idx, a, b, c, out, p_taps, m_rows);
+  }
+}
+
+template <typename T>
+void launch_w4(const T* table, long long rows, const int* idx,
+               const float* w4, float* out, int p_taps, int m_rows,
+               cudaStream_t stream) {
+  constexpr int kGroups = kThreads / Row<T>::kLanes;
+  if (p_taps > kDirectMaxP) {
+    constexpr int kTile = kGroups / kG;
+    const dim3 grid(static_cast<unsigned>((m_rows + kTile - 1) / kTile));
+    quad_sample_reduce_w4_kernel<T><<<grid, kThreads, 0, stream>>>(
+        table, rows, idx, w4, out, p_taps, m_rows);
+  } else {
+    constexpr int kOuts = kThreads * 16 / (kCh * sizeof(T));  // a block
+    const dim3 grid(static_cast<unsigned>((m_rows + kOuts - 1) / kOuts));
+    quad_sample_reduce_w4_direct_kernel<T><<<grid, kThreads, 0, stream>>>(
+        table, rows, idx, w4, out, p_taps, m_rows);
+  }
+}
+
 template <typename T>
 void launch(const void* table, long long rows, const int* idx, const float* a,
             const float* b, const float* c, int raw, int mmajor, float* out,
             int p_taps, int m_rows, cudaStream_t stream) {
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((m_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const T* t = static_cast<const T*>(table);
-  if (mmajor) {
-    quad_sample_reduce_kernel<T, true, true><<<grid, block, 0, stream>>>(
-        t, rows, idx, a, b, c, out, p_taps, m_rows);
-  } else if (raw) {
-    quad_sample_reduce_kernel<T, true, false><<<grid, block, 0, stream>>>(
-        t, rows, idx, a, b, c, out, p_taps, m_rows);
+  if (raw) {
+    launch_raw<T>(t, rows, idx, a, b, c, mmajor, out, p_taps, m_rows, stream);
   } else {
-    quad_sample_reduce_kernel<T, false, false><<<grid, block, 0, stream>>>(
-        t, rows, idx, a, b, c, out, p_taps, m_rows);
+    launch_w4<T>(t, rows, idx, a, out, p_taps, m_rows, stream);
   }
 }
 
 }  // namespace
 
-// table: (rows, 4*32) bf16 (table_is_bf16=1) or f32; idx: (P, M) int32, or
-// (M, P) with mmajor=1. raw=1: a, b, c = lx, ly, wt f32 in idx's shape;
-// raw=0: a = w4 (P, 4, M) f32 (p-major only). out: (M, 32) f32, all on card
-// `device`. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for m-major with raw=0.
+// table: (rows, 4*32) bf16 (table_is_bf16=1) or f32, 16-byte aligned; idx:
+// (P, M) int32, or (M, P) with mmajor=1. raw=1: a, b, c = lx, ly, wt f32 in
+// idx's shape; raw=0: a = w4 (P, 4, M) f32 (p-major only). out: (M, 32)
+// f32, all on card `device`. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for m-major with raw=0.
 extern "C" int quad_sample_reduce(int device, const void* table,
                                   int table_is_bf16, long long rows,
                                   const int* idx, const float* a,

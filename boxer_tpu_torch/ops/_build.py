@@ -35,16 +35,13 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
-def build() -> Path:
-    """Compile the kernels if this exact source set is not built yet;
-    returns the library's path."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of `csrc` (by default the package's) if this
+    exact source set is not built yet; returns the library's path."""
     global build_log
+    sources = sorted(Path(csrc).glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
@@ -53,14 +50,14 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{os.getpid()}"
-    objs = [out_dir / f".{src.stem}.{tag}.o" for src in _sources()]
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in sources]
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(_sources(), objs)]
+             for src, obj in zip(sources, objs)]
     logs = [proc.communicate()[0] for proc in procs]
     build_log = "".join(logs)
-    failed = [src.name for src, proc in zip(_sources(), procs)
+    failed = [src.name for src, proc in zip(sources, procs)
               if proc.returncode != 0]
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
@@ -90,8 +87,8 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32,
                                             i32, i32, i32, ctypes.c_float, vp]
         lib.flash_attention_fwd.restype = i32
-        lib.scatter_accum.argtypes = [i32, vp, vp, i32, i32, vp, vp, i64, i32,
-                                      i32, vp]
+        lib.scatter_accum.argtypes = [i32, vp, vp, i32, i32, vp, vp, i64, vp,
+                                      i32, vp, i32, i32, vp]
         lib.scatter_accum.restype = i32
         lib.scatter_rows.argtypes = [i32, vp, vp, i32, vp, i64, i32, vp]
         lib.scatter_rows.restype = i32

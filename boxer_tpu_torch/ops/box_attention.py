@@ -29,7 +29,8 @@ Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
   taps in (m, p) order, every P) when `COMBINE_IMPL` is "mmajor";
 - fold=False, the per-tap path at any P: every level goes through
   `QuadSample`, an autograd Function over K2 whose backward scatters the
-  table cotangent with K5 (box attention) or K6 (instance attention);
+  table cotangent and forms the corner weights' cotangent in one launch of
+  K5 (box attention) or K6 (instance attention);
 - fold=None (the default) folds, differentiably, when P >
   `FOLD_TAP_THRESHOLD` and otherwise runs per tap. The folded path gathers
   all P*M quad rows of a level with `TakeRows` (backward K7b), combines the
@@ -59,8 +60,7 @@ from boxer_tpu_torch.ops.combine_reduce import (corner_weights,
                                                 quad_sample_reduce_raw,
                                                 quad_sample_reduce_w4)
 from boxer_tpu_torch.ops.scatter_accum import (
-    scatter_add_rows_pmajor, scatter_add_rows_pmajor_weighted,
-    scatter_add_rows_weighted)
+    scatter_add_rows_pmajor, scatter_add_rows_weighted_dw4)
 from boxer_tpu_torch.utils.general import level_start_index
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -104,10 +104,12 @@ class QuadSample(torch.autograd.Function):
     returns sum_p sum_c w4[p, c, m] * table[idx[p, m], c] -> (M, ch) f32 (box
     attention); with per_tap=True the P taps are not summed -> (P*M, ch) f32
     in p-major order (instance attention). The forward is K2; the backward
-    returns d_table through K5 (g shared by the P taps) or K6 (g per tap),
-    cast to the table's dtype, and d_w4[p, c, m] = <table[idx[p, m], c],
-    g[row]> in plain torch, as the JAX package computes it in XLA. The same
-    Function runs on both devices; only the kernel wrappers inside dispatch.
+    is one launch of K5 (g shared by the P taps) or K6 (g per tap) that
+    returns d_table, cast to the table's dtype, and d_w4[p, c, m] =
+    <table[idx[p, m], c], g[row]> (the JAX package computes d_w4 in XLA
+    beside its scatter), each only when autograd asks for it. The same
+    Function runs on both devices; only the kernel wrapper inside
+    dispatches.
     """
 
     @staticmethod
@@ -126,17 +128,12 @@ class QuadSample(torch.autograd.Function):
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
         table, idx, w4 = ctx.saved_tensors
-        p, m = idx.shape
-        g = g.float().contiguous()
-        d_table = d_w4 = None
-        if ctx.needs_input_grad[0]:
-            scatter = (scatter_add_rows_pmajor_weighted if ctx.per_tap
-                       else scatter_add_rows_weighted)
-            d_table = scatter(idx, g, w4, table.shape[0]).to(table.dtype)
-        if ctx.needs_input_grad[2]:
-            vals = table[idx.reshape(-1).long()].float().reshape(p, m, 4, -1)
-            g_row = g.reshape(p if ctx.per_tap else 1, m, 1, -1)
-            d_w4 = (vals * g_row).sum(-1).transpose(1, 2)        # (P, 4, M)
+        d_table, d_w4 = scatter_add_rows_weighted_dw4(
+            idx, g.float().contiguous(), w4, table, ctx.per_tap,
+            want_table=ctx.needs_input_grad[0],
+            want_dw4=ctx.needs_input_grad[2])
+        if d_table is not None:
+            d_table = d_table.to(table.dtype)
         return d_table, None, d_w4, None
 
 

@@ -93,6 +93,9 @@ def _launch(name, table, idx, weights, raw: bool, mmajor: bool = False):
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+    if not raw and table.data_ptr() % 16:
+        # the w4 kernel reads the table's rows in 16-byte vectors
+        raise ValueError(f"{name}: table must be 16-byte aligned")
     out = torch.empty((m, CH), dtype=torch.float32, device=table.device)
     a, b, c = weights if raw else weights * 3
     lib = _build.library()

@@ -1,0 +1,273 @@
+"""K2 and K5/K6 at their main-path shapes, this tree's kernels against
+another tree's, in one process on one card.
+
+    python -m boxer_tpu_torch.tools.bench_kernels --parent DIR
+
+DIR is an unpacked copy of another commit of the repo (`git archive`);
+its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
+second library, and each kernel is called through the same thin launcher
+in both (an output allocated as the wrapper does, then the C entry point),
+so the host cost of a call is the same on both sides. The other tree's C
+entry points must have the signatures of the parent commit 2e83368:
+`quad_sample_reduce` as now, `scatter_accum` without the table and d_w4
+arguments (d_table only).
+
+Each row is timed in turns, other tree, this tree, this tree, other tree,
+two ways, and each side's mean is printed: with CUDA events around 20
+calls after a warm-up (which, for a kernel of a few microseconds, measures
+the host's time to issue a call), and as device time, the kernels' summed
+time under torch.profiler over 20 calls (the output's zeroing included
+where the wrapper zeroes it). Rows:
+
+- K2 (`quad_sample_reduce_w4`) at P=196, M=2,400 (the inference decoder)
+  and P=4, M=161,576; P=4, M=2,400; P=1, M=470,400 (`QuadSample`'s
+  forward in training);
+- K5 (shared g, P=4, M=161,576 and M=2,400) and K6 (per-tap g, P=196,
+  M=2,400): d_table alone on both sides; the fused d_table + d_w4 kernel
+  of this tree against the other tree's d_table kernel plus the plain
+  d_w4 (`scatter_accum_dw4_plain(want_table=False)`), the backward as each
+  tree runs it.
+
+Inputs are made on the card from a seed: a bf16 quad table of encoder
+level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
+and cotangents. Every kernel output is held against its plain version (rel
+err 1e-5) before it is timed. Without --parent only this tree's kernels
+are timed.
+"""
+
+import argparse
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from boxer_tpu_torch.ops import _build
+from boxer_tpu_torch.ops import combine_reduce as cr
+from boxer_tpu_torch.ops import scatter_accum as sa
+from boxer_tpu_torch.tools.bench_combine import bound_ms, cuda_ms
+
+ROWS = 8 * 101 * 153
+# (P, M) on the main path
+K2_SHAPES = ((196, 8 * 300), (4, 8 * 20197), (4, 8 * 300), (1, 8 * 58800))
+# (P, M, g per tap)
+K56_SHAPES = ((4, 8 * 20197, False), (4, 8 * 300, False), (196, 8 * 300, True))
+TOL = 1e-5
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def distinct_row_bytes(table, idx):
+    return torch.unique(idx).numel() * table.shape[1] * table.element_size()
+
+
+def k2_bound(table, idx, w4):
+    """Bytes: the distinct table rows, idx, w4 and the (M, 32) f32 output;
+    operations: one multiply-add per tap, corner and channel."""
+    return bound_ms(distinct_row_bytes(table, idx) + nbytes(idx, w4)
+                    + idx.shape[1] * cr.CH * 4, idx.numel() * 256)
+
+
+def k56_bound(table, idx, g, w4, with_dw4):
+    """Bytes: idx, g, w4, the (rows, 128) f32 d_table written, and with d_w4
+    the distinct table rows read and d_w4 written; operations: the
+    multiplies of the corner expansion (and the d_w4 dot products)."""
+    n = nbytes(idx, g, w4) + table.shape[0] * 4 * cr.CH * 4
+    if with_dw4:
+        n += distinct_row_bytes(table, idx) + nbytes(w4)
+    return bound_ms(n, idx.numel() * (256 if with_dw4 else 128))
+
+
+def load(csrc):
+    """Build `csrc` and load it as a library of its own; the caller sets the
+    entry points' argtypes."""
+    return ctypes.CDLL(str(_build.build(Path(csrc))))
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def k2_launcher(lib):
+    def run(table, idx, w4):
+        p, m = idx.shape
+        out = torch.empty((m, cr.CH), dtype=torch.float32, device=idx.device)
+        _build.check(lib.quad_sample_reduce(
+            idx.device.index, table.data_ptr(),
+            int(table.dtype == torch.bfloat16), table.shape[0],
+            idx.data_ptr(), w4.data_ptr(), w4.data_ptr(), w4.data_ptr(), 0,
+            0, out.data_ptr(), p, m, _stream()), "quad_sample_reduce")
+        return out
+    return run
+
+
+def scatter_launcher(lib, fused_abi):
+    """d_table (and d_w4 when `table` is given, this tree only) through the
+    C entry point; fused_abi says which signature the library has."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.scatter_accum.restype = i32
+    lib.scatter_accum.argtypes = (
+        [i32, vp, vp, i32, i32, vp, vp, i64, vp, i32, vp, i32, i32, vp]
+        if fused_abi else [i32, vp, vp, i32, i32, vp, vp, i64, i32, i32, vp])
+
+    def run(idx, g, w4, rows, per_tap, table=None):
+        p, m = idx.shape
+        dev = idx.device
+        d_table = torch.zeros((rows, 4 * cr.CH), dtype=torch.float32,
+                              device=dev)
+        d_w4 = (None if table is None else
+                torch.empty((p, 4, m), dtype=torch.float32, device=dev))
+        head = (dev.index, idx.data_ptr(), g.data_ptr(),
+                int(g.dtype == torch.bfloat16), int(per_tap), w4.data_ptr(),
+                d_table.data_ptr(), rows)
+        if fused_abi:
+            err = lib.scatter_accum(
+                *head, None if table is None else table.data_ptr(),
+                int(table is not None and table.dtype == torch.bfloat16),
+                None if d_w4 is None else d_w4.data_ptr(), p, m, _stream())
+        else:
+            err = lib.scatter_accum(*head, p, m, _stream())
+        _build.check(err, "scatter_accum")
+        return d_table if table is None else (d_table, d_w4)
+    return run
+
+
+def rel_err(got, want):
+    if isinstance(want, tuple):
+        return max(rel_err(a, b) for a, b in zip(got, want))
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-6))
+
+
+def device_ms(fn, iters=20):
+    """The device's summed kernel time per call of fn(), over `iters` calls
+    under torch.profiler after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / 1e3 / iters
+
+
+def in_turns(other, this, timer):
+    """Times `other` and `this` with `timer` as other, this, this, other;
+    returns (other ms, this ms), each the mean of its two runs (other None:
+    this alone)."""
+    if other is None:
+        return None, timer(this)
+    a = timer(other)
+    b = timer(this) + timer(this)
+    return (a + timer(other)) / 2, b / 2
+
+
+def run(device, parent=None, log=print):
+    """Every row; raises if a kernel disagrees with its plain version.
+    Returns a list of dicts (ms of both sides, bound)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    table = torch.randn(ROWS, 4 * cr.CH, generator=gen, device=device).to(
+        torch.bfloat16)
+    mine_k2 = k2_launcher(_build.library())
+    mine_sa = scatter_launcher(_build.library(), fused_abi=True)
+    other_k2 = other_sa = None
+    if parent is not None:
+        plib = load(Path(parent) / "boxer_tpu_torch" / "csrc")
+        plib.quad_sample_reduce.argtypes = \
+            _build.library().quad_sample_reduce.argtypes
+        plib.quad_sample_reduce.restype = ctypes.c_int
+        other_k2 = k2_launcher(plib)
+        other_sa = scatter_launcher(plib, fused_abi=False)
+    results = []
+
+    def row(name, shape, mine, other, plain, bound):
+        want = plain()
+        errs = {"this": rel_err(mine(), want)}
+        if other is not None:
+            errs["other"] = rel_err(other(), want)
+        torch.cuda.synchronize()
+        o_ms, t_ms = in_turns(other, mine, cuda_ms)
+        o_dev, t_dev = in_turns(other, mine, device_ms)
+        b_ms, b_by = bound
+        res = dict(name=name, shape=shape, this_ms=t_ms, other_ms=o_ms,
+                   this_device_ms=t_dev, other_device_ms=o_dev,
+                   bound_ms=b_ms, bound_by=b_by, rel_err=errs)
+        results.append(res)
+        other_s = ("" if o_ms is None else
+                   f"other tree {o_ms:.4f} ms (device {o_dev:.4f}), ")
+        log(f"{name} [{shape}]: {other_s}this tree {t_ms:.4f} ms (device "
+            f"{t_dev:.4f}), bound {b_ms:.4f} ms ({b_by}), rel err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if max(errs.values()) > TOL:
+            raise AssertionError(f"{name} [{shape}] disagrees with its plain "
+                                 "version")
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    def rows_idx(p, m):
+        return torch.randint(0, ROWS, (p, m), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    for p, m in K2_SHAPES:
+        idx, w4 = rows_idx(p, m), rand(p, 4, m)
+        row("K2", f"P={p} M={m}", lambda: mine_k2(table, idx, w4),
+            other_k2 and (lambda: other_k2(table, idx, w4)),
+            lambda: cr.quad_sample_reduce_plain(table, idx, w4=w4),
+            k2_bound(table, idx, w4))
+        torch.cuda.empty_cache()
+    for p, m, per_tap in K56_SHAPES:
+        idx, w4 = rows_idx(p, m), rand(p, 4, m)
+        g = torch.randn(p * m if per_tap else m, cr.CH, generator=gen,
+                        device=device)
+        name = "K6" if per_tap else "K5"
+        shape = f"P={p} M={m} {'per-tap' if per_tap else 'shared'} g"
+
+        def plain_dw4():
+            return sa.scatter_accum_dw4_plain(idx, g, w4, table, per_tap,
+                                              want_table=False)[1]
+
+        def with_plain_dw4(scatter):
+            return lambda: (scatter(idx, g, w4, ROWS, per_tap), plain_dw4())
+
+        row(name + " d_table", shape,
+            lambda: mine_sa(idx, g, w4, ROWS, per_tap),
+            other_sa and (lambda: other_sa(idx, g, w4, ROWS, per_tap)),
+            lambda: sa.scatter_accum_plain(idx, g, w4, ROWS, per_tap),
+            k56_bound(table, idx, g, w4, with_dw4=False))
+        row(name + " d_table + d_w4 (this: fused; other: + plain d_w4)",
+            shape, lambda: mine_sa(idx, g, w4, ROWS, per_tap, table),
+            other_sa and with_plain_dw4(other_sa),
+            lambda: sa.scatter_accum_dw4_plain(idx, g, w4, table, per_tap),
+            k56_bound(table, idx, g, w4, with_dw4=True))
+        row(name + " this tree's d_table + plain d_w4", shape,
+            with_plain_dw4(mine_sa), None,
+            lambda: sa.scatter_accum_dw4_plain(idx, g, w4, table, per_tap),
+            k56_bound(table, idx, g, w4, with_dw4=True))
+        torch.cuda.empty_cache()
+    return results
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="unpacked copy of the tree to compare "
+                    "against (parent commit's C signatures)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("bench_kernels: no CUDA card; this tool times kernels")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    run(torch.device("cuda", 0), args.parent,
+        log=lambda s: print(s, flush=True))
+
+
+if __name__ == "__main__":
+    main()

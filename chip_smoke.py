@@ -9,8 +9,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
 3. each kernel against its plain PyTorch version at the slices' shapes, with
    its error, its time beside the plain version's and the library call's
    (CUDA events) and its bound (bytes at 3.35 TB/s or operations at the
-   peak of their type): K1-K3 (inference), then (3b) the d_value scatters
-   K5 and K6 (training), then (3c) the row scatters K7a and K7b and the
+   peak of their type): K1-K3 (inference; K2 at P=196, M=2,400 and at the
+   training forward's P=4, M=161,576, P=4, M=2,400 and P=1, M=470,400),
+   then (3b) the d_value scatters K5 (P=4, M=161,576 and M=2,400) and K6
+   (P=196, M=2,400), each as the fused kernel that also returns d_w4, as
+   its d_table alone, and as the yardstick d_table kernel + plain d_w4
+   (training), then (3c) the row scatters K7a and K7b and the
    m-major combine K8 at the folded encoder level 0 (P=4, M=161,576) and at
    P=196, M=2,400, K7b at P=16, LQ=600; the combine shootout T1-T3
    (`boxer_tpu_torch/tools/bench_combine.py`); and the gradients of
@@ -40,23 +44,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    folded (`FOLD_TAP_THRESHOLD = 0`: every level through `TakeRows`, K7b in
    the backward), with the same checks, a loss that falls after a step of
    norm 1e-3 against its gradient from the initial weights, and a
-   profiled step;
+   profiled step; (7d) K5 on the model's own indices (encoder level 0 of
+   a segm step) against random rows of the same shape;
 8. one train step at 256x384 in f32 (no TF32, no autocast) with phase 5's
    weights, card (kernels) against CPU (plain versions): identical matched
    query indices in every match, loss terms within rel 1e-4, the gradient
    norm within 1e-3, pre-clip gradients within a worst-leaf rel err of 0.1
    (a ReLU input within rounding of 0 takes the other branch on the other
    device, see `train_card_vs_cpu`); and the same step on the card with
-   K5/K6 swapped for their plain version, the same forward: pre-clip
-   gradients within a worst-leaf rel err of 1e-4; (8c) one f32 detection
+   the fused K5/K6 swapped for their plain version (plain d_table and plain
+   d_w4), the same forward: pre-clip gradients within a worst-leaf rel err
+   of 1e-4, the sampling-offset and attention-weight leaves that d_w4 feeds
+   among them; (8c) one f32 detection
    step at 256x384 on the card, folded against per-tap with the same
    weights and batch (identical matches, loss terms 1e-4, gradient norm
    1e-3, worst leaf 0.1), and the folded step with K7b swapped for its plain
    version (worst leaf 1e-4).
 
-Prints the slices' img/s and ms/step and one JSON line of per-kernel
-results, then last {"ok": true, "device": {...}}. Any failed phase raises:
-the exit code is not 0 and no ok line is printed.
+Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
+of their own, and one JSON line of per-kernel results (one row per kernel
+at its row's shape), then last {"ok": true, "device": {...}}. Any failed
+phase raises: the exit code is not 0 and no ok line is printed.
 """
 
 import contextlib
@@ -130,6 +138,7 @@ def check_kernels(dev):
     from boxer_tpu_torch.ops import flash_attention as fa
     from boxer_tpu_torch.ops import scatter_accum as sa
     from boxer_tpu_torch.tools import bench_combine as bc
+    from boxer_tpu_torch.tools import bench_kernels as bk
 
     rs = np.random.RandomState(0)
     # encoder / decoder level 0 at 800x1216: 8 heads x 101 x 153 quad rows
@@ -158,9 +167,13 @@ def check_kernels(dev):
         nbytes=bc.gather_bytes(table, idx, (lx, ly, wt), m_enc * 32 * 4),
         flops=idx.numel() * 256,
         tol=1e-5, shape=f"P=4 M={m_enc} table {rows}x128 bf16")
-    idx2, _, _, _, w4 = taps(196, m_dec)
-    results["K2"] = dict(bc.pmajor_case(table, idx2, w4), tol=1e-5,
-                         shape=f"P=196 M={m_dec} table {rows}x128 bf16")
+    # K2 at its row's shape (the inference decoder), then at the shapes of
+    # `QuadSample`'s training forward
+    for i, (p, m) in enumerate(bk.K2_SHAPES):
+        idx2, _, _, _, w4 = taps(p, m)
+        results["K2" if i == 0 else f"K2 P={p} M={m}"] = dict(
+            bc.pmajor_case(table, idx2, w4), tol=1e-5,
+            shape=f"P={p} M={m} table {rows}x128 bf16")
     qkv = [torch.from_numpy(rs.randn(8, 300, 32).astype(np.float32)).to(dev)
            for _ in range(3)]
     # QK^T and PV: 2 x 2 x BH x L x L x D
@@ -182,27 +195,50 @@ def check_kernels(dev):
         nbytes=4 * nbytes(qkv16[0]), flops=attn_flops, dtype="bf16",
         tol=1e-2, shape="BH=8 L=300 D=32 bf16")
 
-    # 3b. the backward scatters, f32 cotangents as the backward hands them
-    idx5, *_, w45 = taps(4, m_enc)
-    g5 = torch.from_numpy(rs.randn(m_enc, 32).astype(np.float32)).to(dev)
-    results["K5"] = dict(
-        wrapper=sa.scatter_add_rows_weighted,
-        kernel=lambda: sa.scatter_add_rows_weighted(idx5, g5, w45, rows),
-        plain=lambda: sa.scatter_accum_plain(idx5, g5, w45, rows, False),
-        library=None, nbytes=nbytes(idx5, g5, w45) + rows * 128 * 4,
-        flops=idx5.numel() * 256,
-        tol=1e-5, shape=f"P=4 M={m_enc} shared g, table {rows}x128 f32")
-    idx6, *_, w46 = taps(196, m_dec)
-    g6 = torch.from_numpy(rs.randn(196 * m_dec, 32).astype(np.float32)).to(
-        dev)
-    results["K6"] = dict(
-        wrapper=sa.scatter_add_rows_pmajor_weighted,
-        kernel=lambda: sa.scatter_add_rows_pmajor_weighted(idx6, g6, w46,
-                                                            rows),
-        plain=lambda: sa.scatter_accum_plain(idx6, g6, w46, rows, True),
-        library=None, nbytes=nbytes(idx6, g6, w46) + rows * 128 * 4,
-        flops=idx6.numel() * 256,
-        tol=1e-5, shape=f"P=196 M={m_dec} per-tap g, table {rows}x128 f32")
+    # 3b. the backward scatters, f32 cotangents as the backward hands them,
+    # the bf16 table the forward sampled: at each shape the fused kernel
+    # (d_table and d_w4, the row the kernels line reports at the first
+    # shape), the d_table kernel alone, and the yardstick, the d_table
+    # kernel followed by the plain d_w4
+    for p, m, per_tap in bk.K56_SHAPES:
+        idx5, *_, w45 = taps(p, m)
+        g5 = torch.from_numpy(rs.randn(p * m if per_tap else m, 32).astype(
+            np.float32)).to(dev)
+        key = "K6" if per_tap else "K5"
+        sfx = "" if (p, m) in ((4, m_enc), (196, m_dec)) else f" P={p} M={m}"
+        counter = (sa.scatter_add_rows_pmajor_weighted if per_tap
+                   else sa.scatter_add_rows_weighted)
+        shape = (f"P={p} M={m} {'per-tap' if per_tap else 'shared'} f32 g, "
+                 f"table {rows}x128 bf16")
+
+        def fused(idx5=idx5, g5=g5, w45=w45, per_tap=per_tap):
+            return sa.scatter_add_rows_weighted_dw4(idx5, g5, w45, table,
+                                                    per_tap)
+
+        def d_table(idx5=idx5, g5=g5, w45=w45, counter=counter):
+            return counter(idx5, g5, w45, rows)
+
+        def plain(idx5=idx5, g5=g5, w45=w45, per_tap=per_tap, **kw):
+            return sa.scatter_accum_dw4_plain(idx5, g5, w45, table, per_tap,
+                                              **kw)
+
+        with_dw4 = bk.k56_bound(table, idx5, g5, w45, with_dw4=True)
+        results[key + sfx] = dict(
+            wrapper=counter, kernel=fused, plain=plain, library=None,
+            bound=with_dw4, tol=1e-5, shape=shape + ", with d_w4")
+        results[key + " d_table" + sfx] = dict(
+            wrapper=counter, kernel=d_table,
+            plain=functools.partial(sa.scatter_accum_plain, idx5, g5, w45,
+                                    rows, per_tap),
+            library=None,
+            bound=bk.k56_bound(table, idx5, g5, w45, with_dw4=False),
+            tol=1e-5, shape=shape + ", d_table only")
+        results[key + " yardstick" + sfx] = dict(
+            wrapper=counter,
+            kernel=lambda d_table=d_table, plain=plain: (
+                d_table(), plain(want_table=False)[1]),
+            plain=plain, library=None, bound=with_dw4, tol=1e-5,
+            shape=shape + ", d_table kernel + plain d_w4")
 
     # 3c. the row scatters (bf16 payload, the folded backward's cotangent)
     # and the m-major combine: the folded encoder level 0 first (the row the
@@ -236,18 +272,22 @@ def check_kernels(dev):
     scatter_rows("K7b P=16", 16, 2 * 600, 2 * 81 * 121, flat=False)
 
     for name, r in results.items():
+        # the fused scatter returns (d_table, d_w4): the worse of the two
         got, want = r["kernel"](), r["plain"]()
         torch.cuda.synchronize()
-        r["rel_err"] = rel_err(got.float(), want.float())
-        r["max_abs_err"] = float((got.float() - want.float()).abs().max())
+        pairs = list(zip(got, want)) if isinstance(want, tuple) else [
+            (got, want)]
+        r["rel_err"] = max(rel_err(a.float(), b.float()) for a, b in pairs)
+        r["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                               for a, b in pairs)
         before = r["wrapper"].launches
         r["ms"] = bc.cuda_ms(r["kernel"])
         r["op_launches"] = r["wrapper"].launches - before
         r["plain_ms"] = bc.cuda_ms(r["plain"])
         r["library_ms"] = (bc.cuda_ms(r["library"]) if r["library"]
                            else None)
-        r["bound_ms"], r["bound_by"] = bc.bound_ms(
-            r["nbytes"], r["flops"], r.get("dtype", "f32"))
+        r["bound_ms"], r["bound_by"] = r["bound"] if "bound" in r else \
+            bc.bound_ms(r["nbytes"], r["flops"], r.get("dtype", "f32"))
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
         log(f"{name} [{r['shape']}]: rel err {r['rel_err']:.3e} "
@@ -644,6 +684,65 @@ def run_train(dev, use_mask, label, profiled=False, per_step=None,
     return ms, peak, counts, busy
 
 
+def k5_in_model(dev):
+    """Phase 7d: K5 on the model's own indices. One full-width segm train
+    step with the fused scatter's wrapper recording its inputs at encoder
+    level 0 (its first call on that level's 123,624-row table); then the
+    fused kernel and the d_table kernel alone on them and on the same
+    inputs with random rows: time, error against the plain version, and the
+    distinct rows in a block's tile of 32 outputs x P taps."""
+    from boxer_tpu_torch.ops import box_attention as ba
+    from boxer_tpu_torch.ops import scatter_accum as sa
+    from boxer_tpu_torch.tools import bench_combine as bc
+    from boxer_tpu_torch.tools import bench_kernels as bk
+
+    captured = []
+    fused = ba.scatter_add_rows_weighted_dw4
+
+    def record(idx, g, w4, table, per_tap, **kw):
+        if not per_tap and table.shape[0] == bk.ROWS and not captured:
+            captured.append(tuple(t.clone() for t in (idx, g, w4, table)))
+        return fused(idx, g, w4, table, per_tap, **kw)
+
+    model = build_model(True).to(dev).train()
+    _, state, step = train_setup(model, True, torch.bfloat16)
+    ba.scatter_add_rows_weighted_dw4 = record
+    try:
+        step(state, train_batch(CANVAS, True, dev))
+    finally:
+        ba.scatter_add_rows_weighted_dw4 = fused
+    del model, state, step
+    torch.cuda.empty_cache()
+    idx, g, w4, table = captured[0]
+    p, m = idx.shape
+    tiles = idx[:, :m // 32 * 32].reshape(p, -1, 32).transpose(0, 1)
+    srt = tiles.reshape(-1, p * 32).sort(dim=1).values
+    distinct = float(((srt[:, 1:] != srt[:, :-1]).sum(1) + 1).float().mean())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    random = torch.randint(0, table.shape[0], idx.shape, generator=gen,
+                           device=dev, dtype=torch.int32)
+    res = {}
+    for name, ix in (("model", idx), ("random", random)):
+        got = sa.scatter_add_rows_weighted_dw4(ix, g, w4, table, False)
+        want = sa.scatter_accum_dw4_plain(ix, g, w4, table, False)
+        err = max(rel_err(a, b) for a, b in zip(got, want))
+        res[name] = dict(err=err, fused_ms=bc.cuda_ms(
+            lambda: sa.scatter_add_rows_weighted_dw4(ix, g, w4, table,
+                                                     False)),
+            table_ms=bc.cuda_ms(lambda: sa.scatter_add_rows_weighted(
+                ix, g, w4, table.shape[0])))
+    log(f"K5 at encoder level 0 of a segm train step (P={p} M={m}, "
+        f"{table.dtype} table): a tile of 32 outputs x {p} taps holds "
+        f"{distinct:.1f} distinct rows of {32 * p}; " + "; ".join(
+            f"{k} rows: fused {v['fused_ms']:.4f} ms, d_table alone "
+            f"{v['table_ms']:.4f} ms, rel err {v['err']:.2e}"
+            for k, v in res.items()))
+    if max(v["err"] for v in res.values()) > 1e-5:
+        raise AssertionError("K5 on the model's indices disagrees with its "
+                             "plain version")
+    return res
+
+
 class RecordingMatcher:
     """A matcher that keeps every match it returns (on the CPU)."""
 
@@ -658,8 +757,9 @@ class RecordingMatcher:
 
 def train_card_vs_cpu(dev):
     """Phase 8: one f32 train step with phase 5's weights on the CPU (plain
-    versions), on the card (kernels), and on the card with K5/K6 swapped for
-    their plain version (the same forward, so the same ReLU branches)."""
+    versions), on the card (kernels), and on the card with the fused K5/K6
+    swapped for their plain version, plain d_table and plain d_w4 (the same
+    forward, so the same ReLU branches)."""
     import copy
 
     from boxer_tpu_torch.ops import box_attention as ba
@@ -681,16 +781,12 @@ def train_card_vs_cpu(dev):
 
     want, want_qi, cpu_launches = run(torch.device("cpu"))
     got, got_qi, launches = run(dev)
-    kernels = (ba.scatter_add_rows_weighted, ba.scatter_add_rows_pmajor_weighted)
-    ba.scatter_add_rows_weighted = functools.partial(sa.scatter_accum_plain,
-                                                     per_tap=False)
-    ba.scatter_add_rows_pmajor_weighted = functools.partial(
-        sa.scatter_accum_plain, per_tap=True)
+    kernel = ba.scatter_add_rows_weighted_dw4
+    ba.scatter_add_rows_weighted_dw4 = sa.scatter_accum_dw4_plain
     try:
         plain, _, plain_launches = run(dev)
     finally:
-        ba.scatter_add_rows_weighted, ba.scatter_add_rows_pmajor_weighted = \
-            kernels
+        ba.scatter_add_rows_weighted_dw4 = kernel
     if any(cpu_launches.values()) or not all(
             launches[k] for k in ("K2", "K3", "K5", "K6")) or (
             plain_launches["K5"] or plain_launches["K6"]):
@@ -710,12 +806,20 @@ def train_card_vs_cpu(dev):
 
     cpu_err, cpu_leaf, cpu_median = leaf_errs(got, want)
     k56_err, k56_leaf, _ = leaf_errs(got, plain)
+    # the leaves d_w4 feeds first: the sampling-offset (box) and attention
+    # weight projections
+    sampling = {n: g for n, g in plain["_grads"].items() if n.endswith((
+        "linear_box_weight", "linear_box_bias", "linear_attn_weight",
+        "linear_attn_bias"))}
+    dw4_err, dw4_leaf, _ = leaf_errs(got, {"_grads": sampling})
     log(f"train step at {E2E_CANVAS} f32: card vs CPU {len(got_qi)} matches "
         f"identical {same_match}, loss terms ({len(keys)}) worst rel err "
         f"{loss_err:.3e}, grad norm {norm_err:.3e}, pre-clip grads worst "
         f"leaf rel err {cpu_err:.3e} ({cpu_leaf}), median leaf "
-        f"{cpu_median:.3e}; card K5/K6 vs their plain version in the same "
-        f"step: worst leaf {k56_err:.3e} ({k56_leaf})")
+        f"{cpu_median:.3e}; card K5/K6 (d_table and d_w4) vs their plain "
+        f"version in the same step: worst leaf {k56_err:.3e} ({k56_leaf}), "
+        f"of the {len(sampling)} sampling-offset and attention-weight "
+        f"leaves {dw4_err:.3e} ({dw4_leaf})")
     # card vs CPU, the gradients: a ReLU whose input lies within rounding of
     # 0 takes the other branch on the other device and moves every leaf
     # upstream of it (one such unit of 2.09M in encoder layer 5 moves its
@@ -723,9 +827,10 @@ def train_card_vs_cpu(dev):
     # there only catches gross faults such as a detached kernel output (rel
     # err 1); the kernels' own backward is held tightly in the same step
     if not (same_match and loss_err <= 1e-4 and norm_err <= 1e-3
-            and cpu_err <= 0.1 and k56_err <= 1e-4):
+            and cpu_err <= 0.1 and k56_err <= 1e-4 and sampling):
         raise AssertionError("train step: card and CPU disagree")
-    return dict(loss_err=loss_err, grad_err=cpu_err, k56_err=k56_err)
+    return dict(loss_err=loss_err, grad_err=cpu_err, k56_err=k56_err,
+                dw4_err=dw4_err)
 
 
 def train_folded_vs_pertap(dev):
@@ -867,6 +972,9 @@ def main():
             f"[{smi}]", profiled=True, per_step=FOLDED_TRAIN_LAUNCHES,
             falling=True)
 
+    # 7d. K5 on the model's own indices
+    k5_in_model(dev)
+
     # 8. one train step, card against CPU; 8c. folded against per-tap
     train_card_vs_cpu(dev)
     train_folded_vs_pertap(dev)
@@ -881,9 +989,9 @@ def main():
              pallas + "combine_reduce.py:264"),
             ("K3", "flash_attention", "flash_attention.cu",
              pallas + "flash_attention.py:69"),
-            ("K5", "scatter_add_rows_weighted", sacc,
+            ("K5", "scatter_add_rows_weighted_dw4 (shared g)", sacc,
              pallas + "scatter_accum.py:330"),
-            ("K6", "scatter_add_rows_pmajor_weighted", sacc,
+            ("K6", "scatter_add_rows_weighted_dw4 (per-tap g)", sacc,
              pallas + "scatter_accum.py:401"),
             ("K7a", "scatter_add_rows", sacc, pallas + "scatter_accum.py:428"),
             ("K7b", "scatter_add_rows_pmajor", sacc,

@@ -29,8 +29,9 @@ from boxer_tpu_torch.ops.combine_reduce import (
 from boxer_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
 from boxer_tpu_torch.ops.scatter_accum import (
-    scatter_accum_plain, scatter_add_rows, scatter_add_rows_pmajor,
-    scatter_add_rows_pmajor_weighted, scatter_add_rows_weighted,
+    scatter_accum_dw4_plain, scatter_accum_plain, scatter_add_rows,
+    scatter_add_rows_pmajor, scatter_add_rows_pmajor_weighted,
+    scatter_add_rows_weighted, scatter_add_rows_weighted_dw4,
     scatter_rows_plain)
 from boxer_tpu_torch.tools import bench_combine
 
@@ -214,6 +215,60 @@ def test_k6_matches_pallas(interp_scatter):
         <= RTOL
 
 
+@pytest.mark.parametrize("layout,p", [("flat", 4), ("pmajor", 4),
+                                      ("pmajor", 16)])
+def test_k56_dw4_matches_jax_vjp(interp_scatter, monkeypatch, layout, p):
+    """The fused backward's plain version, (d_table, d_w4), against
+    `jax.vjp` of the JAX package's `_sample_taps_vjp`, whose d_table
+    scatter runs as a Pallas kernel in interpret mode. flat: the per-tap
+    layout, the P taps of each output side by side on its tap axis with the
+    same cotangent row (K5's shared g); p-major: one cotangent row per tap
+    (K6). P=16 stands for the segm decoder's P=196: the interpreted
+    kernel's time grows with P."""
+    import importlib
+
+    import jax
+    import jax.numpy as jnp
+
+    # the package re-exports a function under the module's name
+    jba = importlib.import_module("boxer_tpu.ops.box_attention")
+    per_tap = layout == "pmajor"
+    bh, lq, rb = 2, (12 if p > 8 else 30), 40
+    idx, _, w4 = _scatter_case(p, bh, lq, rb, seed=p + per_tap)
+    rs = np.random.RandomState(p)
+    table = rs.randn(bh * rb, 128).astype(np.float32)
+    g = rs.randn(p * bh * lq if per_tap else bh * lq, 32).astype(np.float32)
+    gidx = _global_rows(idx, rb).reshape(p, bh, lq)
+    if per_tap:
+        j_idx, j_w4, j_g = gidx, w4, g
+    else:                                  # tap axis in (p, lq) order
+        j_idx = np.concatenate(list(gidx), axis=-1)           # (BH, P*LQ)
+        j_w4 = np.concatenate(list(w4), axis=-1)              # (BH, 4, P*LQ)
+        j_g = np.broadcast_to(g.reshape(bh, 1, lq, 32),
+                              (bh, p, lq, 32)).reshape(-1, 32)
+    monkeypatch.setenv("BOXER_FORCE_PALLAS_SCATTER", "1")
+    jba._sample_taps_vjp.cache_clear()
+    try:
+        sample = jba._sample_taps_vjp(rb, bh)
+        _, vjp = jax.vjp(lambda t, w: sample(t, jnp.asarray(j_idx), w),
+                         jnp.asarray(table), jnp.asarray(j_w4))
+        want_table, want_w4 = (np.asarray(x) for x in vjp(jnp.asarray(j_g)))
+    finally:
+        jba._sample_taps_vjp.cache_clear()
+    if per_tap:
+        want_w4 = want_w4.transpose(0, 2, 1, 3)               # (P, 4, BH, LQ)
+    else:
+        want_w4 = want_w4.reshape(bh, 4, p, lq).transpose(2, 1, 0, 3)
+    got_table, got_w4 = scatter_accum_dw4_plain(
+        torch.from_numpy(_global_rows(idx, rb)), torch.from_numpy(g),
+        torch.from_numpy(w4.transpose(0, 2, 1, 3).reshape(p, 4, bh * lq)
+                         .copy()), torch.from_numpy(table), per_tap)
+    assert got_table.shape == (bh * rb, 128) and got_w4.shape == (p, 4,
+                                                                  bh * lq)
+    assert _rel_err(got_table.numpy(), want_table) <= RTOL
+    assert _rel_err(got_w4.numpy(), want_w4.reshape(p, 4, bh * lq)) <= RTOL
+
+
 def test_k7a_matches_pallas(interp_scatter):
     """K7a: 300 taps per slice, not a multiple of the kernel's 4096-tap
     chunk, so the JAX side pads into its dump rows."""
@@ -339,6 +394,12 @@ def test_cpu_tensors_take_the_plain_version_only():
                     table[None, :8, :32])
     scatter_add_rows_weighted(idx, g, w4, 50)
     scatter_add_rows_pmajor_weighted(idx, table[:20, :32], w4, 50)
+    for per_tap, gt in ((False, g), (True, table[:20, :32])):
+        d_table, d_w4 = scatter_add_rows_weighted_dw4(idx, gt, w4, table,
+                                                      per_tap)
+        assert d_table.shape == (50, 128) and d_w4.shape == (2, 4, 10)
+        assert scatter_add_rows_weighted_dw4(
+            idx, gt, w4, table, per_tap, want_table=False)[0] is None
     scatter_add_rows(idx.reshape(-1), table[:20], 50)
     scatter_add_rows_pmajor(idx, table[:20], 50)
     assert [f.launches for f in wrappers] == launches
@@ -354,6 +415,9 @@ def test_cpu_tensors_take_the_plain_version_only():
                                              (idx_m, lx_m, ly_m, wt_m)))
     with pytest.raises(ValueError):
         scatter_add_rows_weighted(meta[1], g.to("meta"), meta[5], 50)
+    with pytest.raises(ValueError):
+        scatter_add_rows_weighted_dw4(meta[1], g.to("meta"), meta[5],
+                                      meta[0], False)
     with pytest.raises(ValueError):
         scatter_add_rows_pmajor(meta[1], table[:20].to("meta"), 50)
     with pytest.raises(IndexError):
@@ -463,3 +527,67 @@ def test_quad_sample_reduce_mmajor_cuda_matches_plain(cuda, p, dtype):
     torch.cuda.synchronize()
     assert quad_sample_reduce_mmajor.launches == before + 1
     assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 3, 4, 9, 196])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quad_sample_reduce_w4_cuda_matches_plain(cuda, p, dtype):
+    """K2: one group of lanes per output at P <= 8 and four above, P not a
+    multiple of the unroll or the staged chunk, M not a multiple of any
+    tile, taps on the table's first and last rows."""
+    m, rows = 2400 + 3, 5000
+    table, idx, _, _, _, w4 = (torch.from_numpy(a) for a in
+                               _quad_case(p, m, rows, seed=20 + p))
+    idx[0, :2] = torch.tensor([0, rows - 1], dtype=torch.int32)
+    idx[-1, -2:] = torch.tensor([rows - 1, 0], dtype=torch.int32)
+    table, idx, w4 = table.to(cuda, dtype), idx.to(cuda), w4.to(cuda)
+    before = quad_sample_reduce_w4.launches
+    got = quad_sample_reduce_w4(table, idx, w4)
+    want = quad_sample_reduce_plain(table, idx, w4=w4)
+    torch.cuda.synchronize()
+    assert quad_sample_reduce_w4.launches == before + 1
+    assert got.shape == (m, 32)
+    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_tap,p,m,one_row", [
+    (False, 4, 2400 + 3, False), (True, 196, 2400 + 3, False),
+    (False, 4, 503, True), (True, 3, 503, True)])
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+def test_scatter_dw4_cuda_matches_plain(cuda, per_tap, p, m, one_row,
+                                        g_dtype, table_dtype):
+    """The fused K5/K6 (d_table and d_w4 from one launch) against their
+    plain version, M not a multiple of the 32-output tile, P not a multiple
+    of the 4-tap tile; with one_row every tap lands on one table row (the
+    reductions contend there). Each output alone when the other is not
+    wanted."""
+    rows = 5000
+    rs = np.random.RandomState(13 + p)
+    idx = torch.from_numpy(rs.randint(0, rows, (p, m)).astype(np.int32))
+    idx[0, :2] = torch.tensor([0, rows - 1], dtype=torch.int32)
+    if one_row:
+        idx[:] = rows - 1
+    g = torch.from_numpy(rs.randn(p * m if per_tap else m, 32).astype(
+        np.float32))
+    w4 = torch.from_numpy(rs.rand(p, 4, m).astype(np.float32))
+    table = torch.from_numpy(rs.randn(rows, 128).astype(np.float32))
+    idx, g, w4 = idx.to(cuda), g.to(cuda, g_dtype), w4.to(cuda)
+    table = table.to(cuda, table_dtype)
+    counter = (scatter_add_rows_pmajor_weighted if per_tap
+               else scatter_add_rows_weighted)
+    before = counter.launches
+    got = scatter_add_rows_weighted_dw4(idx, g, w4, table, per_tap)
+    only_table = scatter_add_rows_weighted_dw4(idx, g, w4, table, per_tap,
+                                               want_dw4=False)
+    only_w4 = scatter_add_rows_weighted_dw4(idx, g, w4, table, per_tap,
+                                            want_table=False)
+    want = scatter_accum_dw4_plain(idx, g, w4, table, per_tap)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 3
+    assert only_table[1] is None and only_w4[0] is None
+    for a, b in ((got[0], want[0]), (got[1], want[1]),
+                 (only_table[0], want[0]), (only_w4[1], want[1])):
+        assert _rel_err(a.cpu().numpy(), b.cpu().numpy()) <= RTOL
