@@ -10,46 +10,50 @@
 // materialised (P*M, 4*ch) tensor in device memory; here each row is read
 // straight from the quad table and never written back.
 //
-// Two kernels, by weight mode:
+// Weights, by mode: raw (K1, K8) takes lx, ly, wt f32 in idx's shape and
+// forms the corner weights in the kernel as (1-lx)(1-ly)wt, lx(1-ly)wt,
+// (1-lx)ly wt, lx ly wt, the quad-row order of `corner_weights`; w4 (K2)
+// takes them precomputed, (P, 4, M) f32. Tap order: p-major, idx (P, M),
+// t(p, m) = p*M + m (K1, K2), or m-major, idx (M, P), t(p, m) = m*P + p
+// (K8).
 //
-// raw (K1, K8): lx, ly, wt f32 in idx's shape; corner weights formed in the
-//   kernel as (1-lx)(1-ly)wt, lx(1-ly)wt, (1-lx)ly wt, lx ly wt. Tap order
-//   p-major, idx (P, M), t(p, m) = p*M + m (K1), or m-major, idx (M, P),
-//   t(p, m) = m*P + p (K8). One warp owns one output row, one lane per
-//   channel, and walks its P taps in series (P <= 8 on K1's path). The
-//   TPU's m-major kernel exists to reduce each output's P taps inside one
-//   VMEM block; on the card every order keeps the P-sum in a register, so
-//   the order changes only which addresses a warp reads.
+// What bounds them on an H100: device-memory bytes. K1 at its main-path
+// shape (P=4, M=161,576, encoder level 0's 123,624-row bf16 table at
+// 800x1216) must read the distinct table rows, idx, lx, ly and wt and write
+// the (M, 32) f32 output: 0.0187 ms at 3.35 TB/s. K2 at P=196, M=2,400
+// over the same table must read the distinct rows (31.6 MB), idx (1.9 MB)
+// and w4 (7.5 MB) and write 0.3 MB: 40.5 MB, 0.0121 ms; its 470,400 row
+// reads (120 MB) mostly hit the 50 MB L2. A warp walking an output's taps
+// in series, one lane a channel, waits on a dependent index -> row round
+// trip a tap and moves 64 bytes a warp per load: latency-bound. Three
+// kernels:
 //
-// w4 (K2): precomputed w4 (P, 4, M) f32, idx (P, M). Its main-path shapes
-//   are P=196, M=2,400 (the decoder's instance attention at inference) and
-//   P=4 at M=161,576 and 2,400, P=1 at M=470,400 (`QuadSample`'s forward in
-//   training). What bounds it on an H100: device-memory bytes. At P=196,
-//   M=2,400 over encoder level 0's 123,624-row bf16 table it must read the
-//   distinct table rows (31.6 MB), idx (1.9 MB) and w4 (7.5 MB) and write
-//   0.3 MB: 40.5 MB, 0.0121 ms at 3.35 TB/s. Its 470,400 row reads (120 MB)
-//   mostly hit the 50 MB L2. A warp walking one output's 196 taps in
-//   series, as the raw kernel does, waits on 196 dependent index -> row
-//   round trips with only 2,400 warps on the card: latency-bound, 17x its
-//   bound. So the w4 kernel
-//   - above 8 taps, spreads an output's taps: a tap is one "group" of
-//     lanes reading its whole quad row with 16-byte loads (16 lanes in
-//     bf16, 32 in f32), so a warp fetches two bf16 rows per instruction,
-//     four taps' rows in flight a group; kG = 2 groups share an output,
-//     each walking every 2nd tap; the corners of a channel block meet
-//     across lanes with `__shfl_xor_sync`, the 2 groups in shared memory;
-//   - above 8 taps, stages idx and w4: a block covers kThreads / (lanes *
-//     kG) consecutive outputs and copies a (kChunk taps x outputs) tile of
-//     idx and of each corner's w4 into shared memory with `cp.async`
-//     (consecutive threads on consecutive m), double-buffered so the next
-//     chunk's copy overlaps this chunk's gathers; every tap's index and
-//     weight is then a shared-memory read;
-//   - up to 8 taps (the training forward), gives each output 4 lanes (8 in
-//     f32), each owning 16 bytes of channels and reading them from all 4
-//     corners, two taps in flight: corners and taps sum in registers with
-//     no shuffle and no barrier, and the lane stores its own channels. The
-//     16-lane groups cost 16 shuffles an output, more than 1-4 taps repay
-//     (at P=1 they ran slower than the raw mode's warp-an-output loop).
+// - direct (K1, and K2 up to 8 taps, the training forward): one template
+//   over the weight mode gives each output 4 lanes (8 in f32), each owning
+//   16 bytes of channels and reading them from all 4 corners with 16-byte
+//   loads, two taps in flight; a raw lane forms its tap's corner weights in
+//   registers from lx, ly, wt (12 bytes a tap where w4 reads 16). Corners
+//   and taps sum in registers with no shuffle and no barrier, and the lane
+//   stores its own channels as float4s. K1 at its main shape takes 0.0354
+//   ms of device time against the warp-an-output loop's 0.0880 (H100 80GB
+//   HBM3 at 700 W, `tools/bench_kernels.py`); all 4 taps in flight cost
+//   41% there (fewer warps resident) for 0.4 us at M=2,400;
+// - staged (K2 above 8 taps): a tap is one "group" of lanes reading its
+//   whole quad row with 16-byte loads (16 lanes in bf16, 32 in f32), so a
+//   warp fetches two bf16 rows per instruction, four taps' rows in flight a
+//   group; kG = 2 groups share an output, each walking every 2nd tap; the
+//   corners of a channel block meet across lanes with `__shfl_xor_sync`,
+//   the 2 groups in shared memory. A block covers kThreads / (lanes * kG)
+//   consecutive outputs and copies a (kChunk taps x outputs) tile of idx and
+//   of each corner's w4 into shared memory with `cp.async`, double-buffered
+//   so the next chunk's copy overlaps this chunk's gathers. The 16-lane
+//   groups cost 16 shuffles an output, more than 1-4 taps repay (at P=1
+//   they ran slower than a warp an output);
+// - m-major (K8): one warp an output, one lane a channel, the P taps in
+//   series. The TPU's m-major kernel exists to reduce each output's P taps
+//   inside one VMEM block; on the card every order keeps the P-sum in a
+//   register. Its P=196 shape under the m-major combine wants a staged
+//   design of its own (not done).
 //
 // Indices are not clamped: the caller clamps them. An index outside
 // [0, rows) traps, which surfaces as a launch failure at the next sync.
@@ -60,26 +64,26 @@
 namespace {
 
 constexpr int kCh = 32;            // channels per head
-constexpr int kWarpsPerBlock = 8;  // raw mode: output rows per block
-constexpr int kThreads = 256;      // w4 mode: threads per block
-constexpr int kChunk = 32;         // w4 mode: taps per staged chunk
+constexpr int kWarpsPerBlock = 8;  // m-major: output rows per block
+constexpr int kThreads = 256;      // direct and staged: threads per block
+constexpr int kChunk = 32;         // staged: taps per staged chunk
 constexpr int kDirectMaxP = 8;     // w4 mode: up to it, no staging
-constexpr int kG = 2;              // w4 mode, staged: groups an output
+constexpr int kG = 2;              // staged: groups an output
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-template <typename T, bool kMmajor>
+template <typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-quad_sample_reduce_raw_kernel(const T* __restrict__ table, long long rows,
-                              const int* __restrict__ idx,
-                              const float* __restrict__ lxs,
-                              const float* __restrict__ lys,
-                              const float* __restrict__ wts,
-                              float* __restrict__ out, int p_taps,
-                              int m_rows) {
+quad_sample_reduce_mmajor_kernel(const T* __restrict__ table, long long rows,
+                                 const int* __restrict__ idx,
+                                 const float* __restrict__ lxs,
+                                 const float* __restrict__ lys,
+                                 const float* __restrict__ wts,
+                                 float* __restrict__ out, int p_taps,
+                                 int m_rows) {
   const int lane = threadIdx.x & 31;
   const long long m =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
@@ -87,8 +91,7 @@ quad_sample_reduce_raw_kernel(const T* __restrict__ table, long long rows,
 
   float acc = 0.f;
   for (int p = 0; p < p_taps; ++p) {
-    const long long t = kMmajor ? m * p_taps + p
-                                : static_cast<long long>(p) * m_rows + m;
+    const long long t = m * p_taps + p;
     const int r = __ldg(idx + t);
     if (r < 0 || r >= rows) __trap();
     const float lx = __ldg(lxs + t), ly = __ldg(lys + t), wt = __ldg(wts + t);
@@ -259,17 +262,22 @@ quad_sample_reduce_w4_kernel(const T* __restrict__ table, long long rows,
   }
 }
 
-// P <= kDirectMaxP: kLanes = 4 lanes an output (8 in f32), each owning 16
-// bytes of channels and reading them from all four corners, so the
-// corners and taps sum in its registers and it writes its channels itself
-template <typename T>
+// direct: kLanes = 4 lanes an output (8 in f32), each owning 16 bytes of
+// channels and reading them from all four corners, so the corners and taps
+// sum in its registers and it writes its channels itself. kRaw: wa, wb, wc
+// = lx, ly, wt (P, M), the corner weights formed only after the taps' row
+// loads are issued (formed as lx, ly, wt arrived, they stalled the warp
+// ahead of those loads: 0.0410 against 0.0354 ms of device time at P=4,
+// M=161,576); else wa = w4 (P, 4, M)
+template <typename T, bool kRaw>
 __global__ void __launch_bounds__(kThreads)
-quad_sample_reduce_w4_direct_kernel(const T* __restrict__ table,
-                                    long long rows,
-                                    const int* __restrict__ idx,
-                                    const float* __restrict__ w4,
-                                    float* __restrict__ out, int p_taps,
-                                    int m_rows) {
+quad_sample_reduce_direct_kernel(const T* __restrict__ table, long long rows,
+                                 const int* __restrict__ idx,
+                                 const float* __restrict__ wa,
+                                 const float* __restrict__ wb,
+                                 const float* __restrict__ wc,
+                                 float* __restrict__ out, int p_taps,
+                                 int m_rows) {
   constexpr int kVals = 16 / sizeof(T);  // channels a lane
   constexpr int kLanes = kCh / kVals;    // lanes an output
   constexpr int kRow16 = 4 * kCh * sizeof(T) / 16;
@@ -289,11 +297,18 @@ quad_sample_reduce_w4_direct_kernel(const T* __restrict__ table,
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       if (p + u < p_taps) {
-        r[u] = __ldg(idx + static_cast<long long>(p + u) * m_rows + m);
+        const long long t = static_cast<long long>(p + u) * m_rows + m;
+        r[u] = __ldg(idx + t);
+        if (kRaw) {
+          w[u][0] = __ldg(wa + t);
+          w[u][1] = __ldg(wb + t);
+          w[u][2] = __ldg(wc + t);
+        } else {
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          w[u][c] = __ldg(w4 + (static_cast<long long>(p + u) * 4 + c) *
-                                   m_rows + m);
+          for (int k = 0; k < 4; ++k)
+            w[u][k] = __ldg(wa + (static_cast<long long>(p + u) * 4 + k) *
+                                     m_rows + m);
+        }
       }
     }
 #pragma unroll
@@ -301,16 +316,23 @@ quad_sample_reduce_w4_direct_kernel(const T* __restrict__ table,
       if (p + u < p_taps) {
         if (r[u] < 0 || r[u] >= rows) __trap();
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          v[u][c] = __ldg(rows16 + static_cast<long long>(r[u]) * kRow16 +
-                          c * kLanes + lane);
+        for (int k = 0; k < 4; ++k)
+          v[u][k] = __ldg(rows16 + static_cast<long long>(r[u]) * kRow16 +
+                          k * kLanes + lane);
       }
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       if (p + u < p_taps) {
+        if (kRaw) {
+          const float lx = w[u][0], ly = w[u][1], wt = w[u][2];
+          w[u][0] = (1.f - lx) * (1.f - ly) * wt;
+          w[u][1] = lx * (1.f - ly) * wt;
+          w[u][2] = (1.f - lx) * ly * wt;
+          w[u][3] = lx * ly * wt;
+        }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) Row<T>::fma(acc, v[u][c], w[u][c]);
+        for (int k = 0; k < 4; ++k) Row<T>::fma(acc, v[u][k], w[u][k]);
       }
     }
   }
@@ -322,47 +344,32 @@ quad_sample_reduce_w4_direct_kernel(const T* __restrict__ table,
 }
 
 template <typename T>
-void launch_raw(const T* table, long long rows, const int* idx,
-                const float* a, const float* b, const float* c, int mmajor,
-                float* out, int p_taps, int m_rows, cudaStream_t stream) {
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((m_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (mmajor) {
-    quad_sample_reduce_raw_kernel<T, true><<<grid, block, 0, stream>>>(
-        table, rows, idx, a, b, c, out, p_taps, m_rows);
-  } else {
-    quad_sample_reduce_raw_kernel<T, false><<<grid, block, 0, stream>>>(
-        table, rows, idx, a, b, c, out, p_taps, m_rows);
-  }
-}
-
-template <typename T>
-void launch_w4(const T* table, long long rows, const int* idx,
-               const float* w4, float* out, int p_taps, int m_rows,
-               cudaStream_t stream) {
-  constexpr int kGroups = kThreads / Row<T>::kLanes;
-  if (p_taps > kDirectMaxP) {
-    constexpr int kTile = kGroups / kG;
-    const dim3 grid(static_cast<unsigned>((m_rows + kTile - 1) / kTile));
-    quad_sample_reduce_w4_kernel<T><<<grid, kThreads, 0, stream>>>(
-        table, rows, idx, w4, out, p_taps, m_rows);
-  } else {
-    constexpr int kOuts = kThreads * 16 / (kCh * sizeof(T));  // a block
-    const dim3 grid(static_cast<unsigned>((m_rows + kOuts - 1) / kOuts));
-    quad_sample_reduce_w4_direct_kernel<T><<<grid, kThreads, 0, stream>>>(
-        table, rows, idx, w4, out, p_taps, m_rows);
-  }
-}
-
-template <typename T>
 void launch(const void* table, long long rows, const int* idx, const float* a,
             const float* b, const float* c, int raw, int mmajor, float* out,
             int p_taps, int m_rows, cudaStream_t stream) {
   const T* t = static_cast<const T*>(table);
-  if (raw) {
-    launch_raw<T>(t, rows, idx, a, b, c, mmajor, out, p_taps, m_rows, stream);
+  if (mmajor) {
+    const dim3 grid((m_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+    quad_sample_reduce_mmajor_kernel<T><<<grid, kWarpsPerBlock * 32, 0,
+                                          stream>>>(t, rows, idx, a, b, c,
+                                                    out, p_taps, m_rows);
+  } else if (!raw && p_taps > kDirectMaxP) {
+    constexpr int kTile = kThreads / Row<T>::kLanes / kG;
+    const dim3 grid(static_cast<unsigned>((m_rows + kTile - 1) / kTile));
+    quad_sample_reduce_w4_kernel<T><<<grid, kThreads, 0, stream>>>(
+        t, rows, idx, a, out, p_taps, m_rows);
   } else {
-    launch_w4<T>(t, rows, idx, a, out, p_taps, m_rows, stream);
+    constexpr int kOuts = kThreads * 16 / (kCh * sizeof(T));  // a block
+    const dim3 grid(static_cast<unsigned>((m_rows + kOuts - 1) / kOuts));
+    if (raw) {
+      quad_sample_reduce_direct_kernel<T, true><<<grid, kThreads, 0,
+                                                  stream>>>(
+          t, rows, idx, a, b, c, out, p_taps, m_rows);
+    } else {
+      quad_sample_reduce_direct_kernel<T, false><<<grid, kThreads, 0,
+                                                   stream>>>(
+          t, rows, idx, a, b, c, out, p_taps, m_rows);
+    }
   }
 }
 

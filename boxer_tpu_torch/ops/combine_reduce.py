@@ -5,14 +5,15 @@ PyTorch port of `boxer_tpu/ops/pallas/combine_reduce.py` with the
 
     out[m, :] = sum_p sum_c w[p, c, m] * table[idx[p, m], c*ch:(c+1)*ch]
 
-Three wrappers over one CUDA kernel (`boxer_tpu_torch/csrc/
+Three wrappers over one CUDA source (`boxer_tpu_torch/csrc/
 quad_sample_reduce.cu`), one per weight mode or tap order and per TPU kernel
 replaced:
 
 - `quad_sample_reduce_raw` (K1, `fused_combine_reduce_raw`): raw bilinear
   fractions and tap weight, corners formed in the kernel (P <= 8 callers);
+  the direct kernel that K2 runs up to 8 taps, in its raw mode;
 - `quad_sample_reduce_w4` (K2, `fused_combine_reduce`): precomputed corner
-  weights (P > 8 callers);
+  weights (P > 8 callers, and the training forward);
 - `quad_sample_reduce_mmajor` (K8, `fused_combine_reduce_mmajor`): raw
   weights with the P taps of an output contiguous, idx and weights (M, P)
   (every P, under the m-major combine).
@@ -93,8 +94,8 @@ def _launch(name, table, idx, weights, raw: bool, mmajor: bool = False):
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    if not raw and table.data_ptr() % 16:
-        # the w4 kernel reads the table's rows in 16-byte vectors
+    if not mmajor and table.data_ptr() % 16:
+        # the p-major kernels read the table's rows in 16-byte vectors
         raise ValueError(f"{name}: table must be 16-byte aligned")
     out = torch.empty((m, CH), dtype=torch.float32, device=table.device)
     a, b, c = weights if raw else weights * 3

@@ -1,8 +1,9 @@
 """Online-softmax attention forward (K3).
 
 PyTorch port of `boxer_tpu/ops/pallas/flash_attention.py`. `flash_attention`
-launches the CUDA kernel (`boxer_tpu_torch/csrc/flash_attention.cu`) on CUDA
-tensors and runs `flash_attention_plain` on CPU tensors. `attention` is the
+launches a CUDA kernel (`boxer_tpu_torch/csrc/flash_attention.cu`) on CUDA
+tensors, chosen by dtype: bf16 on tensor cores (`mma.sync`), f32 on CUDA
+cores; it runs `flash_attention_plain` on CPU tensors. `attention` is the
 differentiable entry: its forward is `flash_attention`, its backward
 recomputes `flash_attention_plain` in f32 under autograd, as the JAX
 package's `_attention_bwd` takes the oracle's AD (no backward kernel).
@@ -57,6 +58,9 @@ def flash_attention(q, k, v, mask: Optional[torch.Tensor] = None,
             raise ValueError("flash_attention: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError("flash_attention: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        # K and V rows are copied to shared memory in 16-byte pieces
+        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
     out = torch.empty_like(q)
     lib = _build.library()
     with torch.cuda.device(q.device):

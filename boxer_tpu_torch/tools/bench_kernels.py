@@ -1,5 +1,5 @@
-"""K2 and K5/K6 at their main-path shapes, this tree's kernels against
-another tree's, in one process on one card.
+"""K1, K2, K3 and K5/K6 at their main-path shapes, this tree's kernels
+against another tree's, in one process on one card.
 
     python -m boxer_tpu_torch.tools.bench_kernels --parent DIR
 
@@ -8,9 +8,9 @@ its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
 second library, and each kernel is called through the same thin launcher
 in both (an output allocated as the wrapper does, then the C entry point),
 so the host cost of a call is the same on both sides. The other tree's C
-entry points must have the signatures of the parent commit 2e83368:
-`quad_sample_reduce` as now, `scatter_accum` without the table and d_w4
-arguments (d_table only).
+entry points must have this tree's signatures, as every commit since
+cd09a71 has: `quad_sample_reduce`, `flash_attention_fwd`, and
+`scatter_accum` with the table and d_w4 arguments.
 
 Each row is timed in turns, other tree, this tree, this tree, other tree,
 two ways, and each side's mean is printed: with CUDA events around 20
@@ -19,24 +19,26 @@ the host's time to issue a call), and as device time, the kernels' summed
 time under torch.profiler over 20 calls (the output's zeroing included
 where the wrapper zeroes it). Rows:
 
+- K1 (`quad_sample_reduce_raw`) at P=4, M=161,576 (encoder level 0 of
+  every inference forward) and P=4, M=2,400 (the detection decoder);
 - K2 (`quad_sample_reduce_w4`) at P=196, M=2,400 (the inference decoder)
   and P=4, M=161,576; P=4, M=2,400; P=1, M=470,400 (`QuadSample`'s
   forward in training);
+- K3 (`flash_attention`) at BH=8, L=300, D=32 in bf16 (the decoder's
+  self-attention) and in f32 (the card-vs-CPU checks);
 - K5 (shared g, P=4, M=161,576 and M=2,400) and K6 (per-tap g, P=196,
-  M=2,400): d_table alone on both sides; the fused d_table + d_w4 kernel
-  of this tree against the other tree's d_table kernel plus the plain
-  d_w4 (`scatter_accum_dw4_plain(want_table=False)`), the backward as each
-  tree runs it.
+  M=2,400): d_table alone, and d_table with d_w4 from the fused kernel.
 
 Inputs are made on the card from a seed: a bf16 quad table of encoder
 level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
-and cotangents. Every kernel output is held against its plain version (rel
-err 1e-5) before it is timed. Without --parent only this tree's kernels
-are timed.
+and cotangents, q, k, v from a normal distribution. Every kernel output is
+held against its plain version (rel err 1e-5; 1e-2 for K3 in bf16) before
+it is timed. Without --parent only this tree's kernels are timed.
 """
 
 import argparse
 import ctypes
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -45,14 +47,18 @@ import torch
 
 from boxer_tpu_torch.ops import _build
 from boxer_tpu_torch.ops import combine_reduce as cr
+from boxer_tpu_torch.ops import flash_attention as fa
 from boxer_tpu_torch.ops import scatter_accum as sa
-from boxer_tpu_torch.tools.bench_combine import bound_ms, cuda_ms
+from boxer_tpu_torch.tools.bench_combine import bound_ms, cuda_ms, gather_bytes
 
 ROWS = 8 * 101 * 153
 # (P, M) on the main path
+K1_SHAPES = ((4, 8 * 20197), (4, 8 * 300))
 K2_SHAPES = ((196, 8 * 300), (4, 8 * 20197), (4, 8 * 300), (1, 8 * 58800))
 # (P, M, g per tap)
 K56_SHAPES = ((4, 8 * 20197, False), (4, 8 * 300, False), (196, 8 * 300, True))
+# (BH, L, D) of the decoder's self-attention
+K3_SHAPE = (8, 300, 32)
 TOL = 1e-5
 
 
@@ -64,11 +70,25 @@ def distinct_row_bytes(table, idx):
     return torch.unique(idx).numel() * table.shape[1] * table.element_size()
 
 
+def k1_bound(table, idx, lx, ly, wt):
+    """Bytes: the distinct table rows, idx, lx, ly, wt and the (M, 32) f32
+    output; operations: one multiply-add per tap, corner and channel."""
+    return bound_ms(gather_bytes(table, idx, (lx, ly, wt),
+                                 idx.shape[1] * cr.CH * 4), idx.numel() * 256)
+
+
 def k2_bound(table, idx, w4):
-    """Bytes: the distinct table rows, idx, w4 and the (M, 32) f32 output;
-    operations: one multiply-add per tap, corner and channel."""
+    """As `k1_bound`, with w4 in place of lx, ly, wt."""
     return bound_ms(distinct_row_bytes(table, idx) + nbytes(idx, w4)
                     + idx.shape[1] * cr.CH * 4, idx.numel() * 256)
+
+
+def k3_bound(q):
+    """Bytes: q, k, v read and the output written, all q's shape and dtype;
+    operations: q k^T and p v, 2 x 2 x BH x L x L x D in q's type."""
+    bh, seq, d = q.shape
+    return bound_ms(4 * nbytes(q), 4 * bh * seq * seq * d,
+                    "bf16" if q.dtype == torch.bfloat16 else "f32")
 
 
 def k56_bound(table, idx, g, w4, with_dw4):
@@ -91,28 +111,39 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def k2_launcher(lib):
-    def run(table, idx, w4):
+def k12_launcher(lib):
+    """K1 (raw=True: weights lx, ly, wt) or K2 (w4) through the C entry
+    point."""
+    def run(table, idx, *weights):
         p, m = idx.shape
+        raw = len(weights) == 3
+        a, b, c = weights if raw else weights * 3
         out = torch.empty((m, cr.CH), dtype=torch.float32, device=idx.device)
         _build.check(lib.quad_sample_reduce(
             idx.device.index, table.data_ptr(),
             int(table.dtype == torch.bfloat16), table.shape[0],
-            idx.data_ptr(), w4.data_ptr(), w4.data_ptr(), w4.data_ptr(), 0,
-            0, out.data_ptr(), p, m, _stream()), "quad_sample_reduce")
+            idx.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+            int(raw), 0, out.data_ptr(), p, m, _stream()),
+            "quad_sample_reduce")
         return out
     return run
 
 
-def scatter_launcher(lib, fused_abi):
-    """d_table (and d_w4 when `table` is given, this tree only) through the
-    C entry point; fused_abi says which signature the library has."""
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.scatter_accum.restype = i32
-    lib.scatter_accum.argtypes = (
-        [i32, vp, vp, i32, i32, vp, vp, i64, vp, i32, vp, i32, i32, vp]
-        if fused_abi else [i32, vp, vp, i32, i32, vp, vp, i64, i32, i32, vp])
+def k3_launcher(lib):
+    def run(q, k, v):
+        bh, lq, d = q.shape
+        out = torch.empty_like(q)
+        _build.check(lib.flash_attention_fwd(
+            q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+            out.data_ptr(), int(q.dtype == torch.bfloat16), bh, lq,
+            k.shape[1], d, 1.0 / d ** 0.5, _stream()), "flash_attention")
+        return out
+    return run
 
+
+def scatter_launcher(lib):
+    """d_table, and d_w4 when `table` is given, through the C entry
+    point."""
     def run(idx, g, w4, rows, per_tap, table=None):
         p, m = idx.shape
         dev = idx.device
@@ -120,17 +151,14 @@ def scatter_launcher(lib, fused_abi):
                               device=dev)
         d_w4 = (None if table is None else
                 torch.empty((p, 4, m), dtype=torch.float32, device=dev))
-        head = (dev.index, idx.data_ptr(), g.data_ptr(),
-                int(g.dtype == torch.bfloat16), int(per_tap), w4.data_ptr(),
-                d_table.data_ptr(), rows)
-        if fused_abi:
-            err = lib.scatter_accum(
-                *head, None if table is None else table.data_ptr(),
-                int(table is not None and table.dtype == torch.bfloat16),
-                None if d_w4 is None else d_w4.data_ptr(), p, m, _stream())
-        else:
-            err = lib.scatter_accum(*head, p, m, _stream())
-        _build.check(err, "scatter_accum")
+        _build.check(lib.scatter_accum(
+            dev.index, idx.data_ptr(), g.data_ptr(),
+            int(g.dtype == torch.bfloat16), int(per_tap), w4.data_ptr(),
+            d_table.data_ptr(), rows,
+            None if table is None else table.data_ptr(),
+            int(table is not None and table.dtype == torch.bfloat16),
+            None if d_w4 is None else d_w4.data_ptr(), p, m, _stream()),
+            "scatter_accum")
         return d_table if table is None else (d_table, d_w4)
     return run
 
@@ -175,19 +203,23 @@ def run(device, parent=None, log=print):
     gen = torch.Generator(device=device).manual_seed(0)
     table = torch.randn(ROWS, 4 * cr.CH, generator=gen, device=device).to(
         torch.bfloat16)
-    mine_k2 = k2_launcher(_build.library())
-    mine_sa = scatter_launcher(_build.library(), fused_abi=True)
-    other_k2 = other_sa = None
+    libs = {"this": _build.library()}
     if parent is not None:
         plib = load(Path(parent) / "boxer_tpu_torch" / "csrc")
-        plib.quad_sample_reduce.argtypes = \
-            _build.library().quad_sample_reduce.argtypes
-        plib.quad_sample_reduce.restype = ctypes.c_int
-        other_k2 = k2_launcher(plib)
-        other_sa = scatter_launcher(plib, fused_abi=False)
+        for fn in ("quad_sample_reduce", "flash_attention_fwd",
+                   "scatter_accum"):
+            getattr(plib, fn).argtypes = getattr(libs["this"], fn).argtypes
+            getattr(plib, fn).restype = ctypes.c_int
+        libs["other"] = plib
+    k12 = {k: k12_launcher(v) for k, v in libs.items()}
+    k3 = {k: k3_launcher(v) for k, v in libs.items()}
+    scatter = {k: scatter_launcher(v) for k, v in libs.items()}
     results = []
 
-    def row(name, shape, mine, other, plain, bound):
+    def row(name, shape, launcher, args, plain, bound, tol=TOL):
+        mine = functools.partial(launcher["this"], *args)
+        other = (functools.partial(launcher["other"], *args)
+                 if "other" in launcher else None)
         want = plain()
         errs = {"this": rel_err(mine(), want)}
         if other is not None:
@@ -205,7 +237,7 @@ def run(device, parent=None, log=print):
         log(f"{name} [{shape}]: {other_s}this tree {t_ms:.4f} ms (device "
             f"{t_dev:.4f}), bound {b_ms:.4f} ms ({b_by}), rel err "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
-        if max(errs.values()) > TOL:
+        if max(errs.values()) > tol:
             raise AssertionError(f"{name} [{shape}] disagrees with its plain "
                                  "version")
 
@@ -216,39 +248,36 @@ def run(device, parent=None, log=print):
         return torch.randint(0, ROWS, (p, m), generator=gen, device=device,
                              dtype=torch.int32)
 
+    for p, m in K1_SHAPES:
+        idx, lx, ly, wt = rows_idx(p, m), rand(p, m), rand(p, m), rand(p, m)
+        row("K1", f"P={p} M={m}", k12, (table, idx, lx, ly, wt),
+            lambda: cr.quad_sample_reduce_plain(table, idx, lx=lx, ly=ly,
+                                                wt=wt),
+            k1_bound(table, idx, lx, ly, wt))
+        torch.cuda.empty_cache()
     for p, m in K2_SHAPES:
         idx, w4 = rows_idx(p, m), rand(p, 4, m)
-        row("K2", f"P={p} M={m}", lambda: mine_k2(table, idx, w4),
-            other_k2 and (lambda: other_k2(table, idx, w4)),
+        row("K2", f"P={p} M={m}", k12, (table, idx, w4),
             lambda: cr.quad_sample_reduce_plain(table, idx, w4=w4),
             k2_bound(table, idx, w4))
         torch.cuda.empty_cache()
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, TOL)):
+        qkv = [torch.randn(*K3_SHAPE, generator=gen, device=device).to(dtype)
+               for _ in range(3)]
+        row("K3", "BH={} L={} D={} ".format(*K3_SHAPE) + str(dtype)[6:],
+            k3, qkv, lambda: fa.flash_attention_plain(*qkv),
+            k3_bound(qkv[0]), tol)
     for p, m, per_tap in K56_SHAPES:
         idx, w4 = rows_idx(p, m), rand(p, 4, m)
         g = torch.randn(p * m if per_tap else m, cr.CH, generator=gen,
                         device=device)
         name = "K6" if per_tap else "K5"
         shape = f"P={p} M={m} {'per-tap' if per_tap else 'shared'} g"
-
-        def plain_dw4():
-            return sa.scatter_accum_dw4_plain(idx, g, w4, table, per_tap,
-                                              want_table=False)[1]
-
-        def with_plain_dw4(scatter):
-            return lambda: (scatter(idx, g, w4, ROWS, per_tap), plain_dw4())
-
-        row(name + " d_table", shape,
-            lambda: mine_sa(idx, g, w4, ROWS, per_tap),
-            other_sa and (lambda: other_sa(idx, g, w4, ROWS, per_tap)),
+        row(name + " d_table", shape, scatter, (idx, g, w4, ROWS, per_tap),
             lambda: sa.scatter_accum_plain(idx, g, w4, ROWS, per_tap),
             k56_bound(table, idx, g, w4, with_dw4=False))
-        row(name + " d_table + d_w4 (this: fused; other: + plain d_w4)",
-            shape, lambda: mine_sa(idx, g, w4, ROWS, per_tap, table),
-            other_sa and with_plain_dw4(other_sa),
-            lambda: sa.scatter_accum_dw4_plain(idx, g, w4, table, per_tap),
-            k56_bound(table, idx, g, w4, with_dw4=True))
-        row(name + " this tree's d_table + plain d_w4", shape,
-            with_plain_dw4(mine_sa), None,
+        row(name + " d_table + d_w4", shape, scatter,
+            (idx, g, w4, ROWS, per_tap, table),
             lambda: sa.scatter_accum_dw4_plain(idx, g, w4, table, per_tap),
             k56_bound(table, idx, g, w4, with_dw4=True))
         torch.cuda.empty_cache()
@@ -258,7 +287,7 @@ def run(device, parent=None, log=print):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="unpacked copy of the tree to compare "
-                    "against (parent commit's C signatures)")
+                    "against (this tree's C signatures)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_kernels: no CUDA card; this tool times kernels")

@@ -1,18 +1,23 @@
-"""Device time of one full-width BoxeR-2D R50 train step, segm and detection
-(per tap), under torch.profiler, for the tree on PYTHONPATH.
+"""Device time of one full-width BoxeR-2D R50 segm inference forward and one
+train step, segm and detection (per tap), under torch.profiler, for the
+tree on PYTHONPATH.
 
     PYTHONPATH=TREE python boxer_tpu_torch/tools/profile_steps.py
 
 TREE is the root of a checkout (this one, or a `git archive` of another
 commit): its `boxer_tpu_torch` package and its `chip_smoke.py` (whose
-`build_model`, `train_setup`, `train_batch` and `profile` this script
+`build_model`, `make_image`, `train_setup` and `train_batch` this script
 uses, so a tree that has them and not this file can be profiled too) are
-imported from there. Each step runs at `chip_smoke`'s recipe (batch 1,
-800x1216, 20 targets, f32 parameters, bf16 autocast, AdamW): two steps to
-warm up, one timed on the host clock up to a synchronize, one profiled.
-Prints, for each, the device's summed kernel time against the step's wall
-time and the kernels that take the most of it, then one JSON line
-{"tree": ..., "segm_busy_ms": ..., "det_busy_ms": ...}.
+imported from there. The forward runs at `chip_smoke`'s phase 6 (bf16
+weights, batch 1, 800x1216, top-100 postprocess with masks), each train
+step at its recipe (batch 1, 800x1216, 20 targets, f32 parameters, bf16
+autocast, AdamW). Each runs twice to warm up, once timed on the host clock
+up to a synchronize, once profiled. Prints, for each, the device's summed
+kernel time against the wall time, and the device time and calls of each
+of the port's kernels (by name: `quad_sample_reduce`, `flash_fwd`,
+`scatter_weighted`, `scatter_rows`), then one JSON line {"tree": ...,
+"segm_forward_busy_ms": ..., "segm_busy_ms": ..., "det_busy_ms": ...,
+"kernels": {run: {kernel: ms}}}.
 """
 
 import json
@@ -21,6 +26,33 @@ import sys
 import time
 
 import torch
+
+PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "scatter_weighted",
+                "scatter_rows")
+
+
+def profile(fn):
+    """fn() twice to warm up, once on the host clock, once under the
+    profiler: (wall ms, device busy ms, {port kernel: (ms, calls)})."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    ours = {e.key: (e.self_device_time_total / 1e3, e.count) for e in events
+            if any(k in e.key for k in PORT_KERNELS)}
+    return wall, busy, ours
 
 
 def main():
@@ -35,24 +67,34 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
     dev = torch.device("cuda", 0)
-    busy = {}
+    busy, kernels = {}, {}
+
+    def report(key, wall, ms, ours):
+        busy[key], kernels[key] = ms, {k: v[0] for k, v in ours.items()}
+        print(f"{key}, {tree}: device busy {ms:.2f} ms of a {wall:.2f} ms "
+              f"run ({100 * ms / wall:.1f}%); the port's kernels:", flush=True)
+        for name, (k_ms, calls) in sorted(ours.items(),
+                                          key=lambda x: -x[1][0]):
+            print(f"  {k_ms:8.3f} ms  {calls:4d}x  {name[:100]}", flush=True)
+
+    model = cs.build_model(True).to(dev, torch.bfloat16)
+    image, mask = (t.to(dev) for t in cs.make_image(cs.CANVAS))
+    post = {"canvas_hw": cs.CANVAS, "topk": 100}
+    with torch.no_grad():
+        report("segm_forward", *profile(
+            lambda: model(image, mask, postprocess=post)))
+    del model
+    torch.cuda.empty_cache()
     for use_mask, key in ((True, "segm"), (False, "det")):
         model = cs.build_model(use_mask).to(dev).train()
         _, state, step = cs.train_setup(model, use_mask, torch.bfloat16)
         batch = cs.train_batch(cs.CANVAS, use_mask, dev)
-        for _ in range(2):
-            state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        busy[key] = cs.profile(lambda: step(state, batch), wall,
-                               f"{key} train step, {tree}")[0]
+        report(key, *profile(lambda: step(state, batch)))
         del model, state, step
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": tree, "segm_busy_ms": busy["segm"],
-                      "det_busy_ms": busy["det"]}), flush=True)
+    print(json.dumps({"tree": tree, "segm_forward_busy_ms": busy[
+        "segm_forward"], "segm_busy_ms": busy["segm"], "det_busy_ms": busy[
+        "det"], "kernels": kernels}), flush=True)
 
 
 if __name__ == "__main__":

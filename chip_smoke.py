@@ -9,8 +9,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 3. each kernel against its plain PyTorch version at the slices' shapes, with
    its error, its time beside the plain version's and the library call's
    (CUDA events) and its bound (bytes at 3.35 TB/s or operations at the
-   peak of their type): K1-K3 (inference; K2 at P=196, M=2,400 and at the
-   training forward's P=4, M=161,576, P=4, M=2,400 and P=1, M=470,400),
+   peak of their type): K1-K3 (inference; K1 at P=4, M=161,576 and the
+   detection decoder's M=2,400; K2 at P=196, M=2,400 and at the
+   training forward's P=4, M=161,576, P=4, M=2,400 and P=1, M=470,400; K3
+   at BH=8, L=300 in f32 and in bf16, its tensor-core kernel),
    then (3b) the d_value scatters K5 (P=4, M=161,576 and M=2,400) and K6
    (P=196, M=2,400), each as the fused kernel that also returns d_w4, as
    its d_table alone, and as the yardstick d_table kernel + plain d_w4
@@ -156,17 +158,19 @@ def check_kernels(dev):
         return sum(t.numel() * t.element_size() for t in tensors)
 
     results = {}
-    idx, lx, ly, wt, _ = taps(4, m_enc)
-    results["K1"] = dict(
-        wrapper=cr.quad_sample_reduce_raw,
-        kernel=lambda: cr.quad_sample_reduce_raw(table, idx, lx, ly, wt),
-        plain=lambda: cr.quad_sample_reduce_plain(table, idx, lx=lx, ly=ly,
-                                                  wt=wt),
-        library=bc.library_call(table, *bc.bag_inputs(
-            idx.t(), cr.corner_weights(lx, ly, wt).permute(2, 1, 0))),
-        nbytes=bc.gather_bytes(table, idx, (lx, ly, wt), m_enc * 32 * 4),
-        flops=idx.numel() * 256,
-        tol=1e-5, shape=f"P=4 M={m_enc} table {rows}x128 bf16")
+    # K1 at its row's shape (encoder level 0), then the detection decoder's
+    for p, m in bk.K1_SHAPES:
+        idx, lx, ly, wt, _ = taps(p, m)
+        results["K1" if m == m_enc else f"K1 P={p} M={m}"] = dict(
+            wrapper=cr.quad_sample_reduce_raw,
+            kernel=functools.partial(cr.quad_sample_reduce_raw, table, idx,
+                                     lx, ly, wt),
+            plain=functools.partial(cr.quad_sample_reduce_plain, table, idx,
+                                    lx=lx, ly=ly, wt=wt),
+            library=bc.library_call(table, *bc.bag_inputs(
+                idx.t(), cr.corner_weights(lx, ly, wt).permute(2, 1, 0))),
+            bound=bk.k1_bound(table, idx, lx, ly, wt),
+            tol=1e-5, shape=f"P={p} M={m} table {rows}x128 bf16")
     # K2 at its row's shape (the inference decoder), then at the shapes of
     # `QuadSample`'s training forward
     for i, (p, m) in enumerate(bk.K2_SHAPES):

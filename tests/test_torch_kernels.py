@@ -105,12 +105,14 @@ def _flash_case(bh, lq, lkv, d, masked, seed):
     return q, k, v, mask
 
 
-def test_k1_raw_matches_pallas(interp):
-    """K1: P=4 raw weights, M=3000 (not a multiple of the 2048 block)."""
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+def test_k1_raw_matches_pallas(interp, p):
+    """K1: raw weights at P up to the one-pass limit of 8, M=3000 (not a
+    multiple of the 2048 block)."""
     import jax.numpy as jnp
 
-    p, m = 4, 3000
-    table, idx, lx, ly, wt, _ = _quad_case(p, m, rows=700, seed=0)
+    m = 3000
+    table, idx, lx, ly, wt, _ = _quad_case(p, m, rows=700, seed=p)
     g = table[idx.reshape(-1)]
     want = interp.fused_combine_reduce_raw(
         jnp.asarray(g), jnp.asarray(lx), jnp.asarray(ly), jnp.asarray(wt), p, m)
@@ -136,15 +138,17 @@ def test_k2_w4_matches_pallas(interp, p):
     assert _rel_err(got.numpy(), want) <= RTOL
 
 
+@pytest.mark.parametrize("bh,lq,lkv", [(8, 300, 300), (2, 65, 130)])
 @pytest.mark.parametrize("masked", [False, True])
-def test_k3_matches_pallas(masked):
-    """K3 at the decoder's shape (BH=8, L=300, D=32)."""
+def test_k3_matches_pallas(masked, bh, lq, lkv):
+    """K3 at the decoder's shape (BH=8, L=300, D=32) and at a ragged
+    Lq != Lkv, neither a multiple of the Pallas kernel's 128 block."""
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
 
     from boxer_tpu.ops.pallas import flash_attention as fa
 
-    q, k, v, mask = _flash_case(8, 300, 300, 32, masked, seed=int(masked))
+    q, k, v, mask = _flash_case(bh, lq, lkv, 32, masked, seed=int(masked))
     with pltpu.force_tpu_interpret_mode():
         want = fa.flash_attention(jnp.asarray(q), jnp.asarray(k),
                                   jnp.asarray(v),
@@ -431,28 +435,6 @@ def test_cpu_tensors_take_the_plain_version_only():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("raw", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quad_sample_reduce_cuda_matches_plain(cuda, raw, dtype):
-    p = 4 if raw else 196
-    m = 2400 + 3
-    table, idx, lx, ly, wt, w4 = (torch.from_numpy(a).to(cuda)
-                                  for a in _quad_case(p, m, 5000, seed=7))
-    table = table.to(dtype)
-    wrapper = quad_sample_reduce_raw if raw else quad_sample_reduce_w4
-    before = wrapper.launches
-    if raw:
-        got = wrapper(table, idx, lx, ly, wt)
-        want = quad_sample_reduce_plain(table, idx, lx=lx, ly=ly, wt=wt)
-    else:
-        got = wrapper(table, idx, w4)
-        want = quad_sample_reduce_plain(table, idx, w4=w4)
-    torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
-    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
-
-
-@pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 1e-2)])
@@ -466,6 +448,34 @@ def test_flash_attention_cuda_matches_plain(cuda, masked, dtype, rtol):
     assert got.dtype == dtype
     assert _rel_err(got.float().cpu().numpy(),
                     want.float().cpu().numpy()) <= rtol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lq", [1, 65, 300])
+@pytest.mark.parametrize("lkv", [1, 17, 64, 65, 300])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+def test_flash_attention_cuda_ragged(cuda, lq, lkv, dtype, rtol):
+    """K3 at sequence lengths off every tile (bf16: 64-key tiles, 16-row
+    warps, 64-row blocks; f32: 32-row blocks), with a mask whose head 1 is
+    fully masked: that head averages its real keys only, none of a ragged
+    tile's padding."""
+    bh = 3
+    q, k, v, mask = _flash_case(bh, lq, lkv, 32, True, seed=lq + lkv)
+    mask[1] = NEG_INF
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in (q, k, v))
+    mask = torch.from_numpy(mask).to(cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, mask)
+    want = flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (bh, lq, 32)
+    assert _rel_err(got.float().cpu().numpy(),
+                    want.float().cpu().numpy()) <= rtol
+    mean_v = v[1].float().mean(dim=0).expand(lq, 32)
+    assert _rel_err(got[1].float().cpu().numpy(),
+                    mean_v.cpu().numpy()) <= rtol
 
 
 @pytest.mark.gpu
@@ -547,6 +557,29 @@ def test_quad_sample_reduce_w4_cuda_matches_plain(cuda, p, dtype):
     want = quad_sample_reduce_plain(table, idx, w4=w4)
     torch.cuda.synchronize()
     assert quad_sample_reduce_w4.launches == before + 1
+    assert got.shape == (m, 32)
+    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [1, 3, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quad_sample_reduce_raw_cuda_matches_plain(cuda, p, dtype):
+    """K1: the direct kernel in its raw mode, P not a multiple of the 2 taps
+    in flight, M not a multiple of the block's outputs, taps on the table's
+    first and last rows."""
+    m, rows = 2400 + 3, 5000
+    table, idx, lx, ly, wt, _ = (torch.from_numpy(a) for a in
+                                 _quad_case(p, m, rows, seed=30 + p))
+    idx[0, :2] = torch.tensor([0, rows - 1], dtype=torch.int32)
+    idx[-1, -2:] = torch.tensor([rows - 1, 0], dtype=torch.int32)
+    table = table.to(cuda, dtype)
+    idx, lx, ly, wt = (t.to(cuda) for t in (idx, lx, ly, wt))
+    before = quad_sample_reduce_raw.launches
+    got = quad_sample_reduce_raw(table, idx, lx, ly, wt)
+    want = quad_sample_reduce_plain(table, idx, lx=lx, ly=ly, wt=wt)
+    torch.cuda.synchronize()
+    assert quad_sample_reduce_raw.launches == before + 1
     assert got.shape == (m, 32)
     assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
 
