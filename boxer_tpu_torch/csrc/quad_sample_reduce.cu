@@ -25,35 +25,41 @@
 // and w4 (7.5 MB) and write 0.3 MB: 40.5 MB, 0.0121 ms; its 470,400 row
 // reads (120 MB) mostly hit the 50 MB L2. A warp walking an output's taps
 // in series, one lane a channel, waits on a dependent index -> row round
-// trip a tap and moves 64 bytes a warp per load: latency-bound. Three
-// kernels:
+// trip a tap and moves 64 bytes a warp per load: latency-bound (K8 ran so
+// until it joined the two kernels below: 0.0801 ms at P=4, M=161,576, 4.3x
+// its bound). Two kernels, each templated over the weight mode and the tap
+// order:
 //
-// - direct (K1, and K2 up to 8 taps, the training forward): one template
-//   over the weight mode gives each output 4 lanes (8 in f32), each owning
-//   16 bytes of channels and reading them from all 4 corners with 16-byte
-//   loads, two taps in flight; a raw lane forms its tap's corner weights in
-//   registers from lx, ly, wt (12 bytes a tap where w4 reads 16). Corners
-//   and taps sum in registers with no shuffle and no barrier, and the lane
-//   stores its own channels as float4s. K1 at its main shape takes 0.0354
-//   ms of device time against the warp-an-output loop's 0.0880 (H100 80GB
-//   HBM3 at 700 W, `tools/bench_kernels.py`); all 4 taps in flight cost
-//   41% there (fewer warps resident) for 0.4 us at M=2,400;
-// - staged (K2 above 8 taps): a tap is one "group" of lanes reading its
-//   whole quad row with 16-byte loads (16 lanes in bf16, 32 in f32), so a
-//   warp fetches two bf16 rows per instruction, four taps' rows in flight a
-//   group; kG = 2 groups share an output, each walking every 2nd tap; the
+// - direct (K1, K2 up to 8 taps, the training forward, and K8 up to 8
+//   taps): each output gets 4 lanes (8 in f32), each owning 16 bytes of
+//   channels and reading them from all 4 corners with 16-byte loads, two
+//   taps in flight; a raw lane forms its tap's corner weights in registers
+//   from lx, ly, wt (12 bytes a tap where w4 reads 16). Corners and taps sum
+//   in registers with no shuffle and no barrier, and the lane stores its
+//   own channels as float4s. K1 at its main shape takes 0.0354 ms of device
+//   time against the warp-an-output loop's 0.0880 (H100 80GB HBM3 at 700 W,
+//   `tools/bench_kernels.py`); all 4 taps in flight cost 41% there (fewer
+//   warps resident) for 0.4 us at M=2,400. In the m-major order an output's
+//   taps are contiguous, so where P % 4 == 0 one 16-byte load each of idx,
+//   lx, ly and wt brings 4 taps;
+// - staged (K2 and K8 above 8 taps): a tap is one "group" of lanes reading
+//   its whole quad row with 16-byte loads (16 lanes in bf16, 32 in f32), so
+//   a warp fetches two bf16 rows per instruction, four taps' rows in flight
+//   a group; kG = 2 groups share an output, each walking every 2nd tap; the
 //   corners of a channel block meet across lanes with `__shfl_xor_sync`,
 //   the 2 groups in shared memory. A block covers kThreads / (lanes * kG)
 //   consecutive outputs and copies a (kChunk taps x outputs) tile of idx and
-//   of each corner's w4 into shared memory with `cp.async`, double-buffered
-//   so the next chunk's copy overlaps this chunk's gathers. The 16-lane
-//   groups cost 16 shuffles an output, more than 1-4 taps repay (at P=1
-//   they ran slower than a warp an output);
-// - m-major (K8): one warp an output, one lane a channel, the P taps in
-//   series. The TPU's m-major kernel exists to reduce each output's P taps
-//   inside one VMEM block; on the card every order keeps the P-sum in a
-//   register. Its P=196 shape under the m-major combine wants a staged
-//   design of its own (not done).
+//   of the weights into shared memory with `cp.async`, double-buffered so
+//   the next chunk's copy overlaps this chunk's gathers: w4's 4 corners
+//   (16 bytes a tap), or, raw, lx, ly, wt (12 bytes), each lane forming its
+//   corner's weight after its row load is issued. The m-major tile is kept
+//   output by output and, where P % 4 == 0, copied 16 bytes at a time. The
+//   16-lane groups cost 16 shuffles an output, more than 1-4 taps repay (at
+//   P=1 they ran slower than a warp an output).
+//
+// The TPU's m-major kernel exists to reduce each output's P taps inside one
+// VMEM block; on the card every order keeps the P-sum in registers, and the
+// order changes only the addresses of idx and the weights.
 //
 // Indices are not clamped: the caller clamps them. An index outside
 // [0, rows) traps, which surfaces as a launch failure at the next sync.
@@ -64,47 +70,10 @@
 namespace {
 
 constexpr int kCh = 32;            // channels per head
-constexpr int kWarpsPerBlock = 8;  // m-major: output rows per block
-constexpr int kThreads = 256;      // direct and staged: threads per block
+constexpr int kThreads = 256;      // threads per block
 constexpr int kChunk = 32;         // staged: taps per staged chunk
-constexpr int kDirectMaxP = 8;     // w4 mode: up to it, no staging
+constexpr int kDirectMaxP = 8;     // w4 and m-major: up to it, no staging
 constexpr int kG = 2;              // staged: groups an output
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-quad_sample_reduce_mmajor_kernel(const T* __restrict__ table, long long rows,
-                                 const int* __restrict__ idx,
-                                 const float* __restrict__ lxs,
-                                 const float* __restrict__ lys,
-                                 const float* __restrict__ wts,
-                                 float* __restrict__ out, int p_taps,
-                                 int m_rows) {
-  const int lane = threadIdx.x & 31;
-  const long long m =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (m >= m_rows) return;
-
-  float acc = 0.f;
-  for (int p = 0; p < p_taps; ++p) {
-    const long long t = m * p_taps + p;
-    const int r = __ldg(idx + t);
-    if (r < 0 || r >= rows) __trap();
-    const float lx = __ldg(lxs + t), ly = __ldg(lys + t), wt = __ldg(wts + t);
-    const float w0 = (1.f - lx) * (1.f - ly) * wt, w1 = lx * (1.f - ly) * wt;
-    const float w2 = (1.f - lx) * ly * wt, w3 = lx * ly * wt;
-    const T* row = table + static_cast<long long>(r) * (4 * kCh) + lane;
-    acc += w0 * to_f32(row[0 * kCh]);
-    acc += w1 * to_f32(row[1 * kCh]);
-    acc += w2 * to_f32(row[2 * kCh]);
-    acc += w3 * to_f32(row[3 * kCh]);
-  }
-  out[m * kCh + lane] = acc;
-}
 
 // A quad row read as 16-byte vectors: kLanes lanes of kVals values each,
 // lane l holding corner l / (kLanes / 4), channels (l % (kLanes / 4)) *
@@ -137,13 +106,34 @@ struct Row<float> {
   }
 };
 
-// 4-byte asynchronous copy into shared memory; zero-fills when !ok (src is
-// then not read).
+// corner c's weight from the raw lx, ly, wt: x's factor by bit 0, y's by
+// bit 1, in the order (and rounding) of `corner_weights`
+__device__ __forceinline__ float corner_weight(int c, float lx, float ly,
+                                               float wt) {
+  return ((c & 1) ? lx : 1.f - lx) * ((c & 2) ? ly : 1.f - ly) * wt;
+}
+
+// component i of a 4-vector (i a constant after unrolling)
+template <typename V>
+__device__ __forceinline__ auto lane_of(const V& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// 4- or 16-byte asynchronous copy into shared memory; zero-fills when !ok
+// (src is then not read).
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
                                           bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(gmem), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool ok) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(ok ? 16 : 0)
                : "memory");
 }
 
@@ -156,19 +146,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// P > 8: kG groups an output, idx and w4 staged
-template <typename T>
+// P > 8: kG groups an output, idx and the weights staged. kRaw: wa, wb, wc
+// = lx, ly, wt in idx's shape, 3 staged planes, each lane forming its
+// corner's weight; else wa = w4 (P, 4, M), 4 planes. kMmajor: idx (M, P),
+// the staged tile kept output by output; kVec (m-major, P % 4 == 0, the
+// inputs 16-byte aligned): 16-byte copies of 4 taps of an output.
+template <typename T, bool kRaw, bool kMmajor, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-quad_sample_reduce_w4_kernel(const T* __restrict__ table, long long rows,
-                             const int* __restrict__ idx,
-                             const float* __restrict__ w4,
-                             float* __restrict__ out, int p_taps,
-                             int m_rows) {
+quad_sample_reduce_staged_kernel(const T* __restrict__ table, long long rows,
+                                 const int* __restrict__ idx,
+                                 const float* __restrict__ wa,
+                                 const float* __restrict__ wb,
+                                 const float* __restrict__ wc,
+                                 float* __restrict__ out, int p_taps,
+                                 int m_rows) {
   constexpr int kLanes = Row<T>::kLanes, kVals = Row<T>::kVals;
   constexpr int kGroups = kThreads / kLanes;
   constexpr int kTile = kGroups / kG;  // outputs per block
-  __shared__ int s_idx[2][kChunk][kTile];
-  __shared__ float s_w[2][kChunk][4][kTile];
+  constexpr int kPlanes = kRaw ? 3 : 4;
+  __shared__ __align__(16) int s_idx[2][kChunk * kTile];
+  __shared__ __align__(16) float s_w[2][kPlanes][kChunk * kTile];
   __shared__ float s_red[kGroups][kCh];
 
   const int tid = threadIdx.x;
@@ -178,30 +175,66 @@ quad_sample_reduce_w4_kernel(const T* __restrict__ table, long long rows,
   const long long m0 = static_cast<long long>(blockIdx.x) * kTile;
   const int n_chunks = (p_taps + kChunk - 1) / kChunk;
 
-  // chunk k's (taps x outputs) tile of idx and the 4 corners' w4 -> buffer b
+  // tap pl of output ml in a staged tile
+  auto at = [](int pl, int ml) {
+    return kMmajor ? ml * kChunk + pl : pl * kTile + ml;
+  };
+  // plane w (-1: idx) of tap p of output m in device memory
+  auto src = [&](int w, long long p, long long m) -> const void* {
+    const long long t = kMmajor ? m * p_taps + p : p * m_rows + m;
+    if (w < 0) return idx + t;
+    if (kRaw) return (w == 0 ? wa : w == 1 ? wb : wc) + t;
+    return wa + (p * 4 + w) * m_rows + m;
+  };
+  auto dst = [&](int b, int w, int j) -> void* {
+    return w < 0 ? static_cast<void*>(&s_idx[b][j])
+                 : static_cast<void*>(&s_w[b][w][j]);
+  };
+  // chunk k's (taps x outputs) tile of idx and the weight planes -> buffer b
   auto stage = [&](int k, int b) {
     const int pc = min(kChunk, p_taps - k * kChunk);
-    for (int e = tid; e < pc * 5 * kTile; e += kThreads) {
-      const int ml = e % kTile, which = (e / kTile) % 5, pl = e / (kTile * 5);
-      const long long p = static_cast<long long>(k) * kChunk + pl;
-      const long long m = m0 + ml;
-      const bool ok = m < m_rows;
-      if (which == 0) {
-        cp_async4(&s_idx[b][pl][ml], idx + (ok ? p * m_rows + m : 0), ok);
-      } else {
-        cp_async4(&s_w[b][pl][which - 1][ml],
-                  w4 + (ok ? (p * 4 + which - 1) * m_rows + m : 0), ok);
+    const long long p0 = static_cast<long long>(k) * kChunk;
+    if (kVec) {
+      const int quads = pc / 4;
+      for (int e = tid; e < (kPlanes + 1) * kTile * quads; e += kThreads) {
+        const int q = e % quads, ml = (e / quads) % kTile;
+        const int w = e / (quads * kTile) - 1;
+        const long long m = m0 + ml;
+        const bool ok = m < m_rows;
+        cp_async16(dst(b, w, at(4 * q, ml)), src(w, p0 + 4 * q, ok ? m : 0),
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < (kPlanes + 1) * kTile * pc; e += kThreads) {
+        int pl, ml, w;
+        if (kMmajor) {  // consecutive threads on an output's consecutive taps
+          pl = e % pc;
+          ml = (e / pc) % kTile;
+          w = e / (pc * kTile) - 1;
+        } else {        // on consecutive outputs of a tap
+          ml = e % kTile;
+          w = (e / kTile) % (kPlanes + 1) - 1;
+          pl = e / (kTile * (kPlanes + 1));
+        }
+        const long long m = m0 + ml;
+        const bool ok = m < m_rows;
+        cp_async4(dst(b, w, at(pl, ml)), src(w, p0 + pl, ok ? m : 0), ok);
       }
     }
   };
 
   const uint4* rows16 = reinterpret_cast<const uint4*>(table);
   constexpr int kRow16 = 4 * kCh * sizeof(T) / 16;  // 16-byte vectors a row
+  // the row load is issued before the weight is formed
   auto load = [&](int b, int pl, float& w) {
-    const int r = s_idx[b][pl][mo];
+    const int j = at(pl, mo);
+    const int r = s_idx[b][j];
     if (r < 0 || r >= rows) __trap();
-    w = s_w[b][pl][corner][mo];
-    return __ldg(rows16 + static_cast<long long>(r) * kRow16 + lane);
+    const uint4 v = __ldg(rows16 + static_cast<long long>(r) * kRow16 + lane);
+    w = kRaw ? corner_weight(corner, s_w[b][0][j], s_w[b][1][j],
+                             s_w[b][2][j])
+             : s_w[b][corner][j];
+    return v;
   };
 
   float acc[kVals];
@@ -265,11 +298,13 @@ quad_sample_reduce_w4_kernel(const T* __restrict__ table, long long rows,
 // direct: kLanes = 4 lanes an output (8 in f32), each owning 16 bytes of
 // channels and reading them from all four corners, so the corners and taps
 // sum in its registers and it writes its channels itself. kRaw: wa, wb, wc
-// = lx, ly, wt (P, M), the corner weights formed only after the taps' row
-// loads are issued (formed as lx, ly, wt arrived, they stalled the warp
-// ahead of those loads: 0.0410 against 0.0354 ms of device time at P=4,
-// M=161,576); else wa = w4 (P, 4, M)
-template <typename T, bool kRaw>
+// = lx, ly, wt in idx's shape, the corner weights formed only after the
+// taps' row loads are issued (formed as lx, ly, wt arrived, they stalled
+// the warp ahead of those loads: 0.0410 against 0.0354 ms of device time at
+// P=4, M=161,576); else wa = w4 (P, 4, M). kMmajor: idx (M, P); kVec
+// (m-major, P % 4 == 0, idx, lx, ly, wt 16-byte aligned): one 16-byte load
+// each of idx, lx, ly and wt brings 4 taps of the output.
+template <typename T, bool kRaw, bool kMmajor, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 quad_sample_reduce_direct_kernel(const T* __restrict__ table, long long rows,
                                  const int* __restrict__ idx,
@@ -290,30 +325,12 @@ quad_sample_reduce_direct_kernel(const T* __restrict__ table, long long rows,
   float acc[kVals];
 #pragma unroll
   for (int i = 0; i < kVals; ++i) acc[i] = 0.f;
-  for (int p = 0; p < p_taps; p += kU) {
-    int r[kU];
-    float w[kU][4];
+  // taps u < n of r, w (raw: lx, ly, wt in w[.][0..2]): rows, then sums
+  auto taps = [&](const int (&r)[kU], float (&w)[kU][4], int n) {
     uint4 v[kU][4];
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      if (p + u < p_taps) {
-        const long long t = static_cast<long long>(p + u) * m_rows + m;
-        r[u] = __ldg(idx + t);
-        if (kRaw) {
-          w[u][0] = __ldg(wa + t);
-          w[u][1] = __ldg(wb + t);
-          w[u][2] = __ldg(wc + t);
-        } else {
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            w[u][k] = __ldg(wa + (static_cast<long long>(p + u) * 4 + k) *
-                                     m_rows + m);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (p + u < p_taps) {
+      if (u < n) {
         if (r[u] < 0 || r[u] >= rows) __trap();
 #pragma unroll
         for (int k = 0; k < 4; ++k)
@@ -323,17 +340,62 @@ quad_sample_reduce_direct_kernel(const T* __restrict__ table, long long rows,
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
-      if (p + u < p_taps) {
+      if (u < n) {
         if (kRaw) {
           const float lx = w[u][0], ly = w[u][1], wt = w[u][2];
-          w[u][0] = (1.f - lx) * (1.f - ly) * wt;
-          w[u][1] = lx * (1.f - ly) * wt;
-          w[u][2] = (1.f - lx) * ly * wt;
-          w[u][3] = lx * ly * wt;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) w[u][k] = corner_weight(k, lx, ly, wt);
         }
 #pragma unroll
         for (int k = 0; k < 4; ++k) Row<T>::fma(acc, v[u][k], w[u][k]);
       }
+    }
+  };
+  if (kVec) {
+    for (int p = 0; p < p_taps; p += 4) {
+      const long long t = m * p_taps + p;
+      const int4 r4 = __ldg(reinterpret_cast<const int4*>(idx + t));
+      const float4 a = __ldg(reinterpret_cast<const float4*>(wa + t));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(wb + t));
+      const float4 c = __ldg(reinterpret_cast<const float4*>(wc + t));
+#pragma unroll
+      for (int h = 0; h < 4; h += kU) {
+        int r[kU];
+        float w[kU][4];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          r[u] = lane_of(r4, h + u);
+          w[u][0] = lane_of(a, h + u);
+          w[u][1] = lane_of(b, h + u);
+          w[u][2] = lane_of(c, h + u);
+        }
+        taps(r, w, kU);
+      }
+    }
+  } else {
+    for (int p = 0; p < p_taps; p += kU) {
+      int r[kU];
+      float w[kU][4];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (p + u < p_taps) {
+          const long long t = kMmajor ? m * p_taps + p + u
+                                      : static_cast<long long>(p + u) *
+                                                m_rows + m;
+          r[u] = __ldg(idx + t);
+          if (kRaw) {
+            w[u][0] = __ldg(wa + t);
+            w[u][1] = __ldg(wb + t);
+            w[u][2] = __ldg(wc + t);
+          } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              w[u][k] = __ldg(wa + (static_cast<long long>(p + u) * 4 + k) *
+                                       m_rows + m);
+          }
+        }
+      }
+      taps(r, w, p_taps - p);
     }
   }
   float4* o = reinterpret_cast<float4*>(out + m * kCh + lane * kVals);
@@ -343,33 +405,54 @@ quad_sample_reduce_direct_kernel(const T* __restrict__ table, long long rows,
                        acc[4 * j + 3]);
 }
 
+template <typename T, bool kRaw, bool kMmajor, bool kVec>
+void run_direct(const T* t, long long rows, const int* idx, const float* a,
+                const float* b, const float* c, float* out, int p_taps,
+                int m_rows, cudaStream_t stream) {
+  constexpr int kOuts = kThreads * 16 / (kCh * sizeof(T));  // a block
+  const dim3 grid(static_cast<unsigned>((m_rows + kOuts - 1) / kOuts));
+  quad_sample_reduce_direct_kernel<T, kRaw, kMmajor, kVec>
+      <<<grid, kThreads, 0, stream>>>(t, rows, idx, a, b, c, out, p_taps,
+                                      m_rows);
+}
+
+template <typename T, bool kRaw, bool kMmajor, bool kVec>
+void run_staged(const T* t, long long rows, const int* idx, const float* a,
+                const float* b, const float* c, float* out, int p_taps,
+                int m_rows, cudaStream_t stream) {
+  constexpr int kTile = kThreads / Row<T>::kLanes / kG;
+  const dim3 grid(static_cast<unsigned>((m_rows + kTile - 1) / kTile));
+  quad_sample_reduce_staged_kernel<T, kRaw, kMmajor, kVec>
+      <<<grid, kThreads, 0, stream>>>(t, rows, idx, a, b, c, out, p_taps,
+                                      m_rows);
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+}
+
 template <typename T>
 void launch(const void* table, long long rows, const int* idx, const float* a,
             const float* b, const float* c, int raw, int mmajor, float* out,
             int p_taps, int m_rows, cudaStream_t stream) {
   const T* t = static_cast<const T*>(table);
   if (mmajor) {
-    const dim3 grid((m_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-    quad_sample_reduce_mmajor_kernel<T><<<grid, kWarpsPerBlock * 32, 0,
-                                          stream>>>(t, rows, idx, a, b, c,
-                                                    out, p_taps, m_rows);
-  } else if (!raw && p_taps > kDirectMaxP) {
-    constexpr int kTile = kThreads / Row<T>::kLanes / kG;
-    const dim3 grid(static_cast<unsigned>((m_rows + kTile - 1) / kTile));
-    quad_sample_reduce_w4_kernel<T><<<grid, kThreads, 0, stream>>>(
-        t, rows, idx, a, out, p_taps, m_rows);
-  } else {
-    constexpr int kOuts = kThreads * 16 / (kCh * sizeof(T));  // a block
-    const dim3 grid(static_cast<unsigned>((m_rows + kOuts - 1) / kOuts));
-    if (raw) {
-      quad_sample_reduce_direct_kernel<T, true><<<grid, kThreads, 0,
-                                                  stream>>>(
-          t, rows, idx, a, b, c, out, p_taps, m_rows);
+    const bool vec = p_taps % 4 == 0 && aligned16(idx) && aligned16(a) &&
+                     aligned16(b) && aligned16(c);
+    if (p_taps <= kDirectMaxP) {
+      (vec ? run_direct<T, true, true, true> : run_direct<T, true, true, false>)(
+          t, rows, idx, a, b, c, out, p_taps, m_rows, stream);
     } else {
-      quad_sample_reduce_direct_kernel<T, false><<<grid, kThreads, 0,
-                                                   stream>>>(
-          t, rows, idx, a, b, c, out, p_taps, m_rows);
+      (vec ? run_staged<T, true, true, true> : run_staged<T, true, true, false>)(
+          t, rows, idx, a, b, c, out, p_taps, m_rows, stream);
     }
+  } else if (!raw && p_taps > kDirectMaxP) {
+    run_staged<T, false, false, false>(t, rows, idx, a, b, c, out, p_taps,
+                                       m_rows, stream);
+  } else {
+    (raw ? run_direct<T, true, false, false>
+         : run_direct<T, false, false, false>)(t, rows, idx, a, b, c, out,
+                                               p_taps, m_rows, stream);
   }
 }
 

@@ -21,10 +21,10 @@
 // and, in the weighted kernel, the XLA d_w4 beside them in the backward of
 // `_sample_taps_vjp` (boxer_tpu/ops/box_attention.py:260-299). The TPU
 // kernels keep a whole f32 accumulator per (batch*head) slice in VMEM and
-// walk the taps serially; on the card the taps run in parallel and meet in
-// device memory through f32 atomics, so indices are global rows of the flat
-// per-level table and the TPU's dump rows and bh-relative indexing are not
-// needed. K7a and K7b differ only in the caller's index layout.
+// walk the taps serially; on the card the taps run in parallel, so indices
+// are global rows of the flat per-level table and the TPU's dump rows and
+// bh-relative indexing are not needed. K7a and K7b differ only in the
+// caller's index layout.
 //
 // What bounds the weighted kernel on an H100: device-memory bytes and the
 // atomics. At the encoder's level 0 (P=4, M=161,576, a 123,624-row table)
@@ -50,9 +50,35 @@
 // pixels) serialise their reductions in L2; nothing is done about that
 // here.
 //
-// The rows kernel: one warp per tap, each lane owning channels lane + 32*c
-// (every load and reduction instruction coalesced across the warp), 4
-// scalar `atomicAdd`s a lane.
+// What bounds the rows mode: device-memory bytes. At the folded encoder's
+// level 0 (P=4, M=161,576 taps over a 123,624-row table, bf16 payload) it
+// must read the payload (165.5 MB) and idx and write the f32 table (63.3
+// MB): 0.069 ms at 3.35 TB/s. Scattering tap by tap, as f32 atomics into a
+// zeroed table, took four times that: a 63 MB zero fill and 2.6M warp-wide
+// reductions in L2, hundreds of them on one row where the taps crowd (the
+// encoder's level 3 gets about 288 taps a row). So the taps are grouped by
+// row and each row is summed once, in registers, in four kernels:
+// - count: a histogram of idx with integer atomics, the lanes of a warp
+//   that hit one row adding once (`__match_any_sync`); the count an atomic
+//   returns ranks the tap inside its row;
+// - scan: one pass over the counts (a tile of 1,024 rows a block, the
+//   totals of the tiles before it read as soon as they are published)
+//   gives each row its segment; a row of c taps is cut into ceil(c / 32)
+//   pieces, and the same 64-bit scan numbers them;
+// - place: each tap writes its index into its row's segment at its rank
+//   (`perm`; no atomics);
+// - reduce: a group of lanes (16 in bf16, 32 in f32, 16 bytes each) takes
+//   a piece, reads its taps' indices in one coalesced load, keeps 8 taps'
+//   payload rows in flight and sums them in f32 registers. A one-piece row
+//   (most rows, and every row with no tap) is written once with float4
+//   stores, zeros included, so the output needs no zero fill; the pieces
+//   of a long row leave partials and the last of them to finish, by a
+//   ticket on the row's count, adds them. No f32 atomics remain. The sum
+//   of a row follows the placement's order, which the atomics set, so two
+//   runs may differ in the last bits.
+// Beside payload, idx and the output the scratch moves about 13 MB at the
+// shape above (idx read twice, rank and perm written and read, the
+// counts): within 8% of the bound.
 //
 // An index outside [0, rows) traps, which surfaces as a launch failure at
 // the next sync.
@@ -60,17 +86,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int kCh = 32;            // channels per head
-constexpr int kWarpsPerBlock = 8;  // both kernels: 256 threads
+constexpr int kWarpsPerBlock = 8;  // weighted: 256 threads
 constexpr int kTileM = 32;         // weighted: outputs per block
 constexpr int kTileP = 4;          // weighted: taps of each output per block
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 // 4 consecutive values as f32 (16 B in f32, 8 B in bf16)
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -172,22 +195,343 @@ scatter_weighted_kernel(const int* __restrict__ idx, const G* __restrict__ g,
   }
 }
 
-// payload: (n_taps, 128)
-template <typename G>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-scatter_rows_kernel(const int* __restrict__ idx, const G* __restrict__ payload,
-                    float* __restrict__ out, long long rows, int n_taps) {
-  const int lane = threadIdx.x & 31;
-  const long long t =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (t >= n_taps) return;
+// ---- rows mode: count, scan, place, reduce --------------------------------
 
-  const int r = __ldg(idx + t);
-  if (r < 0 || r >= rows) __trap();
-  float* row = out + static_cast<long long>(r) * (4 * kCh) + lane;
-  const G* src = payload + t * (4 * kCh) + lane;
+constexpr int kRowsThreads = 256;  // every rows-mode kernel
+constexpr int kScanItems = 4;      // scan: rows a thread (one int4)
+constexpr int kScanTile = kRowsThreads * kScanItems;
+constexpr int kSplit = 32;         // reduce: taps an owner at most
+constexpr int kRowsMaxBlocks = 4096;  // count, place: grid-stride cap
+constexpr unsigned long long kReady = 1ull << 63;  // scan: tile published
+
+// The scratch of one call, carved from one int32 buffer: the part zeroed
+// before the launch (cnt, the scan's tile ticket and tile status words),
+// then off and exoff (rows + 1 each), rank and perm (n_taps each), erow and
+// the partial rows of long segments (n_taps / kSplit + 1 each). Sections
+// start on 16-byte boundaries.
+struct RowsScratch {
+  int* cnt;      // taps a row, then the reduce's ticket on top of them
+  int* ticket;   // scan: tiles in the order they start
+  unsigned long long* status;  // scan: tile total | kReady, 0 until then
+  int* off;      // first tap of a row's segment in perm; off[rows] = n
+  int* exoff;    // first extra piece of a row; exoff[rows] = extra pieces
+  int* rank;     // a tap's place among its row's taps
+  int* perm;     // taps grouped by row
+  int* erow;     // the row of each extra piece
+  float* part;   // (extra pieces, 128) partial sums of long rows
+  long long zero_words, words;
+};
+
+long long round4(long long w) { return (w + 3) / 4 * 4; }
+
+RowsScratch carve(int* base, long long rows, int n_taps) {
+  RowsScratch s;
+  const long long tiles = (rows + kScanTile - 1) / kScanTile;
+  const long long extra = n_taps / kSplit + 1;
+  long long w = 0;
+  auto take = [&](long long words) {
+    int* p = base ? base + w : nullptr;
+    w += round4(words);
+    return p;
+  };
+  s.cnt = take(rows);
+  s.ticket = take(1);
+  s.status = reinterpret_cast<unsigned long long*>(take(2 * tiles));
+  s.zero_words = w;
+  s.off = take(rows + 1);
+  s.exoff = take(rows + 1);
+  s.rank = take(n_taps);
+  s.perm = take(n_taps);
+  s.erow = take(extra);
+  s.part = reinterpret_cast<float*>(take(extra * 4 * kCh));
+  s.words = w;
+  return s;
+}
+
+// A row of c taps: (c << 32) | its extra pieces, ceil(c / kSplit) - 1, so
+// one 64-bit scan yields both offsets (c < 2^31; the pieces sum below 2^32)
+__device__ __forceinline__ unsigned long long packed(int c) {
+  return (static_cast<unsigned long long>(c) << 32) |
+         static_cast<unsigned>(c > 0 ? (c - 1) / kSplit : 0);
+}
+
+// rank[t] = cnt[idx[t]]++. The lanes of a warp that hit one row add once
+// and rank themselves by lane, so a row that many neighbouring taps share
+// takes one atomic a warp.
+__global__ void __launch_bounds__(kRowsThreads)
+rows_count_kernel(const int* __restrict__ idx, int n_taps, long long rows,
+                  int* __restrict__ cnt, int* __restrict__ rank) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kRowsThreads;
+  for (long long base = static_cast<long long>(blockIdx.x) * kRowsThreads +
+                        (threadIdx.x & ~31);
+       base < n_taps; base += stride) {
+    const long long t = base + lane;
+    int r = -1;
+    if (t < n_taps) {
+      r = __ldg(idx + t);
+      if (r < 0 || r >= rows) __trap();
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, r);
+    const int leader = __ffs(peers) - 1;
+    int at = 0;
+    if (r >= 0 && lane == leader) at = atomicAdd(cnt + r, __popc(peers));
+    at = __shfl_sync(0xffffffffu, at, leader);
+    if (r >= 0) rank[t] = at + __popc(peers & ((1u << lane) - 1));
+  }
+}
+
+// u64 sum over the block, once a kernel; every thread gets it
+__device__ unsigned long long block_sum(unsigned long long v,
+                                        unsigned long long* s_red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int c = 0; c < 4; ++c) atomicAdd(row + c * kCh, to_f32(src[c * kCh]));
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  if (lane == 0) s_red[warp] = v;
+  __syncthreads();
+  unsigned long long sum = 0;
+#pragma unroll
+  for (int i = 0; i < kRowsThreads / 32; ++i) sum += s_red[i];
+  return sum;
+}
+
+// Exclusive scan of packed(cnt) in one pass: a block takes the next tile
+// of kScanTile rows (a 16-byte load and store a thread) by ticket, publishes the tile's total at once, and adds
+// the totals of the tiles before it, which have all started (their tickets
+// came first) and publish theirs without waiting. Writes off, exoff and
+// erow.
+__global__ void __launch_bounds__(kRowsThreads)
+rows_scan_kernel(const int* __restrict__ cnt, int* __restrict__ ticket,
+                 unsigned long long* __restrict__ status,
+                 int* __restrict__ off, int* __restrict__ exoff,
+                 int* __restrict__ erow, long long rows) {
+  __shared__ int s_tile;
+  __shared__ unsigned long long s_warp[kRowsThreads / 32];
+  __shared__ unsigned long long s_red[kRowsThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const long long r0 =
+      static_cast<long long>(tile) * kScanTile + tid * kScanItems;
+
+  int c[kScanItems];
+  if (r0 + kScanItems <= rows) {
+    const int4 v = *reinterpret_cast<const int4*>(cnt + r0);
+    c[0] = v.x, c[1] = v.y, c[2] = v.z, c[3] = v.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) c[i] = r0 + i < rows ? cnt[r0 + i] : 0;
+  }
+  unsigned long long sum = 0;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) sum += packed(c[i]);
+  unsigned long long inc = sum;  // inclusive scan across the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned long long v = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += v;
+  }
+  if (lane == 31) s_warp[warp] = inc;
+  __syncthreads();
+  unsigned long long before_warp = 0, total = 0;
+#pragma unroll
+  for (int i = 0; i < kRowsThreads / 32; ++i) {
+    if (i < warp) before_warp += s_warp[i];
+    total += s_warp[i];
+  }
+  if (tid == 0) {
+    *reinterpret_cast<volatile unsigned long long*>(status + tile) =
+        total | kReady;
+  }
+  unsigned long long pre = 0;
+  for (int j = tid; j < tile; j += kRowsThreads) {
+    unsigned long long v;
+    do {
+      v = *reinterpret_cast<volatile unsigned long long*>(status + j);
+    } while (!(v & kReady));
+    pre += v & ~kReady;
+  }
+  unsigned long long run = block_sum(pre, s_red) + before_warp + inc - sum;
+
+  int o[kScanItems], e[kScanItems];
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    o[i] = static_cast<int>(run >> 32);
+    e[i] = static_cast<int>(run & 0xffffffffu);
+    const long long r = r0 + i;
+    if (r < rows) {
+      const int extra = static_cast<int>(packed(c[i]) & 0xffffffffu);
+      for (int k = 0; k < extra; ++k) erow[e[i] + k] = static_cast<int>(r);
+    }
+    run += packed(c[i]);
+    if (r == rows - 1) {
+      off[rows] = static_cast<int>(run >> 32);
+      exoff[rows] = static_cast<int>(run & 0xffffffffu);
+    }
+  }
+  if (r0 + kScanItems <= rows) {
+    *reinterpret_cast<int4*>(off + r0) = make_int4(o[0], o[1], o[2], o[3]);
+    *reinterpret_cast<int4*>(exoff + r0) = make_int4(e[0], e[1], e[2], e[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kScanItems; ++i) {
+      if (r0 + i < rows) {
+        off[r0 + i] = o[i];
+        exoff[r0 + i] = e[i];
+      }
+    }
+  }
+}
+
+// perm[off[idx[t]] + rank[t]] = t
+__global__ void __launch_bounds__(kRowsThreads)
+rows_place_kernel(const int* __restrict__ idx, const int* __restrict__ rank,
+                  int n_taps, const int* __restrict__ off,
+                  int* __restrict__ perm) {
+  const long long stride = static_cast<long long>(gridDim.x) * kRowsThreads;
+  for (long long t = static_cast<long long>(blockIdx.x) * kRowsThreads +
+                     threadIdx.x;
+       t < n_taps; t += stride)
+    perm[off[__ldg(idx + t)] + rank[t]] = static_cast<int>(t);
+}
+
+// A payload row read as 16-byte vectors: kLanes lanes of kVals values
+template <typename G>
+struct Payload;
+
+template <>
+struct Payload<__nv_bfloat16> {
+  static constexpr int kLanes = 16, kVals = 8;
+  static __device__ __forceinline__ void add(float* acc, uint4 v) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      acc[2 * i] += f.x;
+      acc[2 * i + 1] += f.y;
+    }
+  }
+};
+
+template <>
+struct Payload<float> {
+  static constexpr int kLanes = 32, kVals = 4;
+  static __device__ __forceinline__ void add(float* acc, uint4 v) {
+    acc[0] += __uint_as_float(v.x);
+    acc[1] += __uint_as_float(v.y);
+    acc[2] += __uint_as_float(v.z);
+    acc[3] += __uint_as_float(v.w);
+  }
+};
+
+template <int kVals>
+__device__ __forceinline__ void store_vals(float* dst, const float* acc) {
+#pragma unroll
+  for (int i = 0; i < kVals; i += 4)
+    *reinterpret_cast<float4*>(dst + i) =
+        make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+}
+
+// A group of kLanes lanes (an "owner") sums one piece of a row's segment in
+// registers: owner o < rows takes piece 0 of row o, owner rows + e the
+// extra piece e. A row of at most kSplit taps is one piece, written to out
+// once (zeros when no tap lands); the pieces of a longer row leave partials
+// (piece 0 in its out row, piece j in part[exoff + j - 1]) and the last to
+// finish, by a ticket counted on top of the row's taps in cnt, adds the
+// others' and writes the row.
+template <typename G>
+__global__ void __launch_bounds__(kRowsThreads, 4)
+rows_reduce_kernel(const G* __restrict__ payload, const int* __restrict__ off,
+                   const int* __restrict__ exoff, const int* __restrict__ erow,
+                   const int* __restrict__ perm, int* __restrict__ cnt,
+                   float* __restrict__ part, float* __restrict__ out,
+                   long long rows) {
+  constexpr int kLanes = Payload<G>::kLanes, kVals = Payload<G>::kVals;
+  constexpr int kRow16 = 4 * kCh * sizeof(G) / 16;
+  constexpr int kU = 8;  // taps' rows in flight
+  const int lane = threadIdx.x % kLanes;
+  const unsigned gmask =
+      kLanes == 32 ? 0xffffffffu : 0xffffu << (threadIdx.x & 16);
+  const long long o =
+      (static_cast<long long>(blockIdx.x) * kRowsThreads + threadIdx.x) /
+      kLanes;
+  long long r = o;
+  int j = 0;
+  if (o >= rows) {
+    const long long x = o - rows;
+    if (x >= exoff[rows]) return;
+    r = erow[x];
+    j = static_cast<int>(x - exoff[r]) + 1;
+  }
+  const int row_begin = off[r], row_end = off[r + 1], ex = exoff[r];
+  const int pieces = 1 + exoff[r + 1] - ex;
+  const int s = row_begin + j * kSplit, e = min(row_end, s + kSplit);
+
+  float acc[kVals];
+#pragma unroll
+  for (int i = 0; i < kVals; ++i) acc[i] = 0.f;
+  const uint4* rows16 = reinterpret_cast<const uint4*>(payload);
+  for (int k = s; k < e; k += kLanes) {
+    const int mine = k + lane < e ? perm[k + lane] : 0;  // kLanes taps
+    const int n = min(kLanes, e - k);
+    for (int u0 = 0; u0 < n; u0 += kU) {
+      uint4 v[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int t = __shfl_sync(gmask, mine, u0 + u, kLanes);
+        if (u0 + u < n)
+          v[u] = __ldcs(rows16 + static_cast<long long>(t) * kRow16 + lane);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (u0 + u < n) Payload<G>::add(acc, v[u]);
+    }
+  }
+
+  float* row_out = out + r * (4 * kCh) + lane * kVals;
+  auto partial = [&](int q) {
+    return q == 0 ? row_out
+                  : part + static_cast<long long>(ex + q - 1) * (4 * kCh) +
+                        lane * kVals;
+  };
+  store_vals<kVals>(partial(j), acc);
+  if (pieces == 1) return;
+  __threadfence();
+  __syncwarp(gmask);
+  int ticket = 0;
+  if (lane == 0) ticket = atomicAdd(cnt + r, 1) - (row_end - row_begin);
+  ticket = __shfl_sync(gmask, ticket, 0, kLanes);
+  if (ticket != pieces - 1) return;
+  __threadfence();
+  // the other pieces' partials, from L2 (written on other SMs), kP in flight
+  constexpr int kP = 4;
+  for (int q0 = 0; q0 < pieces; q0 += kP) {
+    float4 v[kP][kVals / 4];
+#pragma unroll
+    for (int u = 0; u < kP; ++u) {
+      const int q = q0 + u;
+      if (q < pieces && q != j) {
+#pragma unroll
+        for (int i = 0; i < kVals / 4; ++i)
+          v[u][i] = __ldcg(reinterpret_cast<const float4*>(partial(q)) + i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kP; ++u) {
+      const int q = q0 + u;
+      if (q < pieces && q != j) {
+#pragma unroll
+        for (int i = 0; i < kVals / 4; ++i) {
+          acc[4 * i] += v[u][i].x;
+          acc[4 * i + 1] += v[u][i].y;
+          acc[4 * i + 2] += v[u][i].z;
+          acc[4 * i + 3] += v[u][i].w;
+        }
+      }
+    }
+  }
+  store_vals<kVals>(row_out, acc);
 }
 
 template <typename G, typename T>
@@ -254,26 +598,65 @@ extern "C" int scatter_accum(int device, const int* idx, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Rows mode: the int32 words of the scratch `scatter_rows_segmented` needs
+// for `rows` table rows and `n_taps` taps.
+extern "C" long long scatter_rows_scratch_words(long long rows, int n_taps) {
+  return carve(nullptr, rows, n_taps).words;
+}
+
 // Rows mode. idx: (n_taps,) int32 global table rows; payload: (n_taps,
-// 4*32), bf16 (payload_is_bf16=1) or f32; out: (rows, 4*32) f32, zeroed by
-// the caller; all on card `device`. Returns cudaGetLastError() after the
-// launch.
-extern "C" int scatter_rows(int device, const int* idx, const void* payload,
-                            int payload_is_bf16, float* out, long long rows,
-                            int n_taps, void* stream) {
-  if (n_taps <= 0) return static_cast<int>(cudaSuccess);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
+// 4*32), bf16 (payload_is_bf16=1) or f32, 16-byte aligned; out: (rows,
+// 4*32) f32, every row written (not zeroed by the caller); scratch: int32,
+// `scatter_rows_scratch_words` of them, 16-byte aligned, any contents; all
+// on card `device`. Returns the first CUDA error of the four launches.
+extern "C" int scatter_rows_segmented(int device, const int* idx,
+                                      const void* payload,
+                                      int payload_is_bf16, float* out,
+                                      long long rows, int n_taps,
+                                      int* scratch, void* stream) {
+  if (rows <= 0 || n_taps < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid(static_cast<unsigned>((n_taps + kWarpsPerBlock - 1) /
-                                        kWarpsPerBlock));
+  const RowsScratch sc = carve(scratch, rows, n_taps);
+  err = cudaMemsetAsync(sc.cnt, 0, sc.zero_words * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned tap_blocks = static_cast<unsigned>(
+      std::min<long long>((n_taps + kRowsThreads - 1) / kRowsThreads,
+                          kRowsMaxBlocks));
+  if (n_taps > 0) {
+    rows_count_kernel<<<tap_blocks, kRowsThreads, 0, s>>>(idx, n_taps, rows,
+                                                          sc.cnt, sc.rank);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  rows_scan_kernel<<<static_cast<unsigned>((rows + kScanTile - 1) /
+                                           kScanTile),
+                     kRowsThreads, 0, s>>>(sc.cnt, sc.ticket, sc.status,
+                                           sc.off, sc.exoff, sc.erow, rows);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (n_taps > 0) {
+    rows_place_kernel<<<tap_blocks, kRowsThreads, 0, s>>>(
+        idx, sc.rank, n_taps, sc.off, sc.perm);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  // owners: one a row, and at most n_taps / kSplit + 1 extra pieces
+  const long long owners = rows + n_taps / kSplit + 1;
   if (payload_is_bf16) {
-    scatter_rows_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        idx, static_cast<const __nv_bfloat16*>(payload), out, rows, n_taps);
+    constexpr int kLanes = Payload<__nv_bfloat16>::kLanes;
+    rows_reduce_kernel<__nv_bfloat16>
+        <<<static_cast<unsigned>((owners * kLanes + kRowsThreads - 1) /
+                                 kRowsThreads),
+           kRowsThreads, 0, s>>>(static_cast<const __nv_bfloat16*>(payload),
+                                 sc.off, sc.exoff, sc.erow, sc.perm, sc.cnt,
+                                 sc.part, out, rows);
   } else {
-    scatter_rows_kernel<float><<<grid, block, 0, s>>>(
-        idx, static_cast<const float*>(payload), out, rows, n_taps);
+    constexpr int kLanes = Payload<float>::kLanes;
+    rows_reduce_kernel<float>
+        <<<static_cast<unsigned>((owners * kLanes + kRowsThreads - 1) /
+                                 kRowsThreads),
+           kRowsThreads, 0, s>>>(static_cast<const float*>(payload), sc.off,
+                                 sc.exoff, sc.erow, sc.perm, sc.cnt, sc.part,
+                                 out, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }

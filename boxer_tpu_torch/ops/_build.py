@@ -90,8 +90,11 @@ def library() -> ctypes.CDLL:
         lib.scatter_accum.argtypes = [i32, vp, vp, i32, i32, vp, vp, i64, vp,
                                       i32, vp, i32, i32, vp]
         lib.scatter_accum.restype = i32
-        lib.scatter_rows.argtypes = [i32, vp, vp, i32, vp, i64, i32, vp]
-        lib.scatter_rows.restype = i32
+        lib.scatter_rows_scratch_words.argtypes = [i64, i32]
+        lib.scatter_rows_scratch_words.restype = i64
+        lib.scatter_rows_segmented.argtypes = [i32, vp, vp, i32, vp, i64, i32,
+                                               vp, vp]
+        lib.scatter_rows_segmented.restype = i32
         _lib = lib
     return _lib
 

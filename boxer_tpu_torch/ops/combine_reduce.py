@@ -16,7 +16,8 @@ replaced:
   weights (P > 8 callers, and the training forward);
 - `quad_sample_reduce_mmajor` (K8, `fused_combine_reduce_mmajor`): raw
   weights with the P taps of an output contiguous, idx and weights (M, P)
-  (every P, under the m-major combine).
+  (every P, under the m-major combine); K1's direct kernel up to 8 taps and
+  K2's staged kernel above, both in the m-major order.
 
 Each launches the kernel on a CUDA tensor and runs its plain version
 (`quad_sample_reduce_plain`, `quad_sample_reduce_mmajor_plain`) on a CPU
@@ -94,8 +95,8 @@ def _launch(name, table, idx, weights, raw: bool, mmajor: bool = False):
             raise ValueError(f"{name}: tensors on different devices")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    if not mmajor and table.data_ptr() % 16:
-        # the p-major kernels read the table's rows in 16-byte vectors
+    if table.data_ptr() % 16:
+        # every kernel reads the table's rows in 16-byte vectors
         raise ValueError(f"{name}: table must be 16-byte aligned")
     out = torch.empty((m, CH), dtype=torch.float32, device=table.device)
     a, b, c = weights if raw else weights * 3

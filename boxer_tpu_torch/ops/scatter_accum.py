@@ -14,8 +14,10 @@ kernel also returns the corner weights' cotangent of the same taps,
 
     d_w4[p, c, m] = <table[idx[p, m], c*ch:(c+1)*ch], g[grow(p, m)]>
 
-from the table the forward sampled. Two CUDA kernels
-(`boxer_tpu_torch/csrc/scatter_accum.cu`) behind these wrappers:
+from the table the forward sampled. Behind these wrappers, the kernels of
+`boxer_tpu_torch/csrc/scatter_accum.cu`: the weighted kernel, which
+accumulates into a zeroed table, and the rows mode's four, which group the
+taps by row and write each row once:
 
 - `scatter_add_rows_weighted_dw4` (K5 with per_tap=False, K6 with
   per_tap=True): (d_table, d_w4) from one launch, either skipped on
@@ -34,9 +36,10 @@ from the table the forward sampled. Two CUDA kernels
 Indices are global rows of the flat per-level table. Each wrapper launches
 its kernel on a CUDA tensor and runs its plain version
 (`scatter_accum_dw4_plain`, `scatter_accum_plain`, `scatter_rows_plain`) on
-a CPU tensor; there is no other fallback. The kernel's float atomics add in
-no fixed order, so its result matches the plain version within f32
-rounding, not bit for bit.
+a CPU tensor; there is no other fallback. The weighted kernel's float
+atomics add in no fixed order; the rows kernels group the taps by row and
+sum each row once, in an order the grouping's integer atomics set. So both
+match the plain version within f32 rounding, not bit for bit.
 """
 
 import torch
@@ -106,11 +109,6 @@ def _check(name, idx, idx_dim: int, rows: int, tensors):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
-def _zeroed(rows: int, device):
-    """The (rows, 128) f32 table a kernel accumulates into."""
-    return torch.zeros((rows, 4 * CH), dtype=torch.float32, device=device)
-
-
 def _launch(name, idx, g, w4, rows: int, per_tap: bool, table=None,
             want_table: bool = True):
     """Check the arguments and launch the weighted kernel: d_table unless
@@ -135,7 +133,8 @@ def _launch(name, idx, g, w4, rows: int, per_tap: bool, table=None,
     # the kernel reads g and the table in vectors of 4 values
     if any(t.data_ptr() % 16 for t in (g, table) if t is not None):
         raise ValueError(f"{name}: g and table must be 16-byte aligned")
-    d_table = _zeroed(rows, idx.device) if want_table else None
+    d_table = (torch.zeros((rows, 4 * CH), dtype=torch.float32,
+                           device=idx.device) if want_table else None)
     d_w4 = (None if table is None else
             torch.empty((p, 4, m), dtype=torch.float32, device=idx.device))
     lib = _build.library()
@@ -153,21 +152,27 @@ def _launch(name, idx, g, w4, rows: int, per_tap: bool, table=None,
 
 
 def _launch_rows(name, idx, payload, rows: int, idx_dim: int):
-    """Check the arguments and launch the rows mode; returns (rows, 128)
-    f32."""
+    """Check the arguments and launch the rows mode (count, scan, place,
+    reduce over one int32 scratch); returns (rows, 128) f32, every row
+    written by the kernel."""
     _check(name, idx, idx_dim, rows, (payload,))
-    out = _zeroed(rows, idx.device)
     n = idx.numel()
     if tuple(payload.shape) != (n, 4 * CH) or payload.dtype not in (
             torch.bfloat16, torch.float32):
         raise ValueError(f"{name}: payload must be ({n}, {4 * CH}) bf16 or "
                          f"f32, got {payload.dtype} {tuple(payload.shape)}")
+    # the kernel reads payload rows in 16-byte vectors
+    if payload.data_ptr() % 16:
+        raise ValueError(f"{name}: payload must be 16-byte aligned")
     lib = _build.library()
+    scratch = torch.empty(lib.scatter_rows_scratch_words(rows, n),
+                          dtype=torch.int32, device=idx.device)
+    out = torch.empty((rows, 4 * CH), dtype=torch.float32, device=idx.device)
     with torch.cuda.device(idx.device):
-        err = lib.scatter_rows(
+        err = lib.scatter_rows_segmented(
             idx.device.index, idx.data_ptr(), payload.data_ptr(),
             int(payload.dtype == torch.bfloat16), out.data_ptr(), rows, n,
-            torch.cuda.current_stream().cuda_stream)
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, name)
     return out
 

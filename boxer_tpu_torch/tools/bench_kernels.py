@@ -1,23 +1,27 @@
-"""K1, K2, K3 and K5/K6 at their main-path shapes, this tree's kernels
-against another tree's, in one process on one card.
+"""K1, K2, K3, K5/K6, K7a/K7b and K8 at their main-path shapes, this tree's
+kernels against another tree's, in one process on one card.
 
     python -m boxer_tpu_torch.tools.bench_kernels --parent DIR
 
 DIR is an unpacked copy of another commit of the repo (`git archive`);
 its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
-second library, and each kernel is called through the same thin launcher
-in both (an output allocated as the wrapper does, then the C entry point),
-so the host cost of a call is the same on both sides. The other tree's C
-entry points must have this tree's signatures, as every commit since
-cd09a71 has: `quad_sample_reduce`, `flash_attention_fwd`, and
-`scatter_accum` with the table and d_w4 arguments.
+second library, and each kernel is called through a thin launcher that does
+what the tree's own wrapper does (outputs and scratch allocated as the
+wrapper allocates them, then the C entry point), so the host cost of a call
+is the same on both sides. The other tree's C entry points must have this
+tree's signatures, as every commit since cd09a71 has: `quad_sample_reduce`,
+`flash_attention_fwd`, and `scatter_accum` with the table and d_w4
+arguments. The row scatter goes through `scatter_rows_segmented` with its
+scratch where a tree has it, and otherwise through the older `scatter_rows`
+with the zero fill of its output that the wrapper then did.
 
 Each row is timed in turns, other tree, this tree, this tree, other tree,
 two ways, and each side's mean is printed: with CUDA events around 20
 calls after a warm-up (which, for a kernel of a few microseconds, measures
-the host's time to issue a call), and as device time, the kernels' summed
-time under torch.profiler over 20 calls (the output's zeroing included
-where the wrapper zeroes it). Rows:
+the host's time to issue a call), and as device time, the summed time of
+every kernel (and memset) a call launches under torch.profiler over 20
+calls (the output's zeroing included where the wrapper zeroes it). A row
+with a library call also times it, both ways. Rows:
 
 - K1 (`quad_sample_reduce_raw`) at P=4, M=161,576 (encoder level 0 of
   every inference forward) and P=4, M=2,400 (the detection decoder);
@@ -27,7 +31,16 @@ where the wrapper zeroes it). Rows:
 - K3 (`flash_attention`) at BH=8, L=300, D=32 in bf16 (the decoder's
   self-attention) and in f32 (the card-vs-CPU checks);
 - K5 (shared g, P=4, M=161,576 and M=2,400) and K6 (per-tap g, P=196,
-  M=2,400): d_table alone, and d_table with d_w4 from the fused kernel.
+  M=2,400): d_table alone, and d_table with d_w4 from the fused kernel;
+- K7b (`scatter_add_rows_pmajor`, bf16 payload) at P=4, M=161,576 (the
+  folded encoder level 0), P=16, LQ=600 over 2 heads (19,200 taps, 19,602
+  rows) and P=196, M=2,400, K7a (flat idx) at the first; library call: a
+  zeroed f32 table allocated in the call, then `index_add_` of the payload
+  converted to f32 beforehand;
+- K7b on the model's own indices: the 4 encoder levels of one full-width
+  folded detection train step (captured by `chip_smoke.k7b_model_inputs`);
+- K8 (`quad_sample_reduce_mmajor`) at P=4, M=161,576 and P=196, M=2,400,
+  to be read beside K1 and K2 at the same shapes.
 
 Inputs are made on the card from a seed: a bf16 quad table of encoder
 level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
@@ -39,6 +52,7 @@ it is timed. Without --parent only this tree's kernels are timed.
 import argparse
 import ctypes
 import functools
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -59,6 +73,11 @@ K2_SHAPES = ((196, 8 * 300), (4, 8 * 20197), (4, 8 * 300), (1, 8 * 58800))
 K56_SHAPES = ((4, 8 * 20197, False), (4, 8 * 300, False), (196, 8 * 300, True))
 # (BH, L, D) of the decoder's self-attention
 K3_SHAPE = (8, 300, 32)
+# (P, M, table rows) of the row scatter, K7b; K7a at the first
+K7_SHAPES = ((4, 8 * 20197, ROWS), (16, 2 * 600, 2 * 81 * 121),
+             (196, 8 * 300, ROWS))
+# (P, M) of the m-major combine
+K8_SHAPES = ((4, 8 * 20197), (196, 8 * 300))
 TOL = 1e-5
 
 
@@ -101,6 +120,13 @@ def k56_bound(table, idx, g, w4, with_dw4):
     return bound_ms(n, idx.numel() * (256 if with_dw4 else 128))
 
 
+def k7_bound(idx, payload, rows):
+    """Bytes: idx and the payload read, the (rows, 128) f32 table written;
+    operations: one add a tap and channel."""
+    return bound_ms(nbytes(idx, payload) + rows * 4 * cr.CH * 4,
+                    idx.numel() * 4 * cr.CH)
+
+
 def load(csrc):
     """Build `csrc` and load it as a library of its own; the caller sets the
     entry points' argtypes."""
@@ -111,11 +137,11 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def k12_launcher(lib):
+def k12_launcher(lib, mmajor=False):
     """K1 (raw=True: weights lx, ly, wt) or K2 (w4) through the C entry
-    point."""
+    point; with mmajor, K8 (idx and lx, ly, wt (M, P))."""
     def run(table, idx, *weights):
-        p, m = idx.shape
+        m, p = idx.shape if mmajor else idx.shape[::-1]
         raw = len(weights) == 3
         a, b, c = weights if raw else weights * 3
         out = torch.empty((m, cr.CH), dtype=torch.float32, device=idx.device)
@@ -123,7 +149,7 @@ def k12_launcher(lib):
             idx.device.index, table.data_ptr(),
             int(table.dtype == torch.bfloat16), table.shape[0],
             idx.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            int(raw), 0, out.data_ptr(), p, m, _stream()),
+            int(raw), int(mmajor), out.data_ptr(), p, m, _stream()),
             "quad_sample_reduce")
         return out
     return run
@@ -163,6 +189,48 @@ def scatter_launcher(lib):
     return run
 
 
+def rows_launcher(lib):
+    """K7a/K7b as the tree's wrapper runs them: `scatter_rows_segmented`
+    over its scratch, or the older `scatter_rows` into a zeroed table."""
+    segmented = hasattr(lib, "scatter_rows_segmented")
+
+    def run(idx, payload, rows):
+        dev, n = idx.device, idx.numel()
+        bf16 = int(payload.dtype == torch.bfloat16)
+        if segmented:
+            scratch = torch.empty(lib.scatter_rows_scratch_words(rows, n),
+                                  dtype=torch.int32, device=dev)
+            out = torch.empty((rows, 4 * cr.CH), dtype=torch.float32,
+                              device=dev)
+            err = lib.scatter_rows_segmented(
+                dev.index, idx.data_ptr(), payload.data_ptr(), bf16,
+                out.data_ptr(), rows, n, scratch.data_ptr(), _stream())
+        else:
+            out = torch.zeros((rows, 4 * cr.CH), dtype=torch.float32,
+                              device=dev)
+            err = lib.scatter_rows(dev.index, idx.data_ptr(),
+                                   payload.data_ptr(), bf16, out.data_ptr(),
+                                   rows, n, _stream())
+        _build.check(err, "scatter_rows")
+        return out
+    return run
+
+
+def index_add_call(idx, payload, rows):
+    """The library call of K7a/K7b: a zeroed f32 table allocated in the
+    call, then `index_add_` of the payload (converted to f32 here, outside
+    the call)."""
+    ix, pay = idx.reshape(-1).long(), payload.float()
+    return lambda: torch.zeros((rows, pay.shape[1]), dtype=torch.float32,
+                               device=pay.device).index_add_(0, ix, pay)
+
+
+def taps_per_row(idx, rows):
+    """(mean over the rows hit, max) taps a row."""
+    counts = torch.bincount(idx.reshape(-1).long(), minlength=rows)
+    return float(counts[counts > 0].float().mean()), int(counts.max())
+
+
 def rel_err(got, want):
     if isinstance(want, tuple):
         return max(rel_err(a, b) for a, b in zip(got, want))
@@ -186,6 +254,30 @@ def device_ms(fn, iters=20):
         / 1e3 / iters
 
 
+def device_split(fn, iters=20):
+    """{kernel name: device ms per call of fn()} under torch.profiler, for a
+    call that launches several kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def short_name(kernel):
+    """A profiler kernel name without its namespace, templates and
+    arguments."""
+    found = re.search(r"(rows_\w+|scatter_\w+|Memset|\w*elementwise\w*)",
+                      kernel)
+    return found.group(1) if found else kernel[:40]
+
+
 def in_turns(other, this, timer):
     """Times `other` and `this` with `timer` as other, this, this, other;
     returns (other ms, this ms), each the mean of its two runs (other None:
@@ -197,9 +289,10 @@ def in_turns(other, this, timer):
     return (a + timer(other)) / 2, b / 2
 
 
-def run(device, parent=None, log=print):
+def run(device, parent=None, log=print, model_inputs=None):
     """Every row; raises if a kernel disagrees with its plain version.
-    Returns a list of dicts (ms of both sides, bound)."""
+    model_inputs: [(idx, payload, rows)] of K7b on the model's indices, or
+    None. Returns a list of dicts (ms of both sides, bound)."""
     gen = torch.Generator(device=device).manual_seed(0)
     table = torch.randn(ROWS, 4 * cr.CH, generator=gen, device=device).to(
         torch.bfloat16)
@@ -207,16 +300,26 @@ def run(device, parent=None, log=print):
     if parent is not None:
         plib = load(Path(parent) / "boxer_tpu_torch" / "csrc")
         for fn in ("quad_sample_reduce", "flash_attention_fwd",
-                   "scatter_accum"):
-            getattr(plib, fn).argtypes = getattr(libs["this"], fn).argtypes
-            getattr(plib, fn).restype = ctypes.c_int
+                   "scatter_accum", "scatter_rows_segmented",
+                   "scatter_rows_scratch_words"):
+            if hasattr(plib, fn):
+                getattr(plib, fn).argtypes = getattr(libs["this"], fn).argtypes
+                getattr(plib, fn).restype = getattr(libs["this"], fn).restype
+        if not hasattr(plib, "scatter_rows_segmented"):
+            vp, i32 = ctypes.c_void_p, ctypes.c_int
+            plib.scatter_rows.argtypes = [i32, vp, vp, i32, vp,
+                                          ctypes.c_longlong, i32, vp]
+            plib.scatter_rows.restype = i32
         libs["other"] = plib
     k12 = {k: k12_launcher(v) for k, v in libs.items()}
+    k8 = {k: k12_launcher(v, mmajor=True) for k, v in libs.items()}
+    k7 = {k: rows_launcher(v) for k, v in libs.items()}
     k3 = {k: k3_launcher(v) for k, v in libs.items()}
     scatter = {k: scatter_launcher(v) for k, v in libs.items()}
     results = []
 
-    def row(name, shape, launcher, args, plain, bound, tol=TOL):
+    def row(name, shape, launcher, args, plain, bound, tol=TOL,
+            library=None, split=False):
         mine = functools.partial(launcher["this"], *args)
         other = (functools.partial(launcher["other"], *args)
                  if "other" in launcher else None)
@@ -228,15 +331,26 @@ def run(device, parent=None, log=print):
         o_ms, t_ms = in_turns(other, mine, cuda_ms)
         o_dev, t_dev = in_turns(other, mine, device_ms)
         b_ms, b_by = bound
+        l_ms, l_dev = ((None, None) if library is None else
+                       (cuda_ms(library), device_ms(library)))
         res = dict(name=name, shape=shape, this_ms=t_ms, other_ms=o_ms,
                    this_device_ms=t_dev, other_device_ms=o_dev,
+                   library_ms=l_ms, library_device_ms=l_dev,
                    bound_ms=b_ms, bound_by=b_by, rel_err=errs)
         results.append(res)
         other_s = ("" if o_ms is None else
                    f"other tree {o_ms:.4f} ms (device {o_dev:.4f}), ")
+        lib_s = ("" if l_ms is None else
+                 f"library {l_ms:.4f} ms (device {l_dev:.4f}), ")
         log(f"{name} [{shape}]: {other_s}this tree {t_ms:.4f} ms (device "
-            f"{t_dev:.4f}), bound {b_ms:.4f} ms ({b_by}), rel err "
+            f"{t_dev:.4f}), {lib_s}bound {b_ms:.4f} ms ({b_by}), rel err "
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        if split:
+            for side, fn in (("other", other), ("this", mine)):
+                if fn is not None:
+                    log(f"  {side} tree by kernel: " + ", ".join(
+                        f"{short_name(k)} {v:.4f}"
+                        for k, v in device_split(fn).items()))
         if max(errs.values()) > tol:
             raise AssertionError(f"{name} [{shape}] disagrees with its plain "
                                  "version")
@@ -281,6 +395,36 @@ def run(device, parent=None, log=print):
             lambda: sa.scatter_accum_dw4_plain(idx, g, w4, table, per_tap),
             k56_bound(table, idx, g, w4, with_dw4=True))
         torch.cuda.empty_cache()
+    for i, (p, m, rows) in enumerate(K7_SHAPES):
+        idx = torch.randint(0, rows, (p, m), generator=gen, device=device,
+                            dtype=torch.int32)
+        pay = torch.randn(p * m, 4 * cr.CH, generator=gen,
+                          device=device).to(torch.bfloat16)
+        for name, ix in (("K7b", idx), ("K7a", idx.reshape(-1)))[:2 - min(i, 1)]:
+            row(name, f"P={p} M={m} rows {rows} bf16 payload", k7,
+                (ix, pay, rows),
+                lambda: sa.scatter_rows_plain(ix, pay, rows),
+                k7_bound(ix, pay, rows), library=index_add_call(ix, pay, rows),
+                split=True)
+        del idx, pay
+        torch.cuda.empty_cache()
+    if model_inputs is not None:
+        for level, (idx, pay, rows) in enumerate(model_inputs):
+            mean, most = taps_per_row(idx, rows)
+            row("K7b model", f"encoder level {level}, P={idx.shape[0]} "
+                f"M={idx.shape[1]} rows {rows}, {mean:.1f} taps a row hit, "
+                f"at most {most}", k7, (idx, pay, rows),
+                lambda: sa.scatter_rows_plain(idx, pay, rows),
+                k7_bound(idx, pay, rows), library=index_add_call(idx, pay, rows),
+                split=True)
+    for p, m in K8_SHAPES:
+        idx = torch.randint(0, ROWS, (m, p), generator=gen, device=device,
+                            dtype=torch.int32)
+        lx, ly, wt = rand(m, p), rand(m, p), rand(m, p)
+        row("K8", f"P={p} M={m}", k8, (table, idx, lx, ly, wt),
+            lambda: cr.quad_sample_reduce_mmajor_plain(table, idx, lx, ly, wt),
+            k1_bound(table, idx, lx, ly, wt))
+        torch.cuda.empty_cache()
     return results
 
 
@@ -294,8 +438,11 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    run(torch.device("cuda", 0), args.parent,
-        log=lambda s: print(s, flush=True))
+    import chip_smoke
+
+    dev = torch.device("cuda", 0)
+    run(dev, args.parent, log=lambda s: print(s, flush=True),
+        model_inputs=chip_smoke.k7b_model_inputs(dev))
 
 
 if __name__ == "__main__":

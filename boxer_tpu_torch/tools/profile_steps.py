@@ -1,23 +1,27 @@
-"""Device time of one full-width BoxeR-2D R50 segm inference forward and one
-train step, segm and detection (per tap), under torch.profiler, for the
-tree on PYTHONPATH.
+"""Device time of one full-width BoxeR-2D R50 segm inference forward (under
+the p-major and the m-major combine) and one train step, segm, detection
+(per tap) and detection folded, under torch.profiler, for the tree on
+PYTHONPATH.
 
     PYTHONPATH=TREE python boxer_tpu_torch/tools/profile_steps.py
 
 TREE is the root of a checkout (this one, or a `git archive` of another
 commit): its `boxer_tpu_torch` package and its `chip_smoke.py` (whose
 `build_model`, `make_image`, `train_setup` and `train_batch` this script
-uses, so a tree that has them and not this file can be profiled too) are
-imported from there. The forward runs at `chip_smoke`'s phase 6 (bf16
-weights, batch 1, 800x1216, top-100 postprocess with masks), each train
-step at its recipe (batch 1, 800x1216, 20 targets, f32 parameters, bf16
-autocast, AdamW). Each runs twice to warm up, once timed on the host clock
-up to a synchronize, once profiled. Prints, for each, the device's summed
-kernel time against the wall time, and the device time and calls of each
-of the port's kernels (by name: `quad_sample_reduce`, `flash_fwd`,
-`scatter_weighted`, `scatter_rows`), then one JSON line {"tree": ...,
-"segm_forward_busy_ms": ..., "segm_busy_ms": ..., "det_busy_ms": ...,
-"kernels": {run: {kernel: ms}}}.
+uses, and its `sampling` to set `COMBINE_IMPL` and `FOLD_TAP_THRESHOLD`, so
+a tree that has them and not this file can be profiled too) are imported
+from there. The forward runs at `chip_smoke`'s phase 6 (bf16 weights, batch
+1, 800x1216, top-100 postprocess with masks), each train step at its recipe
+(batch 1, 800x1216, 20 targets, f32 parameters, bf16 autocast, AdamW); the
+m-major forward runs K8 at every level, the folded step K7b in the backward
+of every box-attention level. Each runs twice to warm up, once timed on the
+host clock up to a synchronize, once profiled. Prints, for each, the
+device's summed kernel time against the wall time, and the device time and
+calls of each of the port's kernels (by name: `quad_sample_reduce`,
+`flash_fwd`, `scatter_weighted`, `scatter_rows` and `rows_` (the row
+scatter's kernels, before and after it was split in four), `Memset`), then
+one JSON line {"tree": ..., "busy_ms": {run: ms}, "kernels": {run:
+{kernel: ms}}}.
 """
 
 import json
@@ -28,7 +32,7 @@ import time
 import torch
 
 PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "scatter_weighted",
-                "scatter_rows")
+                "scatter_rows", "rows_", "Memset")
 
 
 def profile(fn):
@@ -80,21 +84,24 @@ def main():
     model = cs.build_model(True).to(dev, torch.bfloat16)
     image, mask = (t.to(dev) for t in cs.make_image(cs.CANVAS))
     post = {"canvas_hw": cs.CANVAS, "topk": 100}
-    with torch.no_grad():
-        report("segm_forward", *profile(
-            lambda: model(image, mask, postprocess=post)))
+    for combine, key in (("pmajor", "segm_forward"),
+                         ("mmajor", "segm_forward_mmajor")):
+        with torch.no_grad(), cs.sampling(COMBINE_IMPL=combine):
+            report(key, *profile(
+                lambda: model(image, mask, postprocess=post)))
     del model
     torch.cuda.empty_cache()
-    for use_mask, key in ((True, "segm"), (False, "det")):
+    for use_mask, key, fold in ((True, "segm", 8), (False, "det", 8),
+                                (False, "det_folded", 0)):
         model = cs.build_model(use_mask).to(dev).train()
         _, state, step = cs.train_setup(model, use_mask, torch.bfloat16)
         batch = cs.train_batch(cs.CANVAS, use_mask, dev)
-        report(key, *profile(lambda: step(state, batch)))
+        with cs.sampling(FOLD_TAP_THRESHOLD=fold):
+            report(key, *profile(lambda: step(state, batch)))
         del model, state, step
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": tree, "segm_forward_busy_ms": busy[
-        "segm_forward"], "segm_busy_ms": busy["segm"], "det_busy_ms": busy[
-        "det"], "kernels": kernels}), flush=True)
+    print(json.dumps({"tree": tree, "busy_ms": busy, "kernels": kernels}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    nvcc per source, all started together);
 3. each kernel against its plain PyTorch version at the slices' shapes, with
    its error, its time beside the plain version's and the library call's
-   (CUDA events) and its bound (bytes at 3.35 TB/s or operations at the
-   peak of their type): K1-K3 (inference; K1 at P=4, M=161,576 and the
+   (CUDA events; for K7a/K7b a zeroed table allocated in the call, then
+   `index_add_`, with `index_add_` alone into a standing table beside it)
+   and its bound (bytes at 3.35 TB/s or operations at the peak of their
+   type): K1-K3 (inference; K1 at P=4, M=161,576 and the
    detection decoder's M=2,400; K2 at P=196, M=2,400 and at the
    training forward's P=4, M=161,576, P=4, M=2,400 and P=1, M=470,400; K3
    at BH=8, L=300 in f32 and in bf16, its tensor-core kernel),
@@ -47,7 +49,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the backward), with the same checks, a loss that falls after a step of
    norm 1e-3 against its gradient from the initial weights, and a
    profiled step; (7d) K5 on the model's own indices (encoder level 0 of
-   a segm step) against random rows of the same shape;
+   a segm step) against random rows of the same shape, and K7b on the
+   model's own indices at the 4 encoder levels of a folded detection step
+   (taps a row, time beside its plain version and library call, rel 1e-5);
 8. one train step at 256x384 in f32 (no TF32, no autocast) with phase 5's
    weights, card (kernels) against CPU (plain versions): identical matched
    query indices in every match, loss terms within rel 1e-4, the gradient
@@ -248,6 +252,10 @@ def check_kernels(dev):
     # and the m-major combine: the folded encoder level 0 first (the row the
     # kernels line reports), then P=196 M=2,400, then K7b at the JAX package's
     # chip-test shape (2 heads, levels (80,120) and (40,60), LQ=600, P=16)
+    # library call: a zeroed table allocated in the call, then `index_add_`
+    # of the payload converted to f32 beforehand (the same function as the
+    # kernel); "standing": `index_add_` alone into a table zeroed once
+    # outside the timed calls, the yardstick these rows were once timed by
     def scatter_rows(key, p, m, n_rows, flat):
         ix = taps(p, m, n_rows)[0]
         ix = ix.reshape(-1) if flat else ix
@@ -259,8 +267,9 @@ def check_kernels(dev):
         results[key] = dict(
             wrapper=wrapper, kernel=lambda: wrapper(ix, pay, n_rows),
             plain=lambda: sa.scatter_rows_plain(ix, pay, n_rows),
-            library=lambda: out.index_add_(0, ix_long, pay_f32),
-            nbytes=nbytes(ix, pay) + n_rows * 128 * 4, flops=ix.numel() * 128,
+            library=bk.index_add_call(ix, pay, n_rows),
+            standing=lambda: out.index_add_(0, ix_long, pay_f32),
+            bound=bk.k7_bound(ix, pay, n_rows),
             tol=1e-5, shape=f"P={p} M={m} bf16 payload, table {n_rows}x128")
 
     def mmajor(key, p, m):
@@ -294,6 +303,8 @@ def check_kernels(dev):
             bc.bound_ms(r["nbytes"], r["flops"], r.get("dtype", "f32"))
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        if "standing" in r:
+            lib += f" (standing table: {bc.cuda_ms(r['standing']):.4f} ms)"
         log(f"{name} [{r['shape']}]: rel err {r['rel_err']:.3e} "
             f"(tol {r['tol']:g}), max abs err {r['max_abs_err']:.3e}, "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
@@ -747,6 +758,74 @@ def k5_in_model(dev):
     return res
 
 
+def k7b_model_inputs(dev):
+    """K7b's inputs at the 4 encoder levels of one full-width folded
+    detection train step (bf16 autocast, `FOLD_TAP_THRESHOLD = 0`): the
+    first call of `TakeRows`' backward on each level's table with the
+    encoder's M = 8 x 20,197 queries. Returns [(idx (P, M), payload
+    (P*M, 128), rows)] from level 0 to 3."""
+    from boxer_tpu_torch.ops import box_attention as ba
+    from boxer_tpu_torch.tools import bench_kernels as bk
+
+    m_enc = bk.K1_SHAPES[0][1]
+    captured = {}
+    scatter = ba.scatter_add_rows_pmajor
+
+    def record(idx, payload, rows):
+        if idx.shape[1] == m_enc and rows not in captured:
+            captured[rows] = (idx.clone(), payload.clone(), rows)
+        return scatter(idx, payload, rows)
+
+    model = build_model(False).to(dev).train()
+    _, state, step = train_setup(model, False, torch.bfloat16)
+    ba.scatter_add_rows_pmajor = record
+    try:
+        with sampling(FOLD_TAP_THRESHOLD=0):
+            step(state, train_batch(CANVAS, False, dev))
+    finally:
+        ba.scatter_add_rows_pmajor = scatter
+    del model, state, step
+    torch.cuda.empty_cache()
+    if len(captured) != 4:
+        raise AssertionError(f"K7b captured at {len(captured)} encoder "
+                             "levels, not 4")
+    return [captured[r] for r in sorted(captured, reverse=True)]
+
+
+def k7b_in_model(dev):
+    """Phase 7d: K7b on the model's own indices at the 4 encoder levels of
+    a folded detection step: taps a row (mean over the rows hit, and the
+    most), the kernel's error against its plain version (rel 1e-5), and its
+    time beside the plain version's and the library call's (a zeroed table
+    and `index_add_`)."""
+    from boxer_tpu_torch.ops import scatter_accum as sa
+    from boxer_tpu_torch.tools import bench_combine as bc
+    from boxer_tpu_torch.tools import bench_kernels as bk
+
+    res = []
+    for level, (idx, pay, rows) in enumerate(k7b_model_inputs(dev)):
+        mean, most = bk.taps_per_row(idx, rows)
+        got = sa.scatter_add_rows_pmajor(idx, pay, rows)
+        err = rel_err(got, sa.scatter_rows_plain(idx, pay, rows))
+        r = dict(level=level, rows=rows, mean=mean, most=most, err=err,
+                 ms=bc.cuda_ms(lambda: sa.scatter_add_rows_pmajor(
+                     idx, pay, rows)),
+                 plain_ms=bc.cuda_ms(lambda: sa.scatter_rows_plain(
+                     idx, pay, rows)),
+                 library_ms=bc.cuda_ms(bk.index_add_call(idx, pay, rows)),
+                 bound_ms=bk.k7_bound(idx, pay, rows)[0])
+        log(f"K7b at encoder level {level} of a folded detection step (P="
+            f"{idx.shape[0]} M={idx.shape[1]}, {rows} rows): {mean:.1f} taps "
+            f"a row hit, at most {most}; kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms, rel err {err:.2e}")
+        res.append(r)
+        if not err <= 1e-5:
+            raise AssertionError(f"K7b at encoder level {level} disagrees "
+                                 "with its plain version")
+    return res
+
+
 class RecordingMatcher:
     """A matcher that keeps every match it returns (on the CPU)."""
 
@@ -976,8 +1055,9 @@ def main():
             f"[{smi}]", profiled=True, per_step=FOLDED_TRAIN_LAUNCHES,
             falling=True)
 
-    # 7d. K5 on the model's own indices
+    # 7d. K5 and K7b on the model's own indices
     k5_in_model(dev)
+    k7b_in_model(dev)
 
     # 8. one train step, card against CPU; 8c. folded against per-tap
     train_card_vs_cpu(dev)

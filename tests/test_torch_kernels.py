@@ -311,6 +311,30 @@ def test_k7b_matches_pallas(interp_scatter):
     assert _rel_err(got.numpy(), want.reshape(bh * rb, 128)) <= RTOL
 
 
+def test_k7b_skewed_matches_pallas(interp_scatter):
+    """K7b on skewed rows, as the folded encoder's coarse levels send them:
+    most taps on a few rows (hundreds a row, more than a segment piece of
+    the kernel takes), some rows never hit, rows 0 and rb-1 hit."""
+    import jax.numpy as jnp
+
+    p, bh, lq, rb = 4, 2, 150, 40
+    rs = np.random.RandomState(4)
+    hot = np.array([0, 3, 7, rb - 1], np.int32)
+    idx = np.where(rs.rand(p, bh, lq) < 0.9,
+                   hot[rs.randint(0, 4, (p, bh, lq))],
+                   rs.randint(0, rb // 2, (p, bh, lq))).astype(np.int32)
+    payload = rs.randn(p, bh, lq, 128).astype(np.float32)
+    want = np.asarray(interp_scatter.scatter_add_rows_pmajor(
+        jnp.asarray(idx), jnp.asarray(payload), rb)).reshape(bh * rb, 128)
+    got = scatter_add_rows_pmajor(
+        torch.from_numpy(_global_rows(idx, rb)),
+        torch.from_numpy(payload.reshape(p * bh * lq, 128)), bh * rb)
+    hits = np.bincount(_global_rows(idx, rb).reshape(-1), minlength=bh * rb)
+    assert hits.max() > 64 and (hits == 0).any()
+    assert _rel_err(got.numpy(), want) <= RTOL
+    assert not got.numpy()[hits == 0].any()
+
+
 def _mmajor_case(p, m, rows, seed):
     """The taps of `_quad_case` in (m, p) order."""
     table, idx, lx, ly, wt, _ = _quad_case(p, m, rows, seed)
@@ -318,10 +342,12 @@ def _mmajor_case(p, m, rows, seed):
                             for a in (idx, lx, ly, wt))
 
 
-@pytest.mark.parametrize("p,m", [(4, 3000), (196, 100)])
+@pytest.mark.parametrize("p,m", [(4, 3000), (196, 100), (1, 3000),
+                                 (8, 1000), (9, 600)])
 def test_k8_mmajor_matches_pallas(interp, p, m):
     """K8: M not a multiple of the kernel's outputs per block (1024 at P=4,
-    16 at P=196)."""
+    16 at P=196); P on both sides of the card's boundary between its direct
+    (P <= 8) and staged kernels."""
     import jax.numpy as jnp
 
     table, idx, lx, ly, wt = _mmajor_case(p, m, rows=700, seed=p + 1)
@@ -503,40 +529,112 @@ def test_scatter_accum_cuda_matches_plain(cuda, per_tap, dtype):
     assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
 
 
+def _rows_case(case, p, m, rows, rs):
+    """idx (P, M) for the row scatter's card tests: random rows with the
+    table's first and last; every tap on one row; only the even rows of the
+    first half hit (the rest must come out exactly 0); a one-row table."""
+    if case == "one_table_row":
+        return np.zeros((p, m), np.int32), 1
+    if case == "one_row":
+        return np.full((p, m), rows - 1, np.int32), rows
+    if case == "empty_rows":
+        return (2 * rs.randint(0, rows // 4, (p, m))).astype(np.int32), rows
+    idx = rs.randint(0, rows, (p, m)).astype(np.int32)
+    idx[0, :2] = [0, rows - 1]
+    return idx, rows
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "one_row", "empty_rows",
+                                  "one_table_row"])
+@pytest.mark.parametrize("p,m", [(4, 2400 + 3), (16, 1200), (196, 2400 + 3),
+                                 (3, 37)])
 @pytest.mark.parametrize("pmajor", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_scatter_rows_cuda_matches_plain(cuda, pmajor, dtype):
-    """K7a (idx (N,)) and K7b (idx (P, M)) at P=196 over a small table, so
-    rows repeat many times; float atomics add in no fixed order."""
-    p, m, rows = 196, 2400 + 3, 5000
-    rs = np.random.RandomState(12)
-    idx = torch.from_numpy(rs.randint(0, rows, (p, m)).astype(np.int32))
-    idx[0, :2] = torch.tensor([0, rows - 1], dtype=torch.int32)
+def test_scatter_rows_cuda_matches_plain(cuda, case, p, m, pmajor, dtype):
+    """K7a (idx (N,)) and K7b (idx (P, M)): taps grouped by row and summed
+    once a row. Over a 5000-row table rows repeat (P=196: about 94 taps a
+    row, so rows are cut into pieces); every tap on one row (pieces whose
+    partials the last one adds); rows no tap hits, which must be exactly 0
+    with no zero fill; a one-row table; 111 taps, no multiple of any block.
+    The sum of a row follows the placement's order: a tolerance, against
+    the plain version's `index_add_` in f64 (in f32 its own rounding over
+    471K taps on one row reaches 1.7e-5)."""
+    rs = np.random.RandomState(12 + p)
+    idx, rows = _rows_case(case, p, m, 5000, rs)
     payload = torch.from_numpy(rs.randn(p * m, 128).astype(np.float32))
-    idx, payload = idx.to(cuda), payload.to(cuda, dtype)
+    idx, payload = torch.from_numpy(idx).to(cuda), payload.to(cuda, dtype)
     wrapper = scatter_add_rows_pmajor if pmajor else scatter_add_rows
     before = wrapper.launches
     got = wrapper(idx if pmajor else idx.reshape(-1), payload, rows)
-    want = scatter_rows_plain(idx, payload, rows)
+    want = torch.zeros((rows, 128), dtype=torch.float64, device=cuda
+                       ).index_add_(0, idx.reshape(-1).long(),
+                                    payload.double())
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
+    assert got.shape == (rows, 128) and got.dtype == torch.float32
     assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+    hit = torch.zeros(rows, dtype=torch.bool, device=cuda)
+    hit[idx.reshape(-1).long()] = True
+    assert not got[~hit].any()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p", [4, 196])
+def test_scatter_rows_cuda_no_taps(cuda):
+    """No taps: every row of the output is written, as zeros."""
+    idx = torch.zeros((4, 0), dtype=torch.int32, device=cuda)
+    payload = torch.zeros((0, 128), dtype=torch.bfloat16, device=cuda)
+    got = scatter_add_rows_pmajor(idx, payload, 700)
+    torch.cuda.synchronize()
+    assert got.shape == (700, 128) and not got.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,offset", [(1, 0), (3, 0), (4, 0), (4, 1), (8, 0),
+                                      (8, 1), (9, 0), (16, 0), (16, 1),
+                                      (196, 0)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quad_sample_reduce_mmajor_cuda_matches_plain(cuda, p, dtype):
-    table, idx, lx, ly, wt = (torch.from_numpy(a).to(cuda) for a in
-                              _mmajor_case(p, 2400 + 3, 5000, seed=9))
-    table = table.to(dtype)
+def test_quad_sample_reduce_mmajor_cuda_matches_plain(cuda, p, offset,
+                                                      dtype):
+    """K8: the direct kernel up to 8 taps and the staged one above, in the
+    m-major order; P % 4 == 0 with 16-byte aligned idx and weights takes
+    16-byte loads of 4 taps, and offset=1 (the inputs 4 bytes past a
+    16-byte boundary) the 4-byte ones. M not a multiple of any tile, taps
+    on the table's first and last rows."""
+    m, rows = 2400 + 3, 5000
+    table, idx, lx, ly, wt = (torch.from_numpy(a) for a in
+                              _mmajor_case(p, m, rows, seed=9 + p))
+    idx[0, 0], idx[-1, -1] = 0, rows - 1
+
+    def on_card(t):
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=cuda)
+        out = buf[offset:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    table = table.to(cuda, dtype)
+    idx, lx, ly, wt = (on_card(t) for t in (idx, lx, ly, wt))
     before = quad_sample_reduce_mmajor.launches
     got = quad_sample_reduce_mmajor(table, idx, lx, ly, wt)
     want = quad_sample_reduce_mmajor_plain(table, idx, lx, ly, wt)
     torch.cuda.synchronize()
     assert quad_sample_reduce_mmajor.launches == before + 1
+    assert got.shape == (m, 32)
     assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+def test_quad_sample_reduce_mmajor_cuda_rejects_misaligned_table(cuda):
+    """The table's rows are read in 16-byte vectors: a table 2 bytes past
+    a 16-byte boundary raises before any launch."""
+    table, idx, lx, ly, wt = (torch.from_numpy(a).to(cuda) for a in
+                              _mmajor_case(4, 100, 50, seed=3))
+    buf = torch.empty(table.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(table.shape)
+    before = quad_sample_reduce_mmajor.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        quad_sample_reduce_mmajor(shifted, idx, lx, ly, wt)
+    assert quad_sample_reduce_mmajor.launches == before
 
 
 @pytest.mark.gpu
