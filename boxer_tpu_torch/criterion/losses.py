@@ -1,6 +1,7 @@
-"""Set-prediction losses for BoxeR-2D; port of `boxer_tpu/criterion/losses.py`
-(sigmoid focal loss, dice loss, focal labels, boxes, masks, the composite
-Boxer2DCriterion with the encoder's binary-label loss and the per-layer aux
+"""Set-prediction losses for BoxeR-2D and BoxeR-3D; port of
+`boxer_tpu/criterion/losses.py` (sigmoid focal loss, dice loss, focal
+labels, boxes, 3D boxes, masks, the composite Boxer2DCriterion and
+Boxer3DCriterion with the encoder's binary-label loss and the per-layer aux
 losses, and the weighted total).
 
 Fixed-shape design, as in the JAX package: targets are padded to NT boxes
@@ -13,6 +14,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from boxer_tpu_torch.utils.box3d_ops import (
+    box_cxcyczlwh_to_xyxyxy, elementwise_generalized_box3d_iou)
 from boxer_tpu_torch.utils.box_ops import (box_cxcywh_to_xyxy,
                                            elementwise_generalized_box_iou)
 
@@ -81,6 +84,22 @@ def boxes_loss(outputs, targets, query_idx, valid, num_boxes):
             "loss_giou": (giou * vf).sum() / num_boxes}
 
 
+def boxes3d_loss(outputs, targets, query_idx, valid, num_boxes):
+    """Masked L1 over (cx, cy, cz, l, w, h), axis-aligned 3D GIoU and the
+    rad L1, each / num_boxes."""
+    src = _gather_queries(outputs["pred_boxes"].float(), query_idx)
+    tgt = targets["boxes"].float()
+    l1 = (src[..., :6] - tgt[..., :6]).abs().sum(-1)
+    rad = (src[..., 6:] - tgt[..., 6:]).abs().sum(-1)
+    giou = 1.0 - elementwise_generalized_box3d_iou(
+        box_cxcyczlwh_to_xyxyxy(src[..., :6]),
+        box_cxcyczlwh_to_xyxyxy(tgt[..., :6]))
+    vf = valid.float()
+    return {"loss_bbox": (l1 * vf).sum() / num_boxes,
+            "loss_giou": (giou * vf).sum() / num_boxes,
+            "loss_rad": (rad * vf).sum() / num_boxes}
+
+
 def mask_loss(outputs, targets, query_idx, valid, num_boxes,
               mask_size: int = 28):
     """Focal / mask_size² + dice over the box-cropped GT masks, which the
@@ -128,6 +147,8 @@ class Boxer2DCriterion:
     each aux layer (`_{i}`) and the encoder head (`_enc_{i}`, binary
     labels, no masks)."""
 
+    boxes_loss = staticmethod(boxes_loss)
+
     def __init__(self, num_classes, matcher, weight_dict, losses,
                  mask_size: int = 28):
         self.num_classes = num_classes
@@ -157,8 +178,8 @@ class Boxer2DCriterion:
         out = {}
         for loss in self.losses:
             if loss == "boxes":
-                out.update(boxes_loss(outputs, targets, query_idx, valid,
-                                      num_boxes))
+                out.update(self.boxes_loss(outputs, targets, query_idx, valid,
+                                           num_boxes))
             elif loss == "focal_labels":
                 out.update(focal_label_loss(outputs, targets, query_idx, valid,
                                             num_boxes, n_classes))
@@ -167,7 +188,7 @@ class Boxer2DCriterion:
                     out.update(mask_loss(outputs, targets, query_idx, valid,
                                          num_boxes, self.mask_size))
             else:
-                raise ValueError(f"Unsupported boxer2d loss: {loss}")
+                raise ValueError(f"Unsupported loss: {loss}")
         return out
 
     def __call__(self, outputs, targets, num_boxes=None):
@@ -201,6 +222,13 @@ class Boxer2DCriterion:
         losses["_query_idx"] = qis[-1]
         losses["_valid"] = valids[-1]
         return losses
+
+
+class Boxer3DCriterion(Boxer2DCriterion):
+    """The BoxeR-3D loss: focal labels + 3D boxes (`boxes3d_loss`) on the
+    final layer, each aux layer and the encoder head (binary labels)."""
+
+    boxes_loss = staticmethod(boxes3d_loss)
 
 
 def weighted_total(losses: Dict[str, torch.Tensor],

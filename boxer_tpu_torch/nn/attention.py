@@ -1,11 +1,12 @@
-"""Box / instance attention modules; port of `boxer_tpu/nn/attention.py`
-(inference and training paths).
+"""Box / instance / rotated 3D box attention modules; port of
+`boxer_tpu/nn/attention.py` (inference and training paths).
 
 Parameter names are the reference e2edet ones: `linear_box_weight`,
 `linear_box_bias`, `linear_attn_weight`, `linear_attn_bias` as raw
 parameters, `value_proj` and `out_proj` as Linears.
 """
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -44,18 +45,38 @@ class HeadMergeDense(nn.Linear):
         return self(x.permute(0, 2, 1, 3).reshape(b, lq, nh * ch))
 
 
+def _qminor_ref_parts(ref_windows):
+    """ref_windows (B, LQ, D) or (B, LQ, H, D) -> D tensors, each (B, 1|H,
+    1, LQ), broadcastable against (B, H, L, LQ)."""
+    ref_t = torch.movedim(ref_windows, 1, -1)     # (B, D, LQ) or (B, H, D, LQ)
+    if ref_windows.dim() == 3:
+        return [ref_t[:, None, None, i] for i in range(ref_t.shape[1])]
+    return [ref_t[:, :, None, i] for i in range(ref_t.shape[2])]
+
+
+def _offsets(module, query):
+    """The predicted box variables, (B, H, L, num_variable, LQ) f32."""
+    b, lq = query.shape[:2]
+    offset = F.linear(query, module.linear_box_weight, module.linear_box_bias)
+    return torch.movedim(offset, 1, -1).float().reshape(
+        b, module.num_head, module.num_level, module.num_variable, lq)
+
+
+def _valid_scaled(gx, gy, v_valid_ratios):
+    if v_valid_ratios is not None:
+        gx = gx * v_valid_ratios[:, None, :, None, None, 0]
+        gy = gy * v_valid_ratios[:, None, :, None, None, 1]
+    return gx, gy
+
+
 def _where_to_attend(module, query, v_valid_ratios, ref_windows):
     """Query-minor sampling grid (gx, gy), each (B, H, L, P, LQ) f32;
     ref_windows (B, LQ, 4) cxcywh."""
-    b, lq = query.shape[:2]
-    nh, nl = module.num_head, module.num_level
-    offset = F.linear(query, module.linear_box_weight, module.linear_box_bias)
-    off = torch.movedim(offset, 1, -1).float().reshape(b, nh, nl, 4, lq)
+    off = _offsets(module, query)
     dx, dy, dw, dh = off[:, :, :, 0], off[:, :, :, 1], off[:, :, :, 2], \
         off[:, :, :, 3]                                  # (B, H, L, LQ)
 
-    ref_t = torch.movedim(ref_windows, 1, -1)           # (B, 4, LQ)
-    rcx, rcy, rw, rh = (ref_t[:, None, None, i] for i in range(4))
+    rcx, rcy, rw, rh = _qminor_ref_parts(ref_windows)
     cx = rcx + dx / 8.0 * rw
     cy = rcy + dy / 8.0 * rh
     sw = F.relu(rw + dw / 8.0 * rw)
@@ -66,27 +87,24 @@ def _where_to_attend(module, query, v_valid_ratios, ref_windows):
     ky = kernel[:, 1][None, None, None, :, None]
     gx = cx[:, :, :, None, :] + kx * sw[:, :, :, None, :]
     gy = cy[:, :, :, None, :] + ky * sh[:, :, :, None, :]
-    if v_valid_ratios is not None:
-        gx = gx * v_valid_ratios[:, None, :, None, None, 0]
-        gy = gy * v_valid_ratios[:, None, :, None, None, 1]
-    return gx, gy
+    return _valid_scaled(gx, gy, v_valid_ratios)
 
 
 class _SamplingAttention(nn.Module):
     """Parameters shared by box and instance attention."""
 
     def __init__(self, d_model: int, num_level: int, num_head: int,
-                 kernel_size: int, n_attn: int):
+                 kernel_size: int, n_attn: int, num_variable: int = 4):
         super().__init__()
         assert d_model % num_head == 0
         self.d_model, self.num_level, self.num_head = d_model, num_level, num_head
-        self.kernel_size = kernel_size
+        self.kernel_size, self.num_variable = kernel_size, num_variable
         self.head_dim = d_model // num_head
+        n_box = num_head * num_level * num_variable
         self.value_proj = nn.Linear(d_model, d_model)
         self.out_proj = HeadMergeDense(d_model, d_model)
-        self.linear_box_weight = nn.Parameter(
-            torch.zeros(num_head * num_level * 4, d_model))
-        self.linear_box_bias = nn.Parameter(torch.zeros(num_head * num_level * 4))
+        self.linear_box_weight = nn.Parameter(torch.zeros(n_box, d_model))
+        self.linear_box_bias = nn.Parameter(torch.zeros(n_box))
         self.linear_attn_weight = nn.Parameter(torch.zeros(n_attn, d_model))
         self.linear_attn_bias = nn.Parameter(torch.zeros(n_attn))
 
@@ -196,3 +214,62 @@ class InstanceAttention(_SamplingAttention):
         out = box_attention_qminor(value, v_shape, gx, gy, spatial, raw=True,
                                    fold=True)
         return self.out_proj.raw(out), None, (spatial,)
+
+
+class Box3dAttention(_SamplingAttention):
+    """Rotation-aware box attention over BEV features: a 5th box variable
+    turns the k×k grid by `(ref_angle + dθ/16) * 2π` (with_rotation, the
+    decoder); without it (the encoder) the grid is still turned, by the
+    reference window's own angle. Sampling is the per-tap differentiable
+    path (`fold` left at None: P = 4 taps), at inference too, as in JAX.
+    ref_windows: (B, LQ, 5) or per head (B, LQ, H, 5), (cx, cy, w, h,
+    angle)."""
+
+    def __init__(self, d_model: int, num_level: int, num_head: int,
+                 with_rotation: bool = True, kernel_size: int = 2):
+        super().__init__(d_model, num_level, num_head, kernel_size,
+                         num_head * num_level * kernel_size ** 2,
+                         num_variable=5 if with_rotation else 4)
+        self.with_rotation = with_rotation
+        self.num_point = kernel_size ** 2
+
+    def _where_to_attend(self, query, v_valid_ratios, ref_windows):
+        """grid = centre + R(angle) @ (kernel * size), each (B, H, L, P, LQ)
+        f32."""
+        off = _offsets(self, query)
+        dx, dy, dw, dh = off[:, :, :, 0], off[:, :, :, 1], off[:, :, :, 2], \
+            off[:, :, :, 3]
+        rcx, rcy, rw, rh, rang = _qminor_ref_parts(ref_windows)
+        if self.with_rotation:
+            angles = (rang + off[:, :, :, 4] / 16.0) * 2.0 * math.pi
+        else:
+            angles = rang
+        cx = rcx + dx / 8.0 * rw
+        cy = rcy + dy / 8.0 * rh
+        sw = F.relu(rw + dw / 8.0 * rw)
+        sh = F.relu(rh + dh / 8.0 * rh)
+        cos_a = torch.cos(angles)[:, :, :, None, :]
+        sin_a = torch.sin(angles)[:, :, :, None, :]
+
+        kernel = make_kernel_indices(self.kernel_size, divisor=2.0).to(
+            query.device)
+        ox = kernel[:, 0][None, None, None, :, None] * sw[:, :, :, None, :]
+        oy = kernel[:, 1][None, None, None, :, None] * sh[:, :, :, None, :]
+        gx = cx[:, :, :, None, :] + ox * cos_a - oy * sin_a
+        gy = cy[:, :, :, None, :] + ox * sin_a + oy * cos_a
+        return _valid_scaled(gx, gy, v_valid_ratios)
+
+    def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
+                ref_windows):
+        b, l1 = query.shape[:2]
+        value = self._project_value(value, v_mask)
+        attn = F.linear(query, self.linear_attn_weight, self.linear_attn_bias)
+        attn = torch.softmax(attn.reshape(b, l1, self.num_head, -1).float(),
+                             dim=-1)
+        attn_q = torch.movedim(attn, 1, -1).reshape(
+            b, self.num_head, self.num_level, self.num_point, l1)
+        gx, gy = self._where_to_attend(query, v_valid_ratios, ref_windows)
+        out = box_attention_qminor(value, v_shape, gx, gy, attn_q, raw=True)
+        attn = attn.reshape(b, l1, self.num_head, self.num_level,
+                            self.num_point)
+        return self.out_proj.raw(out), attn

@@ -16,11 +16,21 @@ def _fans(t):
 
 
 @torch.no_grad()
-def lecun_normal_(t, g):
-    """Truncated normal (2 std) with variance 1/fan_in (flax's default)."""
-    std = math.sqrt(1.0 / _fans(t)[0]) / 0.87962566103423978
+def _truncated_normal_(t, g, scale):
+    """Truncated normal (2 std) with variance scale/fan_in."""
+    std = math.sqrt(scale / _fans(t)[0]) / 0.87962566103423978
     t.copy_(torch.fmod(torch.randn(t.shape, generator=g), 2.0) * std)
     return t
+
+
+def lecun_normal_(t, g):
+    """Variance 1/fan_in (flax's default)."""
+    return _truncated_normal_(t, g, 1.0)
+
+
+def he_normal_(t, g):
+    """Variance 2/fan_in (flax's he_normal)."""
+    return _truncated_normal_(t, g, 2.0)
 
 
 @torch.no_grad()

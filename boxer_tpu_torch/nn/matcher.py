@@ -8,7 +8,8 @@ the JAX package's vmapped `lax.while_loop` does). Ties break as there:
 `argmin` takes the first minimum, the pruning top-k the lower index.
 
 Cost (focal labels): w_cls * (pos - neg)[q, label_t] + w_l1 * |b_q - b_t|_1
-+ w_giou * (-GIoU). Invalid targets get a constant-zero cost row, which can
++ w_giou * (-GIoU); the 3D matcher takes the L1 and the axis-aligned 3D
+GIoU over (cx, cy, cz, l, w, h) and adds w_rad * |rad_q - rad_t|. Invalid targets get a constant-zero cost row, which can
 take any leftover column without changing the valid rows' optimum. Matching
 carries no gradient: it runs under `torch.no_grad`.
 """
@@ -17,6 +18,8 @@ from typing import Tuple
 
 import torch
 
+from boxer_tpu_torch.utils.box3d_ops import (box_cxcyczlwh_to_xyxyxy,
+                                             generalized_box3d_iou)
 from boxer_tpu_torch.utils.box_ops import (box_cxcywh_to_xyxy,
                                            generalized_box_iou)
 from boxer_tpu_torch.utils.general import top_k
@@ -184,3 +187,45 @@ class HungarianMatcher:
         c = self.cost_matrix(outputs, targets)
         valid = targets["valid"]
         return hungarian(c.transpose(-1, -2), valid), valid
+
+
+class HungarianMatcher3d(HungarianMatcher):
+    """3D matcher: boxes (B, N, 7) (cx, cy, cz, l, w, h, rad), the rad
+    cost beside the 2D matcher's three."""
+
+    def __init__(self, cost_class=1.0, cost_bbox=1.0, cost_giou=1.0,
+                 cost_rad=1.0):
+        super().__init__(cost_class, cost_bbox, cost_giou)
+        self.cost_rad = cost_rad
+
+    @torch.no_grad()
+    def cost_matrix(self, outputs, targets):
+        boxes = outputs["pred_boxes"].float()
+        tgt = targets["boxes"].float()
+        out_bbox, out_rad = boxes[..., :6], boxes[..., 6:]
+        tgt_bbox, tgt_rad = tgt[..., :6], tgt[..., 6:]
+        cost_class = _focal_class_cost(
+            torch.sigmoid(outputs["pred_logits"].float()), targets["labels"])
+        cost_bbox = (out_bbox[:, :, None, :] - tgt_bbox[:, None, :, :]
+                     ).abs().sum(-1)
+        cost_rad = (out_rad[:, :, None, :] - tgt_rad[:, None, :, :]
+                    ).abs().sum(-1)
+        cost_giou = -generalized_box3d_iou(box_cxcyczlwh_to_xyxyxy(out_bbox),
+                                           box_cxcyczlwh_to_xyxyxy(tgt_bbox))
+        return (self.cost_bbox * cost_bbox + self.cost_class * cost_class
+                + self.cost_giou * cost_giou + self.cost_rad * cost_rad)
+
+
+def build_matcher(config):
+    """The matcher of a loss config's `matcher` entry (`hungarian` with the
+    focal class cost, or `hungarian3d`)."""
+    params = config["params"]
+    if config["type"] == "hungarian":
+        return HungarianMatcher(params["class_weight"], params["bbox_weight"],
+                                params["giou_weight"],
+                                focal_label=params.get("focal_label", False))
+    if config["type"] == "hungarian3d":
+        return HungarianMatcher3d(params["class_weight"],
+                                  params["bbox_weight"], params["giou_weight"],
+                                  params["rad_weight"])
+    raise ValueError(f"Unknown matcher type: {config['type']}")

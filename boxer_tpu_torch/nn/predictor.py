@@ -1,5 +1,5 @@
 """Prediction heads; port of `boxer_tpu/nn/predictor.py` (MLP, SegmentMLP,
-Detector).
+Detector, and the 3D heads Detector3d and MultiDetector3d).
 
 Decoder states are stacked over layers with a leading ``nl`` dim:
 x (nl, B, L, C); ref_windows (B, L, 4). Parameter names are the reference
@@ -15,6 +15,31 @@ from torch import nn
 from boxer_tpu_torch.utils.general import inverse_sigmoid
 
 NEG_INF = -65504.0  # largest finite fp16 magnitude (reference parity)
+
+
+def _permute_7dof(coord):
+    """Raw head outputs (x, y, l, w, rad, z, h) -> (x, y, z, l, w, h, rad)."""
+    return torch.cat([coord[..., 0:2], coord[..., 5:6], coord[..., 2:4],
+                      coord[..., 6:7], coord[..., 4:5]], dim=-1)
+
+
+def _layer_outputs(outputs_class, outputs_coord, aux_loss: bool):
+    """The last layer's {pred_logits, pred_boxes}, with every other layer's
+    under aux_outputs."""
+    out = {"pred_logits": outputs_class[-1], "pred_boxes": outputs_coord[-1]}
+    if aux_loss:
+        out["aux_outputs"] = [
+            {"pred_logits": outputs_class[i], "pred_boxes": outputs_coord[i]}
+            for i in range(outputs_class.shape[0] - 1)]
+    return out
+
+
+def _reset_focal_head(head, g):
+    """Prior-prob class bias, zero last box layer (the JAX initialisers)."""
+    head.class_embed.bias.data.fill_(-math.log((1 - 0.01) / 0.01))
+    last = head.bbox_embed.layers[-1]
+    last.weight.data.zero_()
+    last.bias.data.zero_()
 
 
 class MLP(nn.Module):
@@ -100,11 +125,7 @@ class Detector(nn.Module):
         if mask_mode == "mask_v1":
             self.mask_embed = SegmentMLP(hidden_dim, hidden_dim, num_classes, 2)
 
-    def reset_parameters_(self, g):
-        self.class_embed.bias.data.fill_(-math.log((1 - 0.01) / 0.01))
-        last = self.bbox_embed.layers[-1]
-        last.weight.data.zero_()
-        last.bias.data.zero_()
+    reset_parameters_ = _reset_focal_head
 
     def forward(self, x, ref_windows=None, roi=None, x_mask=None,
                 defer_mask: bool = False):
@@ -149,3 +170,63 @@ class Detector(nn.Module):
                 aux.append(a)
             out["aux_outputs"] = aux
         return out
+
+
+class Detector3d(nn.Module):
+    """7-DoF box head: the raw (x, y, l, w, rad, z, h) refinement of the
+    reference window, permuted to (x, y, z, l, w, h, rad) before the
+    sigmoid."""
+
+    def __init__(self, hidden_dim: int, num_classes: int, aux_loss: bool):
+        super().__init__()
+        self.aux_loss = aux_loss
+        self.class_embed = nn.Linear(hidden_dim, num_classes)
+        self.bbox_embed = MLP(hidden_dim, hidden_dim, 7, 3)
+
+    reset_parameters_ = _reset_focal_head
+
+    def forward(self, x, ref_windows, x_mask=None):
+        """x: (nl, B, L, C); ref_windows: (B, L, 7) raw-order boxes in
+        [0, 1]; x_mask (nl, B, L) bool: NEG_INF logits and zero boxes."""
+        outputs_class = self.class_embed(x)
+        outputs_coord = self.bbox_embed(x).float() + inverse_sigmoid(
+            ref_windows.float())
+        outputs_coord = torch.sigmoid(_permute_7dof(outputs_coord))
+        if x_mask is not None:
+            outputs_class = outputs_class.masked_fill(x_mask[..., None],
+                                                      NEG_INF)
+            outputs_coord = outputs_coord.masked_fill(x_mask[..., None], 0.0)
+        return _layer_outputs(outputs_class, outputs_coord, self.aux_loss)
+
+
+class MultiDetector3d(nn.Module):
+    """Per-cell head over `num_references` reference windows (the encoder's
+    proposals): outputs flattened over L * R. References whose centre lies
+    outside (0.001, 0.999) get NEG_INF logits and zero boxes."""
+
+    def __init__(self, hidden_dim: int, num_classes: int, num_references: int,
+                 aux_loss: bool):
+        super().__init__()
+        self.aux_loss, self.num_references = aux_loss, num_references
+        self.class_embed = nn.Linear(hidden_dim, num_references * num_classes)
+        self.bbox_embed = MLP(hidden_dim, hidden_dim, num_references * 7, 3)
+
+    reset_parameters_ = _reset_focal_head
+
+    def forward(self, x, ref_windows, x_mask=None):
+        """x: (nl, B, L, C); ref_windows: (B, L, >=R, 5) normalized (cx, cy,
+        l, w, rad)."""
+        nl, b, l = x.shape[:3]
+        r = self.num_references
+        ref = ref_windows[..., :r, :]
+        valid = ((ref[..., :2] > 0.001) & (ref[..., :2] < 0.999)).all(-1)
+        mask = ~valid if x_mask is None else x_mask[..., None] | ~valid
+        outputs_class = self.class_embed(x).reshape(nl, b, l, r, -1)
+        coord = self.bbox_embed(x).float().reshape(nl, b, l, r, 7)
+        box = coord[..., :5] + inverse_sigmoid(ref.float())
+        coord = _permute_7dof(torch.cat([box, coord[..., 5:]], dim=-1))
+        outputs_class = outputs_class.masked_fill(mask[..., None], NEG_INF)
+        coord = coord.masked_fill(mask[..., None], NEG_INF)
+        outputs_class = outputs_class.reshape(nl, b, l * r, -1)
+        outputs_coord = torch.sigmoid(coord.reshape(nl, b, l * r, 7))
+        return _layer_outputs(outputs_class, outputs_coord, self.aux_loss)

@@ -4,7 +4,8 @@ One update: forward + criterion (matching on the step's device) and
 backward for each microbatch, the gradients summed over microbatches that
 share the update's global `num_boxes`; then the global-norm clip, the
 NaN/Inf skip (no update, no optimizer-state change, step not advanced) and
-the AdamW update at the scheduled LR. On a CUDA card the forward runs under
+the AdamW update at the scheduled LR. A batch is an image batch (BoxeR-2D)
+or a voxel batch (BoxeR-3D), as `apply_model` dispatches. On a CUDA card the forward runs under
 `torch.autocast(bfloat16)` when `compute_dtype` is bf16, with parameters in
 f32: the torch idiom for flax's `dtype=bf16` modules.
 """
@@ -27,6 +28,30 @@ class TrainState:
     step: int = 0                  # completed updates
 
 
+def apply_model(model, batch, train: bool, inference: bool):
+    """The model on one (micro)batch of either family: image/mask (2D) or
+    voxels/coordinates/num_points_per_voxel with the static grid_shape
+    (nx, ny) and batch_size (3D)."""
+    if "voxels" in batch:
+        return model(batch["voxels"], batch["coordinates"],
+                     batch["num_points_per_voxel"], tuple(batch["grid_shape"]),
+                     int(batch["batch_size"]), train=train,
+                     inference=inference)
+    return model(batch["image"], batch.get("mask"), train=train,
+                 inference=inference)
+
+
+def microbatch(batch, a: int):
+    """Microbatch a of an update's batch: every array's leading (A) index;
+    the static entries (grid_shape, batch_size) and a missing mask as
+    they are."""
+    def pick(v):
+        if isinstance(v, dict):
+            return {k: pick(x) for k, x in v.items()}
+        return v[a] if isinstance(v, torch.Tensor) else v
+    return {k: pick(v) for k, v in batch.items()}
+
+
 def make_train_step(criterion, max_norm: float = 0.0,
                     compute_dtype: torch.dtype = torch.float32,
                     debug_grads: bool = False) -> Callable:
@@ -36,7 +61,12 @@ def make_train_step(criterion, max_norm: float = 0.0,
     batch = {"image": (A, B, H, W, 3), "mask": (A, B, H, W) or None,
              "targets": {labels (A,B,NT), boxes (A,B,NT,4), valid (A,B,NT)
                          [, instance_masks (A,B,NT,s,s)]}}
-    with A = iter_per_update microbatches, all on the model's device.
+    or, for BoxeR-3D, {"voxels": (A, V, P, F), "coordinates": (A, V, 4),
+    "num_points_per_voxel": (A, V), "grid_shape": (nx, ny), "batch_size":
+    B, "targets": {labels, boxes (A,B,NT,7), valid}}, each microbatch's
+    voxel block holding its B samples' fixed `max_voxels` blocks with
+    batch indices 0..B-1 (the loader's split), with A = iter_per_update
+    microbatches, all on the model's device.
     stats: every loss term (summed over microbatches), total_loss,
     grad_norm (before clipping), num_boxes, skipped (1.0 when the update
     was skipped) as host floats, and with debug_grads `_grads`, the
@@ -60,13 +90,10 @@ def make_train_step(criterion, max_norm: float = 0.0,
 
         loss_acc, stats_acc = 0.0, {}
         for a in range(targets["valid"].shape[0]):
-            mb_targets = {k: v[a] for k, v in targets.items()}
-            mask = batch.get("mask")
-            with autocast(batch["image"].device):
-                out = model(batch["image"][a],
-                            None if mask is None else mask[a],
-                            train=True, inference=False)
-            losses = criterion(out, mb_targets, num_boxes=num_boxes)
+            mb = microbatch(batch, a)
+            with autocast(targets["valid"].device):
+                out = apply_model(model, mb, train=True, inference=False)
+            losses = criterion(out, mb["targets"], num_boxes=num_boxes)
             total, stats = weighted_total(losses, weight_dict)
             total.backward()
             loss_acc = loss_acc + total.detach()

@@ -1,7 +1,7 @@
 """Device time of one full-width BoxeR-2D R50 segm inference forward (under
 the p-major and the m-major combine) and one train step, segm, detection
-(per tap) and detection folded, under torch.profiler, for the tree on
-PYTHONPATH.
+(per tap) and detection folded, and of one full-width BoxeR-3D forward and
+train step, under torch.profiler, for the tree on PYTHONPATH.
 
     PYTHONPATH=TREE python boxer_tpu_torch/tools/profile_steps.py
 
@@ -14,7 +14,9 @@ from there. The forward runs at `chip_smoke`'s phase 6 (bf16 weights, batch
 1, 800x1216, top-100 postprocess with masks), each train step at its recipe
 (batch 1, 800x1216, 20 targets, f32 parameters, bf16 autocast, AdamW); the
 m-major forward runs K8 at every level, the folded step K7b in the backward
-of every box-attention level. Each runs twice to warm up, once timed on the
+of every box-attention level. BoxeR-3D runs at `chip_smoke`'s phases 9 and
+9c (468x468, bf16 forward of 32,000 voxels; a train step of 2 frames, f32
+parameters, bf16 autocast), where the tree's `chip_smoke` has them. Each runs twice to warm up, once timed on the
 host clock up to a synchronize, once profiled. Prints, for each, the
 device's summed kernel time against the wall time, and the device time and
 calls of each of the port's kernels (by name: `quad_sample_reduce`,
@@ -98,6 +100,21 @@ def main():
         batch = cs.train_batch(cs.CANVAS, use_mask, dev)
         with cs.sampling(FOLD_TAP_THRESHOLD=fold):
             report(key, *profile(lambda: step(state, batch)))
+        del model, state, step
+        torch.cuda.empty_cache()
+    if hasattr(cs, "build_model_3d"):
+        grid = cs.grid_3d(cs.PC_RANGE_3D)
+        model = cs.build_model_3d(cs.PC_RANGE_3D).to(dev, torch.bfloat16)
+        vox, coords, npts = cs.random_voxels_3d(grid, cs.VOXELS_3D, 1, 0)
+        args = (torch.from_numpy(vox).to(dev, torch.bfloat16),
+                torch.from_numpy(coords).to(dev),
+                torch.from_numpy(npts).to(dev), grid, 1)
+        with torch.no_grad():
+            report("boxer3d_forward", *profile(lambda: model(*args)))
+        model = model.float().train()
+        _, state, step = cs.train_setup_3d(model, torch.bfloat16)
+        batch = cs.train_batch_3d(dev)
+        report("boxer3d_train", *profile(lambda: step(state, batch)))
         del model, state, step
         torch.cuda.empty_cache()
     print(json.dumps({"tree": tree, "busy_ms": busy, "kernels": kernels}),

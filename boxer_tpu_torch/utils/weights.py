@@ -1,4 +1,5 @@
-"""Weight bridge from the JAX package's BoxeR-2D variables to the port.
+"""Weight bridge from the JAX package's BoxeR-2D and BoxeR-3D variables to
+the port.
 
 `load_jax_params(model, variables_np)` takes the JAX model's
 `{"params", "constants"}` as nested dicts of numpy arrays and fills the
@@ -9,7 +10,11 @@ No jax is needed. Layout rules:
 - Conv kernel (kH, kW, I, O) -> (O, I, kH, kW);
 - ConvTranspose kernel (kH, kW, I, O) -> (I, O, kH, kW), spatially flipped
   (flax's ConvTranspose does not flip its kernel, torch's does);
-- the scanned encoder's leading layer axis -> `encoder.layers.{i}`;
+- the scanned encoder's leading layer axis (2D) or `encoder_layer{i}`
+  (3D) -> `encoder.layers.{i}`;
+- 3D backbone: `reader/pfn{i}` -> `reader.pfn_layers.{i}`,
+  `neck/stage{i}_conv{j}` / `stage{i}_norm{j}` -> `neck.blocks.{i}.{3j}` /
+  `.{3j+1}`;
 - `self_attn.{query,key,value}` -> the fused `self_attn.in_proj_weight/bias`;
 - LayerNorm / GroupNorm `scale` -> `weight`.
 """
@@ -87,6 +92,26 @@ def _trunk(path, arr):
     return "backbone." + ".".join(parts + [name]), arr
 
 
+def _backbone3d(path, arr):
+    """3D backbone sub-path (after "backbone") -> (torch key, array)."""
+    name, arr = _leaf(path[-1], arr)
+    if path[0] == "reader":
+        i = path[1][len("pfn"):]
+        return f"backbone.reader.pfn_layers.{i}.{path[2]}.{name}", arr
+    i, kind, j = re.fullmatch(r"stage(\d+)_(conv|norm)(\d+)", path[1]).groups()
+    k = 3 * int(j) + (kind == "norm")
+    return f"backbone.neck.blocks.{i}.{k}.{name}", arr
+
+
+def _encoder_leaf(rest, arr):
+    """Encoder layer sub-path -> (torch suffix, array)."""
+    if rest[0] == "self_attn":
+        key, a = _attn(rest[1:], arr)
+        return "self_attn." + key, a
+    name, a = _leaf(rest[1], arr)
+    return f"{rest[0]}.{name}", a
+
+
 def jax_to_torch_state(variables_np) -> Tuple[Dict[str, np.ndarray],
                                               Dict[str, List[str]]]:
     """Returns ({torch key: array}, {torch key: [jax leaf names]}); a leaf
@@ -111,7 +136,9 @@ def jax_to_torch_state(variables_np) -> Tuple[Dict[str, np.ndarray],
         for path, arr in _flatten(tree):
             jax_name = "/".join((coll,) + path)
             head = path[0]
-            if head == "backbone":
+            if head == "backbone" and path[1] in ("reader", "neck"):
+                put(*_backbone3d(path[1:], arr), jax_name)
+            elif head == "backbone":
                 put(*_trunk(path[2:], arr), jax_name)
             elif head.startswith("input_proj"):
                 i, kind = re.fullmatch(r"input_proj(\d+)_(conv|gn)", head).groups()
@@ -132,15 +159,13 @@ def jax_to_torch_state(variables_np) -> Tuple[Dict[str, np.ndarray],
                 idx = 0 if path[1] == "enc_linear" else 1
                 put(f"transformer.encoder.enc_linear.{idx}.{name}", a, jax_name)
             elif path[1] == "encoder_layers":
-                rest = path[2:]
                 for i in range(arr.shape[0]):
-                    if rest[0] == "self_attn":
-                        key, a = _attn(rest[1:], arr[i])
-                        key = "self_attn." + key
-                    else:
-                        name, a = _leaf(rest[1], arr[i])
-                        key = f"{rest[0]}.{name}"
+                    key, a = _encoder_leaf(path[2:], arr[i])
                     put(f"transformer.encoder.layers.{i}.{key}", a, jax_name)
+            elif path[1].startswith("encoder_layer"):
+                i = path[1][len("encoder_layer"):]
+                key, a = _encoder_leaf(path[2:], arr)
+                put(f"transformer.encoder.layers.{i}.{key}", a, jax_name)
             else:
                 i = re.fullmatch(r"decoder_layer(\d+)", path[1]).group(1)
                 pre = f"transformer.decoder.layers.{i}."

@@ -102,6 +102,28 @@ SCHEDULE = {"type": "multi_step", "params": {"lr_steps": [10 ** 9],
                                              "lr_ratio": 0.1,
                                              "use_warmup": False}}
 KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7a", "K7b", "K8")
+# BoxeR-3D at the width of boxer_tpu/config/base_boxer3d_detection.yaml:
+# 82-137 as tools/mfu_bench.py:measure_boxer3d instantiates it (:202-221):
+# a 468x468 BEV grid of 0.32 m pillars, 32,000 voxels of 20 points
+PC_RANGE_3D = (-75.0, -75.0, -3.0, 75.0, 75.0, 5.0)
+VOXEL_3D = (0.32, 0.32, 8.0)
+BENCH_3D = dict(num_classes=2, hidden_dim=256, nhead=8, num_level=2,
+                enc_layers=2, dec_layers=2, dim_feedforward=1024,
+                num_queries=300)
+VOXELS_3D, POINTS_3D = 32000, 20
+# the config's test processor (yaml:69-74) and a frame of about 180,000
+# points, as a Waymo top lidar returns
+SERVE_VOXELS, SERVE_POINTS = 60000, 180000
+# card against CPU at a 128x128 grid
+E2E_PC_3D = (-20.48, -20.48, -3.0, 20.48, 20.48, 5.0)
+E2E_VOXELS_3D = 128 * 128
+ITERS_3D = 10
+TRAIN_BATCH_3D = 2          # the recipe's 16 over 8 cards (yaml:157)
+TRAIN_WEIGHTS_3D = {"loss_ce": 2.0, "loss_bbox": 5.0, "loss_giou": 2.0,
+                    "loss_rad": 4.0}
+OPTIM_3D = {"type": "adamw", "params": {
+    "lr": 1e-3, "lr_backbone": 1e-3, "weight_decay": 1e-4, "eps": 1e-9,
+    "deform_lr_multi": 0.1}}
 
 
 def per_run(**counts):
@@ -125,6 +147,11 @@ INFER_LAUNCHES = {("pmajor", True): per_run(K1=24, K2=20, K3=6),
 TRAIN_LAUNCHES = {True: per_run(K2=48, K3=6, K5=24, K6=24),
                   False: per_run(K2=48, K3=6, K5=48)}
 FOLDED_TRAIN_LAUNCHES = per_run(K3=6, K7b=48)
+# BoxeR-3D: every sampling level runs per tap (P = 4, `QuadSample`) at
+# inference too: K2 in 2 encoder + 2 decoder layers x 2 levels, K3 in the 2
+# decoder self-attentions; a train step adds K5 in the backward of each
+INFER_3D_LAUNCHES = per_run(K2=8, K3=2)
+TRAIN_3D_LAUNCHES = per_run(K2=8, K3=2, K5=8)
 
 
 def log(*args):
@@ -284,6 +311,27 @@ def check_kernels(dev):
         mmajor("K8" + sfx, p, m)
     scatter_rows("K7b P=16", 16, 2 * 600, 2 * 81 * 121, flat=False)
 
+    # BoxeR-3D's encoder level 0 at 468x468: P=4, M = 8 heads x 68,445
+    # queries on 8 x 235 x 235 quad rows; K2 (the per-tap forward) and the
+    # fused K5 (its backward) with random rows
+    rows3, m3 = 8 * 235 * 235, 8 * 68445
+    table3 = torch.from_numpy(rs.randn(rows3, 128).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    idx3, *_, w43 = taps(4, m3, rows3)
+    g3 = torch.from_numpy(rs.randn(m3, 32).astype(np.float32)).to(dev)
+    shape3 = f"P=4 M={m3} table {rows3}x128 bf16 (BoxeR-3D)"
+    results["K2 3D"] = dict(bc.pmajor_case(table3, idx3, w43), tol=1e-5,
+                            shape=shape3)
+    results["K5 3D"] = dict(
+        wrapper=sa.scatter_add_rows_weighted,
+        kernel=lambda: sa.scatter_add_rows_weighted_dw4(idx3, g3, w43,
+                                                        table3, False),
+        plain=lambda: sa.scatter_accum_dw4_plain(idx3, g3, w43, table3,
+                                                 False),
+        library=None, bound=bk.k56_bound(table3, idx3, g3, w43,
+                                         with_dw4=True),
+        tol=1e-5, shape=shape3 + ", shared f32 g, with d_w4")
+
     for name, r in results.items():
         # the fused scatter returns (d_table, d_w4): the worse of the two
         got, want = r["kernel"](), r["plain"]()
@@ -414,6 +462,23 @@ def sampling(**constants):
             setattr(ba, k, v)
 
 
+def timed(fn, iters, dev):
+    """`iters` calls of fn(), each on the host clock up to a synchronize,
+    with the launch counters zeroed and the peak memory reset just before
+    them; only the last call's result is kept alive, so the peak is one
+    call's. Returns (times in ms, launch counts, the last result)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in counters().values():
+        f.launches = 0
+    times, out = [], None
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, {k: f.launches for k, f in counters().items()}, out
+
+
 def run_slice(dev, use_mask, iters, label, combine="pmajor"):
     """Phases 4 and 4c: a warm-up forward, then `iters` forwards each timed
     on the host clock up to a synchronize, with the launch counters zeroed
@@ -422,19 +487,11 @@ def run_slice(dev, use_mask, iters, label, combine="pmajor"):
     model = build_model(use_mask).to(dev, torch.bfloat16)
     image, mask = (t.to(dev) for t in make_image(CANVAS))
     post = {"canvas_hw": CANVAS, "topk": 100}
-    times = []
     with torch.no_grad(), sampling(COMBINE_IMPL=combine):
         model(image, mask, postprocess=post)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        for f in counters().values():
-            f.launches = 0
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            out = model(image, mask, postprocess=post)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-    counts = {k: f.launches for k, f in counters().items()}
+        times, counts, out = timed(
+            lambda: model(image, mask, postprocess=post), iters, dev)
     ms = float(np.median(times))
     fps = 1e3 / ms
     log(f"{label}: {fps:.3f} img/s (median {ms:.2f} ms/img of {iters} "
@@ -658,17 +715,8 @@ def run_train(dev, use_mask, label, profiled=False, per_step=None,
     torch.cuda.synchronize()
     check_grads(first.pop("_grads"), label)
     all_stats = [first]
-    torch.cuda.reset_peak_memory_stats(dev)
-    for f in counters().values():
-        f.launches = 0
-    times = []
-    for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        state, stats = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        all_stats.append(stats)
-    counts = {k: f.launches for k, f in counters().items()}
+    times, counts, _ = timed(
+        lambda: all_stats.append(step(state, batch)[1]), TRAIN_STEPS, dev)
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     ms = float(np.median(times))
     log(f"{label}: {ms:.2f} ms/step median of {TRAIN_STEPS} steps "
@@ -838,29 +886,48 @@ class RecordingMatcher:
         return qi, valid
 
 
+def recorded_step(model, device, setup, batch):
+    """One f32 train step of a copy of `model` on `device`, through
+    `setup(copy) -> (criterion, state, step)`, its matcher recording every
+    match. Returns (stats with the pre-clip gradients on the CPU, the
+    matches, the launches of each kernel)."""
+    import copy
+
+    m = copy.deepcopy(model).to(device)
+    criterion, state, step = setup(m)
+    criterion.matcher = RecordingMatcher(criterion.matcher)
+    before = {k: f.launches for k, f in counters().items()}
+    _, stats = step(state, batch)
+    torch.cuda.synchronize()
+    after = {k: f.launches for k, f in counters().items()}
+    stats["_grads"] = {n: g.cpu() for n, g in stats["_grads"].items()}
+    return stats, criterion.matcher.calls, {k: after[k] - before[k]
+                                            for k in after}
+
+
+def leaf_errs(a, b):
+    """Rel err of a's pre-clip gradient leaves against b's, over b's
+    leaves: (the worst, its leaf, the median)."""
+    errs = {n: rel_err(a["_grads"][n], g) for n, g in b["_grads"].items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst, float(np.median(list(errs.values())))
+
+
 def train_card_vs_cpu(dev):
     """Phase 8: one f32 train step with phase 5's weights on the CPU (plain
     versions), on the card (kernels), and on the card with the fused K5/K6
     swapped for their plain version, plain d_table and plain d_w4 (the same
     forward, so the same ReLU branches)."""
-    import copy
-
     from boxer_tpu_torch.ops import box_attention as ba
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     model = build_model(True, seed=1, noise_seed=2).train()
 
     def run(device):
-        m = copy.deepcopy(model).to(device)
-        criterion, state, step = train_setup(m, True, torch.float32,
-                                             debug_grads=True)
-        criterion.matcher = RecordingMatcher(criterion.matcher)
-        before = {k: f.launches for k, f in counters().items()}
-        _, stats = step(state, train_batch(E2E_CANVAS, True, device, seed=1))
-        after = {k: f.launches for k, f in counters().items()}
-        stats["_grads"] = {n: g.cpu() for n, g in stats["_grads"].items()}
-        return stats, criterion.matcher.calls, {k: after[k] - before[k]
-                                                for k in after}
+        return recorded_step(
+            model, device,
+            lambda m: train_setup(m, True, torch.float32, debug_grads=True),
+            train_batch(E2E_CANVAS, True, device, seed=1))
 
     want, want_qi, cpu_launches = run(torch.device("cpu"))
     got, got_qi, launches = run(dev)
@@ -881,12 +948,6 @@ def train_card_vs_cpu(dev):
     keys = [k for k in want if k.startswith("loss_")] + ["total_loss"]
     loss_err = max(rel_err(got[k], want[k]) for k in keys)
     norm_err = rel_err(got["grad_norm"], want["grad_norm"])
-
-    def leaf_errs(a, b):
-        errs = {n: rel_err(a["_grads"][n], g) for n, g in b["_grads"].items()}
-        worst = max(errs, key=errs.get)
-        return errs[worst], worst, float(np.median(list(errs.values())))
-
     cpu_err, cpu_leaf, cpu_median = leaf_errs(got, want)
     k56_err, k56_leaf, _ = leaf_errs(got, plain)
     # the leaves d_w4 feeds first: the sampling-offset (box) and attention
@@ -922,27 +983,17 @@ def train_folded_vs_pertap(dev):
     level through `TakeRows`, K7b in the backward) against per-tap
     (`QuadSample`: K2, K5), then folded with K7b swapped for its plain
     version (the same forward, so the same ReLU branches)."""
-    import copy
-
     from boxer_tpu_torch.ops import box_attention as ba
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     model = build_model(False, seed=1, noise_seed=2).train()
 
     def run(threshold):
-        m = copy.deepcopy(model).to(dev)
-        criterion, state, step = train_setup(m, False, torch.float32,
-                                             debug_grads=True)
-        criterion.matcher = RecordingMatcher(criterion.matcher)
-        before = {k: f.launches for k, f in counters().items()}
         with sampling(FOLD_TAP_THRESHOLD=threshold):
-            _, stats = step(state, train_batch(E2E_CANVAS, False, dev,
-                                               seed=1))
-        torch.cuda.synchronize()
-        after = {k: f.launches for k, f in counters().items()}
-        stats["_grads"] = {n: g.cpu() for n, g in stats["_grads"].items()}
-        return stats, criterion.matcher.calls, {k: after[k] - before[k]
-                                                for k in after}
+            return recorded_step(
+                model, dev, lambda m: train_setup(m, False, torch.float32,
+                                                  debug_grads=True),
+                train_batch(E2E_CANVAS, False, dev, seed=1))
 
     folded, folded_qi, folded_launches = run(0)
     # P=4 taps per level: a threshold of 4 keeps every level per tap
@@ -964,14 +1015,8 @@ def train_folded_vs_pertap(dev):
     keys = [k for k in pertap if k.startswith("loss_")] + ["total_loss"]
     loss_err = max(rel_err(folded[k], pertap[k]) for k in keys)
     norm_err = rel_err(folded["grad_norm"], pertap["grad_norm"])
-
-    def worst_leaf(a, b):
-        errs = {n: rel_err(a["_grads"][n], g) for n, g in b["_grads"].items()}
-        worst = max(errs, key=errs.get)
-        return errs[worst], worst
-
-    fold_err, fold_leaf = worst_leaf(folded, pertap)
-    k7b_err, k7b_leaf = worst_leaf(folded, plain)
+    fold_err, fold_leaf, _ = leaf_errs(folded, pertap)
+    k7b_err, k7b_leaf, _ = leaf_errs(folded, plain)
     log(f"detection train step at {E2E_CANVAS} f32 on the card, folded vs "
         f"per-tap: {len(folded_qi)} matches identical {same_match}, loss "
         f"terms ({len(keys)}) worst rel err {loss_err:.3e}, grad norm "
@@ -986,6 +1031,433 @@ def train_folded_vs_pertap(dev):
             and fold_err <= 0.1 and k7b_err <= 1e-4):
         raise AssertionError("folded and per-tap train steps disagree")
     return dict(loss_err=loss_err, grad_err=fold_err, k7b_err=k7b_err)
+
+
+def grid_3d(pc_range):
+    """(nx, ny): the whole 0.32 m pillars over pc_range, 468 x 468 at full
+    width as tools/mfu_bench.py:202 sets it (the voxelizer's rounding of
+    150 / 0.32 would give 469)."""
+    return tuple(int((pc_range[3 + i] - pc_range[i]) / VOXEL_3D[i])
+                 for i in range(2))
+
+
+def build_model_3d(pc_range, seed=0, noise_seed=None):
+    """BoxeR3D at the bench width with seeded weights; with noise_seed the
+    heads JAX initialises to zero (`linear_box`, `linear_attn`, the box
+    MLPs' last layer) get seeded noise, so sampling points move by more
+    than a pixel, the decoder's dθ turns the grid and the boxes spread."""
+    from boxer_tpu_torch.models.boxer3d import BoxeR3D
+
+    backbone = {"type": "pointpillar", "params": {
+        "hidden_dim": 256, "position_encoding": "fixed", "ref_size": 4,
+        "return_layers": 2,
+        "reader": {"num_input_features": 5, "num_filters": [64, 128],
+                   "voxel_size": list(VOXEL_3D), "pc_range": list(pc_range)},
+        "neck": {"num_layers": [2, 4, 2], "ds_strides": [1, 2, 2],
+                 "ds_filters": [256, 512, 1024]}}}
+    model = BoxeR3D(**BENCH_3D, backbone_cfg=backbone).init_weights(seed)
+    if noise_seed is not None:
+        rs = np.random.RandomState(noise_seed)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                scale = (0.15 if name.endswith("linear_box_weight") else 0.05
+                         if name.endswith(("linear_attn_weight",
+                                           "class_embed.bias"))
+                         or "bbox_embed.layers.2." in name else 0)
+                if scale:
+                    p.add_(torch.from_numpy(
+                        rs.randn(*p.shape).astype(np.float32) * scale))
+    return model.eval()
+
+
+def random_voxels_3d(grid, n_voxels, batch, seed):
+    """`batch` frames of `n_voxels` voxels each, one after the other (the
+    loader's fixed blocks): coordinates [b, 0, y, x] drawn without
+    replacement over each frame's cells (two voxels on one cell would leave
+    the scatter's winner unspecified), 1-20 points of 5 features a voxel,
+    the unused slots zero. Returns numpy (voxels, coordinates, points)."""
+    rs = np.random.RandomState(seed)
+    nx, ny = grid
+    parts = []
+    for b in range(batch):
+        cell = rs.choice(nx * ny, n_voxels, replace=False)
+        n = rs.randint(1, POINTS_3D + 1, n_voxels).astype(np.int32)
+        v = rs.randn(n_voxels, POINTS_3D, 5).astype(np.float32)
+        v[np.arange(POINTS_3D)[None, :] >= n[:, None]] = 0.0
+        c = np.stack([np.full(n_voxels, b), np.zeros(n_voxels, np.int64),
+                      cell // nx, cell % nx], 1).astype(np.int32)
+        parts.append((v, c, n))
+    return tuple(np.concatenate(x) for x in zip(*parts))
+
+
+def lidar_cloud(pc_range, n, seed):
+    """A seeded frame of n points inside pc_range's whole pillars: ranges
+    log-uniform from 2 m to the grid's edge (denser near the sensor, as a
+    spinning lidar's returns are), z around the ground, intensity and
+    elongation in [0, 1)."""
+    rs = np.random.RandomState(seed)
+    edge = min(-pc_range[0], pc_range[0] + grid_3d(pc_range)[0] * VOXEL_3D[0])
+    r = np.exp(rs.uniform(np.log(2.0), np.log(0.999 * edge), n))
+    phi = rs.uniform(-np.pi, np.pi, n)
+    z = np.clip(rs.normal(0.0, 1.0, n), pc_range[2] + 0.01,
+                pc_range[5] - 0.01)
+    return np.stack([r * np.cos(phi), r * np.sin(phi), z, rs.rand(n),
+                     rs.rand(n)], 1).astype(np.float32)
+
+
+def voxelize_frames(clouds, pc_range, max_voxels):
+    """Each cloud through the port's voxelizer at the test processor's 20
+    points a voxel, padded to its fixed block: numpy (voxels, coordinates
+    [b, z, y, x], points) of all frames."""
+    from boxer_tpu_torch.dataset.processor.voxelizer import (pad_voxels,
+                                                             points_to_voxel)
+
+    parts = [pad_voxels(*points_to_voxel(c, VOXEL_3D, pc_range,
+                                         max_points=POINTS_3D,
+                                         max_voxels=max_voxels), b,
+                        max_voxels) for b, c in enumerate(clouds)]
+    return tuple(np.concatenate(x) for x in zip(*parts))
+
+
+def targets_3d(batch, seed, nt=20):
+    """A microbatch (A=1) of `batch` frames of nt normalized boxes (cx, cy,
+    cz, l, w, h, angle), 2 classes."""
+    rs = np.random.RandomState(seed)
+    boxes = np.concatenate([rs.uniform(0.15, 0.85, (batch, nt, 2)),
+                            rs.uniform(0.3, 0.6, (batch, nt, 1)),
+                            rs.uniform(0.01, 0.05, (batch, nt, 2)),
+                            rs.uniform(0.1, 0.3, (batch, nt, 1)),
+                            rs.rand(batch, nt, 1)], -1).astype(np.float32)
+    return {"labels": rs.randint(0, 2, (1, batch, nt)).astype(np.int32),
+            "boxes": boxes[None], "valid": np.ones((1, batch, nt), bool)}
+
+
+def voxel_batch_3d(arrays, targets, grid, batch, dev):
+    """The train step's voxel batch (A=1) on `dev`."""
+    put = lambda x: torch.from_numpy(x).to(dev)
+    vox, coords, npts = arrays
+    return {"voxels": put(vox[None]), "coordinates": put(coords[None]),
+            "num_points_per_voxel": put(npts[None]), "grid_shape": grid,
+            "batch_size": batch,
+            "targets": {k: put(v) for k, v in targets.items()}}
+
+
+def train_setup_3d(model, compute_dtype, debug_grads=False):
+    """The Waymo recipe's criterion, AdamW (lr 1e-3, weight decay 1e-4, eps
+    1e-9, the sampling offsets at 0.1 of the lr), a constant lr and the
+    train step (clip 1.0) around `model`."""
+    from boxer_tpu_torch.criterion.losses import Boxer3DCriterion
+    from boxer_tpu_torch.nn.matcher import HungarianMatcher3d
+    from boxer_tpu_torch.optim import build_optimizer, build_schedule
+    from boxer_tpu_torch.parallel.steps import TrainState, make_train_step
+
+    criterion = Boxer3DCriterion(BENCH_3D["num_classes"],
+                                 HungarianMatcher3d(2, 5, 2, 4),
+                                 TRAIN_WEIGHTS_3D, ["boxes", "focal_labels"])
+    state = TrainState(model, build_optimizer(OPTIM_3D, model),
+                       build_schedule(SCHEDULE, base_lr=1e-3))
+    return criterion, state, make_train_step(
+        criterion, max_norm=1.0, compute_dtype=compute_dtype,
+        debug_grads=debug_grads)
+
+
+def train_batch_3d(dev, seed=0):
+    """Phase 9c's batch: 2 frames of 32,000 voxels at 468x468, 20 targets
+    each."""
+    grid = grid_3d(PC_RANGE_3D)
+    return voxel_batch_3d(
+        random_voxels_3d(grid, VOXELS_3D, TRAIN_BATCH_3D, seed),
+        targets_3d(TRAIN_BATCH_3D, seed), grid, TRAIN_BATCH_3D, dev)
+
+
+def run_3d_inference(dev, smi):
+    """Phase 9: BoxeR-3D inference at full width in bf16, batch 1, 32,000
+    voxels: a warm-up, then ITERS_3D forwards each on the host clock up to a
+    synchronize with the launch counters zeroed just before them (K2 = 8,
+    K3 = 2 a forward), one profiled forward; then one served frame, points
+    -> voxelizer -> pad_voxels -> model -> top-125, timed by stage.
+    Returns (frames/s, counts, result dict)."""
+    from boxer_tpu_torch.dataset.waymo import format_for_evalai
+
+    grid = grid_3d(PC_RANGE_3D)
+    model = build_model_3d(PC_RANGE_3D).to(dev, torch.bfloat16)
+    vox, coords, npts = random_voxels_3d(grid, VOXELS_3D, 1, seed=0)
+    args = (torch.from_numpy(vox).to(dev, torch.bfloat16),
+            torch.from_numpy(coords).to(dev), torch.from_numpy(npts).to(dev),
+            grid, 1)
+    with torch.no_grad():
+        model(*args)
+        torch.cuda.synchronize()
+        times, counts, out = timed(lambda: model(*args), ITERS_3D, dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms = float(np.median(times))
+    label = f"BoxeR-3D {grid[0]}x{grid[1]} {VOXELS_3D} voxels bf16 [{smi}]"
+    log(f"{label}: {1e3 / ms:.3f} frames/s (median {ms:.2f} ms of {ITERS_3D} "
+        f"forwards: {', '.join(f'{t:.2f}' for t in times)}; peak "
+        f"{peak:.2f} GiB), launches {counts}")
+    want = {"pred_logits": (1, 300, 2), "pred_boxes": (1, 300, 7)}
+    for key, shape in want.items():
+        if tuple(out[key].shape) != shape or not torch.isfinite(
+                out[key].float()).all():
+            raise AssertionError(f"{label}: {key} {tuple(out[key].shape)}, "
+                                 f"finite {torch.isfinite(out[key]).all()}")
+    expect = {k: v * ITERS_3D for k, v in INFER_3D_LAUNCHES.items()}
+    if counts != expect:
+        raise AssertionError(f"{label}: launches {counts} != {expect}")
+    with torch.no_grad():
+        busy = profile(lambda: model(*args), ms, "BoxeR-3D forward")
+
+    # one served frame, each stage up to a synchronize
+    from boxer_tpu_torch.dataset.processor.voxelizer import (pad_voxels,
+                                                             points_to_voxel)
+
+    cloud = lidar_cloud(PC_RANGE_3D, SERVE_POINTS, seed=3)
+    for run in range(2):                     # the first warms the shapes
+        stage = {}
+        t0 = time.perf_counter()
+        v, c, n = points_to_voxel(cloud, VOXEL_3D, PC_RANGE_3D,
+                                  max_points=POINTS_3D,
+                                  max_voxels=SERVE_VOXELS)
+        live = len(v)
+        v, c, n = pad_voxels(v, c, n, 0, SERVE_VOXELS)
+        t1 = time.perf_counter()
+        dev_args = (torch.from_numpy(v).to(dev, torch.bfloat16),
+                    torch.from_numpy(c).to(dev), torch.from_numpy(n).to(dev))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            o = model(*dev_args, grid, 1)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            top = format_for_evalai(o["pred_logits"], o["pred_boxes"],
+                                    PC_RANGE_3D, topk=125)
+            torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        stage = {"voxelize + pad (host)": t1 - t0, "to device": t2 - t1,
+                 "model": t3 - t2, "top-125": t4 - t3}
+    boxes = top["pred_boxes3d"].float()
+    lo = torch.tensor(PC_RANGE_3D[:3], device=dev)
+    hi = torch.tensor(PC_RANGE_3D[3:], device=dev)
+    inside = bool(((boxes[..., :3] >= lo) & (boxes[..., :3] <= hi)).all())
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in top.values())
+    log(f"BoxeR-3D served frame [{smi}]: {SERVE_POINTS} points -> {live} "
+        f"voxels (of {SERVE_VOXELS}) -> top-125 in "
+        f"{1e3 * sum(stage.values()):.2f} ms: " + ", ".join(
+            f"{k} {1e3 * t:.2f} ms" for k, t in stage.items())
+        + f"; finite {finite}, centres inside pc_range {inside}")
+    if not (finite and inside and top["pred_scores"].shape == (1, 125)):
+        raise AssertionError("BoxeR-3D served frame: bad top-125")
+    del model
+    torch.cuda.empty_cache()
+    return 1e3 / ms, counts, dict(ms=ms, times=times, peak=peak, busy=busy,
+                                  serve_ms={k: 1e3 * t for k, t in
+                                            stage.items()})
+
+
+def sampling_spread(model, args):
+    """How far the perturbed heads move the sampling of the encoder's and
+    the decoder's first Box3dAttention in one forward of `model` (CPU):
+    the largest move of a sampling point, in pixels of level 0, against
+    the same module with a zero `linear_box_weight`, and the decoder's
+    largest |dθ| in radians."""
+    from boxer_tpu_torch.nn.attention import _offsets
+
+    mods = {"encoder": model.transformer.encoder.layers[0].self_attn,
+            "decoder": model.transformer.decoder.layers[0].multihead_attn}
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, a, k=k: seen.__setitem__(k, (a[0], a[2], a[5])))
+        for k, m in mods.items()]
+    with torch.no_grad():
+        model(*args)
+    for h in hooks:
+        h.remove()
+    px = {}
+    with torch.no_grad():
+        for k, m in mods.items():
+            q, shapes, ref = seen[k]
+            gx, gy = m._where_to_attend(q, None, ref)
+            saved = m.linear_box_weight.clone()
+            m.linear_box_weight.zero_()
+            gx0, gy0 = m._where_to_attend(q, None, ref)
+            m.linear_box_weight.copy_(saved)
+            (hl, wl) = shapes[0]
+            px[k] = float(torch.maximum((gx - gx0)[:, :, 0].abs() * wl,
+                                        (gy - gy0)[:, :, 0].abs() * hl).max())
+        dtheta = float((_offsets(mods["decoder"], seen["decoder"][0])[
+            :, :, :, 4] / 16 * 2 * np.pi).abs().max())
+    return px, dtheta
+
+
+def card_vs_cpu_3d(dev):
+    """Phase 9b: one served frame at a 128x128 grid in f32 through the
+    perturbed model, card (kernels) against CPU (plain versions): identical
+    top-125 labels, scores and metric boxes within atol 1e-3."""
+    from boxer_tpu_torch.dataset.waymo import format_for_evalai
+
+    grid = grid_3d(E2E_PC_3D)
+    model = build_model_3d(E2E_PC_3D, seed=1, noise_seed=2)
+    arrays = voxelize_frames([lidar_cloud(E2E_PC_3D, 40000, seed=4)],
+                             E2E_PC_3D, E2E_VOXELS_3D)
+    args = [torch.from_numpy(a) for a in arrays] + [grid, 1]
+    px, dtheta = sampling_spread(model, args)
+
+    def top(device):
+        m = model.to(device)
+        with torch.no_grad():
+            o = m(*(a.to(device) if torch.is_tensor(a) else a for a in args))
+            return {k: v.cpu() for k, v in format_for_evalai(
+                o["pred_logits"], o["pred_boxes"], E2E_PC_3D).items()}
+
+    want = top(torch.device("cpu"))
+    before = {k: f.launches for k, f in counters().items()}
+    got = top(dev)
+    torch.cuda.synchronize()
+    after = {k: f.launches - before[k] for k, f in counters().items()}
+    label_eq = bool((got["pred_labels"] == want["pred_labels"]).all())
+    score_err = float((got["pred_scores"] - want["pred_scores"]).abs().max())
+    box_err = float((got["pred_boxes3d"] - want["pred_boxes3d"]).abs().max())
+    log(f"BoxeR-3D card vs CPU at {grid[0]}x{grid[1]} f32 (launches "
+        f"{after}): top-125 labels equal {label_eq}, score max abs err "
+        f"{score_err:.3e}, box max abs err {box_err:.3e} m; the perturbed "
+        f"heads move sampling points up to {px['encoder']:.2f} px "
+        f"(encoder) and {px['decoder']:.2f} px (decoder) of level 0, dθ up "
+        f"to {dtheta:.3f} rad")
+    if after != INFER_3D_LAUNCHES:
+        raise AssertionError(f"BoxeR-3D card run: launches {after}")
+    if min(px.values()) <= 1.0 or dtheta <= 0.3:
+        raise AssertionError("the perturbed heads barely move the sampling")
+    if not (label_eq and score_err <= 1e-3 and box_err <= 1e-3):
+        raise AssertionError("BoxeR-3D: card and CPU disagree")
+    return dict(score_err=score_err, box_err=box_err, px=px, dtheta=dtheta)
+
+
+def check_grads_3d(grads, label):
+    """Every gradient finite; every Box3dAttention's value_proj, linear_box
+    (its dθ rows too, in the decoder) and linear_attn gradient not all
+    zero."""
+    bad = [n for n, g in grads.items()
+           if g is None or not bool(torch.isfinite(g).all())]
+    if bad:
+        raise AssertionError(f"{label}: missing or non-finite grads {bad}")
+    watched = {n: g for n, g in grads.items()
+               if n.endswith(("value_proj.weight", "linear_box_weight",
+                              "linear_attn_weight"))}
+    zero = [n for n, g in watched.items() if not bool(g.abs().max() > 0)]
+    for n, g in watched.items():
+        if n.endswith("linear_box_weight") and g.shape[0] % 5 == 0 and \
+                "decoder" in n:
+            # rows (head, level, variable): the 5th variable is dθ
+            if not bool(g.reshape(-1, 5, g.shape[-1])[:, 4].abs().max() > 0):
+                zero.append(n + " (dθ rows)")
+    n_layers = BENCH_3D["enc_layers"] + BENCH_3D["dec_layers"]
+    if zero or len(watched) != 3 * n_layers:
+        raise AssertionError(f"{label}: zero grads in {zero} "
+                             f"({len(watched)} watched)")
+
+
+def run_train_3d(dev, smi):
+    """Phase 9c: the BoxeR-3D train step at full width, batch 2 (two frames
+    of 32,000 voxels, 20 targets each), f32 parameters, bf16 autocast: a
+    checked warm-up step, TRAIN_STEPS timed ones with the counters zeroed
+    just before them (K2 = 8, K5 = 8, K3 = 2 a step), one profiled step.
+    Returns (median ms/step, peak GiB, counts, result dict)."""
+    from boxer_tpu_torch.parallel.steps import make_train_step
+
+    model = build_model_3d(PC_RANGE_3D).to(dev).train()
+    criterion, state, step = train_setup_3d(model, torch.bfloat16)
+    debug_step = make_train_step(criterion, max_norm=1.0,
+                                 compute_dtype=torch.bfloat16,
+                                 debug_grads=True)
+    batch = train_batch_3d(dev)
+    label = (f"BoxeR-3D train 468x468 batch {TRAIN_BATCH_3D} bf16 autocast "
+             f"[{smi}]")
+    terms = ["total_loss", "loss_ce", "loss_bbox", "loss_giou", "loss_rad",
+             "loss_ce_enc_0", "loss_rad_enc_0", "grad_norm"]
+    state, first = debug_step(state, batch)
+    torch.cuda.synchronize()
+    check_grads_3d(first.pop("_grads"), label)
+    all_stats = [first]
+    times, counts, _ = timed(
+        lambda: all_stats.append(step(state, batch)[1]), TRAIN_STEPS, dev)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms = float(np.median(times))
+    log(f"{label}: {ms:.2f} ms/step median of {TRAIN_STEPS} steps "
+        f"({', '.join(f'{t:.2f}' for t in times)}); peak {peak:.2f} GiB; "
+        f"launches per step "
+        f"{({k: v / TRAIN_STEPS for k, v in counts.items()})}")
+    for name, st in (("first", all_stats[0]), ("last", all_stats[-1])):
+        log(f"  {name} step: " + ", ".join(f"{k} {st[k]:.5g}" for k in terms))
+    for i, st in enumerate(all_stats):
+        if st["skipped"] != 0.0 or not all(np.isfinite(v)
+                                           for v in st.values()):
+            raise AssertionError(f"{label}: step {i} skipped or not finite: "
+                                 f"{st}")
+    expect = {k: v * TRAIN_STEPS for k, v in TRAIN_3D_LAUNCHES.items()}
+    if counts != expect or state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"{label}: launches {counts} != {expect}, "
+                             f"step {state.step}")
+    busy = profile(lambda: step(state, batch), ms, "BoxeR-3D train step")
+    del model, state, step, debug_step
+    torch.cuda.empty_cache()
+    return ms, peak, counts, dict(times=times, busy=busy,
+                                  first={k: all_stats[0][k] for k in terms},
+                                  last={k: all_stats[-1][k] for k in terms})
+
+
+def train_card_vs_cpu_3d(dev):
+    """Phase 9d: one f32 BoxeR-3D train step at the 128x128 grid with phase
+    9b's weights, on 2 served frames with 20 targets each: CPU (plain
+    versions), card (kernels), and card with the fused K5 swapped for its
+    plain version (the same forward)."""
+    from boxer_tpu_torch.ops import box_attention as ba
+    from boxer_tpu_torch.ops import scatter_accum as sa
+
+    grid = grid_3d(E2E_PC_3D)
+    model = build_model_3d(E2E_PC_3D, seed=1, noise_seed=2).train()
+    arrays = voxelize_frames([lidar_cloud(E2E_PC_3D, 40000, seed=s)
+                              for s in (5, 6)], E2E_PC_3D, E2E_VOXELS_3D)
+    targets = targets_3d(2, seed=7)
+
+    def run(device):
+        return recorded_step(
+            model, device,
+            lambda m: train_setup_3d(m, torch.float32, debug_grads=True),
+            voxel_batch_3d(arrays, targets, grid, 2, device))
+
+    want, want_qi, cpu_launches = run(torch.device("cpu"))
+    got, got_qi, launches = run(dev)
+    kernel = ba.scatter_add_rows_weighted_dw4
+    ba.scatter_add_rows_weighted_dw4 = sa.scatter_accum_dw4_plain
+    try:
+        plain, _, plain_launches = run(dev)
+    finally:
+        ba.scatter_add_rows_weighted_dw4 = kernel
+    if any(cpu_launches.values()) or launches != TRAIN_3D_LAUNCHES or \
+            plain_launches["K5"]:
+        raise AssertionError(f"launches: CPU {cpu_launches}, card "
+                             f"{launches}, card with plain K5 "
+                             f"{plain_launches}")
+    same_match = len(got_qi) == len(want_qi) == 2 and all(
+        torch.equal(g, w) for g, w in zip(got_qi, want_qi))
+    keys = [k for k in want if k.startswith("loss_")] + ["total_loss"]
+    loss_err = max(rel_err(got[k], want[k]) for k in keys)
+    norm_err = rel_err(got["grad_norm"], want["grad_norm"])
+    cpu_err, cpu_leaf, _ = leaf_errs(got, want)
+    k5_err, k5_leaf, _ = leaf_errs(got, plain)
+    log(f"BoxeR-3D train step at {grid[0]}x{grid[1]} f32: card vs CPU "
+        f"{len(got_qi)} matches (the encoder's binary one, then the decoder "
+        f"layers') identical {same_match}, loss terms ({len(keys)}) worst rel "
+        f"err {loss_err:.3e}, grad norm {norm_err:.3e}, pre-clip grads worst "
+        f"leaf {cpu_err:.3e} ({cpu_leaf}); card K5 (d_table and d_w4) vs its "
+        f"plain version in the same step: worst leaf {k5_err:.3e} "
+        f"({k5_leaf})")
+    # the leaves at 0.1, as phase 8 says why; K5 at 1e-4 in the same forward
+    if not (same_match and loss_err <= 1e-4 and norm_err <= 1e-3
+            and cpu_err <= 0.1 and k5_err <= 1e-4):
+        raise AssertionError("BoxeR-3D train step: card and CPU disagree")
+    return dict(loss_err=loss_err, norm_err=norm_err, grad_err=cpu_err,
+                k5_err=k5_err)
 
 
 def main():
@@ -1063,6 +1535,16 @@ def main():
     train_card_vs_cpu(dev)
     train_folded_vs_pertap(dev)
 
+    # 9. BoxeR-3D inference at full width and a served frame; 9b. card
+    # against CPU; 9c. its train step at full width; 9d. one f32 step, card
+    # against CPU
+    t9 = time.perf_counter()
+    fps_3d, runs["3d"], infer_3d = run_3d_inference(dev, smi)
+    card_vs_cpu_3d(dev)
+    ms_3d, peak_3d, runs["3d train"], train_3d = run_train_3d(dev, smi)
+    train_card_vs_cpu_3d(dev)
+    log(f"phases 9-9d took {time.perf_counter() - t9:.1f} s")
+
     # K7a has no caller in the package: its launches are those of its
     # op-level run in phase 3c; the T rows' those of the shootout
     qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
@@ -1111,6 +1593,11 @@ def main():
         f"train detection {det_ms:.2f} ms/step (peak {det_peak:.2f} GiB), "
         f"folded {fold_ms:.2f} ms/step (peak {fold_peak:.2f} GiB, device busy "
         f"{100 * fold_busy[1]:.1f}%)")
+    log(f"BoxeR-3D [{smi}]: {fps_3d:.3f} frames/s at 468x468 (peak "
+        f"{infer_3d['peak']:.2f} GiB, device busy {infer_3d['busy'][0]:.2f} "
+        f"ms of {infer_3d['ms']:.2f}); train {ms_3d:.2f} ms/step at batch "
+        f"{TRAIN_BATCH_3D} (peak {peak_3d:.2f} GiB, device busy "
+        f"{train_3d['busy'][0]:.2f} ms)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

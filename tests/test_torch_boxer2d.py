@@ -208,5 +208,6 @@ def test_port_imports_no_jax():
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert "boxer_tpu_torch.models.boxer2d" in res.stdout
+    assert "boxer_tpu_torch.models.boxer3d" in res.stdout
     assert "boxer_tpu_torch.ops._build" in res.stdout
     assert "boxer_tpu_torch.tools.bench_combine" in res.stdout

@@ -722,3 +722,100 @@ def test_scatter_dw4_cuda_matches_plain(cuda, per_tap, p, m, one_row,
     for a, b in ((got[0], want[0]), (got[1], want[1]),
                  (only_table[0], want[0]), (only_w4[1], want[1])):
         assert _rel_err(a.cpu().numpy(), b.cpu().numpy()) <= RTOL
+
+
+# BoxeR-3D's encoder sampling level at 468x468: 8 heads x 68,445 queries,
+# P=4 taps, on level 0's 8 x 235 x 235 quad table (encoder level 234x234)
+M_3D, ROWS_3D = 8 * 68445, 8 * 235 * 235
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quad_sample_reduce_w4_cuda_boxer3d_shape(cuda, dtype):
+    """K2 at P=4, M=547,560 on the 441,800-row table, taps on its first and
+    last rows."""
+    rs = np.random.RandomState(50)
+    idx = torch.from_numpy(rs.randint(0, ROWS_3D, (4, M_3D)).astype(np.int32))
+    idx[0, :2] = torch.tensor([0, ROWS_3D - 1], dtype=torch.int32)
+    w4 = torch.from_numpy(rs.rand(4, 4, M_3D).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rs.randn(ROWS_3D, 128).astype(np.float32)).to(
+        cuda, dtype)
+    idx = idx.to(cuda)
+    got = quad_sample_reduce_w4(table, idx, w4)
+    want = quad_sample_reduce_plain(table, idx, w4=w4)
+    torch.cuda.synchronize()
+    assert got.shape == (M_3D, 32)
+    assert _rel_err(got.cpu().numpy(), want.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16])
+def test_scatter_dw4_cuda_boxer3d_shape(cuda, g_dtype):
+    """The fused K5 (d_table and d_w4) at P=4, M=547,560 on the 441,800-row
+    bf16 table, taps on its first and last rows."""
+    rs = np.random.RandomState(51)
+    idx = torch.from_numpy(rs.randint(0, ROWS_3D, (4, M_3D)).astype(np.int32))
+    idx[0, :2] = torch.tensor([0, ROWS_3D - 1], dtype=torch.int32)
+    g = torch.from_numpy(rs.randn(M_3D, 32).astype(np.float32)).to(
+        cuda, g_dtype)
+    w4 = torch.from_numpy(rs.rand(4, 4, M_3D).astype(np.float32)).to(cuda)
+    table = torch.from_numpy(rs.randn(ROWS_3D, 128).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    idx = idx.to(cuda)
+    before = scatter_add_rows_weighted.launches
+    got = scatter_add_rows_weighted_dw4(idx, g, w4, table, False)
+    want = scatter_accum_dw4_plain(idx, g, w4, table, False)
+    torch.cuda.synchronize()
+    assert scatter_add_rows_weighted.launches == before + 1
+    assert got[0].shape == (ROWS_3D, 128) and got[1].shape == (4, 4, M_3D)
+    for a, b in zip(got, want):
+        assert _rel_err(a.cpu().numpy(), b.cpu().numpy()) <= RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_rotation", [False, True],
+                         ids=["encoder", "decoder"])
+def test_box3d_attention_cuda_grads_match_plain_k5(cuda, monkeypatch,
+                                                   with_rotation):
+    """`Box3dAttention`'s gradients on the card (forward K2, backward the
+    fused K5) against the same module with K5 swapped for its plain
+    version: every parameter and the query, value and reference windows'
+    inputs (rel 1e-4: f32 atomics add in another order)."""
+    from boxer_tpu_torch.nn.attention import Box3dAttention
+    from boxer_tpu_torch.ops import box_attention as ba
+
+    shapes, nh, d, lq = ((40, 48), (20, 24)), 8, 256, 500
+    rs = np.random.RandomState(52)
+    torch.manual_seed(0)
+    attn = Box3dAttention(d, len(shapes), nh, with_rotation).to(cuda)
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.copy_(torch.from_numpy(rs.randn(*p.shape).astype(np.float32)
+                                     / np.sqrt(p.shape[-1])))
+    query = rs.randn(1, lq, d).astype(np.float32)
+    value = rs.randn(1, sum(h * w for h, w in shapes), d).astype(np.float32)
+    ref_shape = (1, lq) if with_rotation else (1, lq, nh)
+    ref = np.concatenate([rs.uniform(0.1, 0.9, ref_shape + (2,)),
+                          rs.uniform(0.05, 0.2, ref_shape + (2,)),
+                          rs.rand(*ref_shape, 1)], -1).astype(np.float32)
+    cot = torch.from_numpy(rs.randn(1, lq, d).astype(np.float32)).to(cuda)
+
+    def grads():
+        attn.zero_grad()
+        q, v = (torch.from_numpy(a).to(cuda).requires_grad_()
+                for a in (query, value))
+        out, _ = attn(q, v, shapes, None, None, torch.from_numpy(ref).to(cuda))
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        return [q.grad, v.grad] + [p.grad.clone() for p in attn.parameters()]
+
+    before = scatter_add_rows_weighted.launches
+    got = grads()
+    assert scatter_add_rows_weighted.launches == before + len(shapes)
+    monkeypatch.setattr(ba, "scatter_add_rows_weighted_dw4",
+                        scatter_accum_dw4_plain)
+    want = grads()
+    assert scatter_add_rows_weighted.launches == before + len(shapes)
+    for g, w in zip(got, want):
+        assert float(w.abs().max()) > 0
+        assert _rel_err(g.cpu().numpy(), w.cpu().numpy()) <= 1e-4
