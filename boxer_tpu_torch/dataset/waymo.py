@@ -1,13 +1,25 @@
 """Waymo detections from BoxeR-3D outputs; the computation of
 `boxer_tpu/dataset/waymo.py:WaymoDataset.format_for_evalai` (without the
-local-eval metadata), on the outputs' device.
+local-eval metadata), on the outputs' device; and the BEV grid a served
+frame runs at.
 """
 
 import math
 
+import numpy as np
 import torch
 
 from boxer_tpu_torch.utils.general import top_k
+
+
+def grid_shape(pc_range, voxel_size):
+    """(nx, ny): the voxelizer's BEV grid over pc_range, the rounded count
+    of pillars as `WaymoDataset.grid_shape` takes it (469 x 469 for the
+    shipped config's 150 m at 0.32 m). A model run at a smaller grid would
+    fold the last column's pillars into the next row."""
+    lo, hi = (np.asarray(pc_range[i:i + 3], np.float32) for i in (0, 3))
+    size = np.round((hi - lo) / np.asarray(voxel_size, np.float32))
+    return int(size[0]), int(size[1])
 
 
 def format_for_evalai(pred_logits, pred_boxes, pc_range, topk: int = 125):

@@ -10,7 +10,7 @@ outputs are `enc_outputs` in training).
 import torch
 from torch import nn
 
-from boxer_tpu_torch.nn.backbone3d import Backbone3d, build_backbone3d
+from boxer_tpu_torch.nn.backbone3d import build_backbone3d
 from boxer_tpu_torch.nn.box3d_transformer import Box3dTransformer
 from boxer_tpu_torch.nn.init import reset_default_, xavier_uniform_
 from boxer_tpu_torch.nn.point_pillar import GN_EPS
@@ -24,19 +24,16 @@ class BoxeR3D(nn.Module):
                  nhead: int = 8, num_level: int = 2, enc_layers: int = 2,
                  dec_layers: int = 2, dim_feedforward: int = 1024,
                  dropout: float = 0.0, num_queries: int = 300,
-                 aux_loss: bool = True, ref_size: int = 4,
-                 backbone_cfg=None):
+                 aux_loss: bool = True, ref_size: int = 4, *,
+                 backbone_cfg: dict):
         """backbone_cfg: the config's `backbone` dict ({"type":
-        "pointpillar", "params": {...}}), or None for `Backbone3d`'s
-        defaults."""
+        "pointpillar", "params": {...}})."""
         super().__init__()
         # every shipped config trains with dropout 0; forward(train=True)
         # refuses any other value (dropout is not ported)
         self.dropout = dropout
         self.num_level = num_level
-        self.backbone = (build_backbone3d(backbone_cfg) if backbone_cfg
-                         else Backbone3d(hidden_dim=hidden_dim,
-                                         ref_size=ref_size))
+        self.backbone = build_backbone3d(backbone_cfg)
         in_channels = self.backbone.num_channels
         assert len(in_channels) == num_level, (in_channels, num_level)
         self.input_proj = nn.ModuleList(

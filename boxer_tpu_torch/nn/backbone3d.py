@@ -7,7 +7,7 @@ convolutions run NCHW inside. Parameter names: `reader.pfn_layers.{i}`,
 GroupNorm, flax's eps 1e-6).
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Sequence, Tuple
 
 from torch import nn
 
@@ -50,57 +50,48 @@ class ConvNet(nn.Module):
 
 
 class Backbone3d(nn.Module):
-    def __init__(self, hidden_dim: int = 256, reader_cfg: Optional[dict] = None,
-                 neck_cfg: Optional[dict] = None, ref_size: int = 4,
-                 position_encoding: Optional[str] = "fixed_box",
-                 return_layers: int = 2):
+    """The pillar reader, the BEV scatter and the ConvNet neck; the last
+    `return_layers` neck stages with their position encodings."""
+
+    def __init__(self, hidden_dim: int, reader_cfg: dict, neck_cfg: dict,
+                 ref_size: int, position_encoding: str, return_layers: int):
         super().__init__()
         self.hidden_dim, self.ref_size = hidden_dim, ref_size
         self.position_encoding, self.return_layers = (position_encoding,
                                                       return_layers)
-        self.reader = PillarFeatureNet(**(reader_cfg or {}))
+        self.reader = PillarFeatureNet(**reader_cfg)
         self.extractor = PointPillarsScatter()
         c = self.reader.pfn_layers[-1].linear.out_features
-        self.neck = None if neck_cfg is None else ConvNet(c, **neck_cfg)
-        self.num_channels = ([c] if neck_cfg is None
-                             else list(neck_cfg["ds_filters"])
-                             )[-return_layers:]
+        self.neck = ConvNet(c, **neck_cfg)
+        self.num_channels = list(neck_cfg["ds_filters"])[-return_layers:]
 
     def forward(self, voxels, coordinates, num_points_per_voxel,
                 batch_size: int, input_shape: Tuple[int, int]):
         """Returns ([(feature NHWC, None)] of the last `return_layers`
-        levels, [position encoding NHWC or None])."""
+        levels, [position encoding NHWC])."""
         feats = self.reader(voxels, num_points_per_voxel, coordinates)
         canvas = self.extractor(feats, coordinates, batch_size, input_shape)
-        if self.neck is None:
-            outs = [canvas]
-        else:
-            outs = [x.permute(0, 2, 3, 1)
-                    for x in self.neck(canvas.permute(0, 3, 1, 2))]
-        outs = [(x, None) for x in outs[-self.return_layers:]]
-        if self.position_encoding is None:
-            return outs, [None] * len(outs)
+        outs = [(x.permute(0, 2, 3, 1), None) for x in self.neck(
+            canvas.permute(0, 3, 1, 2))[-self.return_layers:]]
         pe = build_position_encoding(self.position_encoding, self.hidden_dim)
         return outs, [pe(x, None, self.ref_size).to(x.dtype) for x, _ in outs]
 
 
 def build_backbone3d(config) -> Backbone3d:
-    """From a `{"type": "pointpillar", "params": {...}}` config, with the JAX
-    package's defaults."""
+    """From a `{"type": "pointpillar", "params": {...}}` config that names
+    the reader, the neck and the position encoding, as the shipped Waymo
+    config does."""
     params = config["params"]
     assert config["type"] == "pointpillar", config["type"]
-    neck = params.get("neck")
-    neck_cfg = None if neck is None else {
-        k: tuple(neck[k]) for k in ("num_layers", "ds_strides", "ds_filters")}
-    reader = params.get("reader", {})
-    reader_cfg = {
-        "num_input_features": reader.get("num_input_features", 5),
-        "num_filters": tuple(reader.get("num_filters", (64,))),
-        "voxel_size": tuple(reader.get("voxel_size", (0.32, 0.32, 6.0))),
-        "pc_range": tuple(reader.get("pc_range",
-                                     (-74.88, -74.88, -2, 74.88, 74.88, 4))),
-    }
-    return Backbone3d(hidden_dim=params["hidden_dim"], reader_cfg=reader_cfg,
-                      neck_cfg=neck_cfg, ref_size=params.get("ref_size", 4),
-                      position_encoding=params.get("position_encoding"),
-                      return_layers=params.get("return_layers", 2))
+    neck, reader = params["neck"], params["reader"]
+    return Backbone3d(
+        hidden_dim=params["hidden_dim"],
+        reader_cfg={k: reader[k] if k == "num_input_features"
+                    else tuple(reader[k]) for k in (
+                        "num_input_features", "num_filters", "voxel_size",
+                        "pc_range")},
+        neck_cfg={k: tuple(neck[k])
+                  for k in ("num_layers", "ds_strides", "ds_filters")},
+        ref_size=params.get("ref_size", 4),
+        position_encoding=params["position_encoding"],
+        return_layers=params.get("return_layers", 2))

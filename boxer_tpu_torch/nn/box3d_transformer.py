@@ -66,8 +66,8 @@ class Box3dEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
 
     def forward(self, src, pos, v_shape: Shapes, ref_windows):
-        q = src if pos is None else src + pos
-        src2, _ = self.self_attn(q, src, v_shape, None, None, ref_windows)
+        src2, _ = self.self_attn(src + pos, src, v_shape, None, None,
+                                 ref_windows)
         src = self.norm1(src + src2)
         return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
 
@@ -88,11 +88,10 @@ class Box3dDecoderLayer(nn.Module):
         self.linear2 = nn.Linear(dim_feedforward, d_model)
 
     def forward(self, tgt, query_pos, memory, v_shape: Shapes, ref_windows):
-        q = k = tgt if query_pos is None else tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(q, k, tgt))
-        q2 = tgt if query_pos is None else tgt + query_pos
-        tgt2, _ = self.multihead_attn(q2, memory, v_shape, None, None,
-                                      ref_windows)
+        q = tgt + query_pos
+        tgt = self.norm1(tgt + self.self_attn(q, q, tgt))
+        tgt2, _ = self.multihead_attn(tgt + query_pos, memory, v_shape, None,
+                                      None, ref_windows)
         tgt = self.norm2(tgt + tgt2)
         return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
 

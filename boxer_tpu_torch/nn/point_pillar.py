@@ -6,6 +6,16 @@ voxelizer and `pad_voxels` emit them. Parameter names are the reference
 PointPillars ones (`reader.pfn_layers.{i}.linear`, `.norm`). The norm is
 flax's GroupNorm on (V, P, C): statistics per voxel over its P points
 (masked points, zeroed, included) and each group's channels, eps 1e-6.
+
+One difference from the JAX package, by design: the norm takes its
+variance in two passes, and its gradient on centred values (`group_norm`).
+A one-point pillar's masked rows all repeat the pillar's max, so a group
+can be near-constant over its points; flax's default one-pass variance,
+E[x²] - E[x]², and torch's fused GroupNorm backward, Σ dy·x - mean·Σ dy,
+both cancel there and lose the digits, where the two-pass form keeps
+them (`tests/test_torch_boxer3d.py` holds the port to flax's pillar net
+run in float64, and a train step on one-point pillars to its float64
+run).
 """
 
 from typing import Sequence, Tuple
@@ -17,6 +27,22 @@ from torch import nn
 from boxer_tpu_torch.nn.init import xavier_uniform_
 
 GN_EPS = 1e-6       # flax GroupNorm's epsilon
+
+
+def group_norm(h, norm: nn.GroupNorm):
+    """`norm` on h (V, P, C), statistics per voxel over P and each group's
+    channels, in f32 at least and in two passes, written out so that
+    autograd's backward works on the centred values too. The output's type
+    is h's and the weight's promoted (f32 under autocast, as torch's
+    GroupNorm)."""
+    v, p, c = h.shape
+    acc = torch.promote_types(h.dtype, torch.float32)
+    g = h.to(acc).reshape(v, p, norm.num_groups, c // norm.num_groups)
+    xc = g - g.mean(dim=(1, 3), keepdim=True)
+    var = xc.square().mean(dim=(1, 3), keepdim=True)
+    out = (xc * torch.rsqrt(var + norm.eps)).reshape(v, p, c)
+    out = out * norm.weight.to(acc) + norm.bias.to(acc)
+    return out.to(torch.promote_types(h.dtype, norm.weight.dtype))
 
 
 class PFNLayer(nn.Module):
@@ -36,7 +62,7 @@ class PFNLayer(nn.Module):
         last layer, else (V, P, 2 * out): the masked points' features beside
         the voxel's max."""
         h = self.linear(x)
-        h = F.relu(self.norm(h.transpose(1, 2)).transpose(1, 2))
+        h = F.relu(group_norm(h, self.norm))
         h = h.masked_fill(~point_mask[..., None], -1e9)
         h_max = h.amax(dim=1, keepdim=True)
         if self.last_layer:

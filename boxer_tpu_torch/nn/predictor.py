@@ -185,17 +185,13 @@ class Detector3d(nn.Module):
 
     reset_parameters_ = _reset_focal_head
 
-    def forward(self, x, ref_windows, x_mask=None):
+    def forward(self, x, ref_windows):
         """x: (nl, B, L, C); ref_windows: (B, L, 7) raw-order boxes in
-        [0, 1]; x_mask (nl, B, L) bool: NEG_INF logits and zero boxes."""
+        [0, 1]."""
         outputs_class = self.class_embed(x)
         outputs_coord = self.bbox_embed(x).float() + inverse_sigmoid(
             ref_windows.float())
         outputs_coord = torch.sigmoid(_permute_7dof(outputs_coord))
-        if x_mask is not None:
-            outputs_class = outputs_class.masked_fill(x_mask[..., None],
-                                                      NEG_INF)
-            outputs_coord = outputs_coord.masked_fill(x_mask[..., None], 0.0)
         return _layer_outputs(outputs_class, outputs_coord, self.aux_loss)
 
 
@@ -213,14 +209,13 @@ class MultiDetector3d(nn.Module):
 
     reset_parameters_ = _reset_focal_head
 
-    def forward(self, x, ref_windows, x_mask=None):
+    def forward(self, x, ref_windows):
         """x: (nl, B, L, C); ref_windows: (B, L, >=R, 5) normalized (cx, cy,
         l, w, rad)."""
         nl, b, l = x.shape[:3]
         r = self.num_references
         ref = ref_windows[..., :r, :]
-        valid = ((ref[..., :2] > 0.001) & (ref[..., :2] < 0.999)).all(-1)
-        mask = ~valid if x_mask is None else x_mask[..., None] | ~valid
+        mask = ~((ref[..., :2] > 0.001) & (ref[..., :2] < 0.999)).all(-1)
         outputs_class = self.class_embed(x).reshape(nl, b, l, r, -1)
         coord = self.bbox_embed(x).float().reshape(nl, b, l, r, 7)
         box = coord[..., :5] + inverse_sigmoid(ref.float())

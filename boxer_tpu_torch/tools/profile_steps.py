@@ -16,17 +16,19 @@ from there. The forward runs at `chip_smoke`'s phase 6 (bf16 weights, batch
 m-major forward runs K8 at every level, the folded step K7b in the backward
 of every box-attention level. BoxeR-3D runs at `chip_smoke`'s phases 9 and
 9c (468x468, bf16 forward of 32,000 voxels; a train step of 2 frames, f32
-parameters, bf16 autocast), where the tree's `chip_smoke` has them. Each runs twice to warm up, once timed on the
-host clock up to a synchronize, once profiled. Prints, for each, the
-device's summed kernel time against the wall time, and the device time and
-calls of each of the port's kernels (by name: `quad_sample_reduce`,
-`flash_fwd`, `scatter_weighted`, `scatter_rows` and `rows_` (the row
-scatter's kernels, before and after it was split in four), `Memset`), then
-one JSON line {"tree": ..., "busy_ms": {run: ms}, "kernels": {run:
-{kernel: ms}}}.
+parameters, bf16 autocast), where the tree's `chip_smoke` has them. Each
+runs twice to warm up, WALL_RUNS times each on the host clock up to a
+synchronize, once profiled. Prints, for each, the device's summed kernel
+time against the median wall time and the wall times' spread, and the
+device time and calls of each of the port's kernels (by name:
+`quad_sample_reduce`, `flash_fwd`, `scatter_weighted`, `scatter_rows` and
+`rows_` (the row scatter's kernels, before and after it was split in
+four), `Memset`), then one JSON line {"tree": ..., "busy_ms": {run: ms},
+"wall_ms": {run: [ms, ...]}, "kernels": {run: {kernel: ms}}}.
 """
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -35,20 +37,23 @@ import torch
 
 PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "scatter_weighted",
                 "scatter_rows", "rows_", "Memset")
+WALL_RUNS = 5
 
 
 def profile(fn):
-    """fn() twice to warm up, once on the host clock, once under the
-    profiler: (wall ms, device busy ms, {port kernel: (ms, calls)})."""
+    """fn() twice to warm up, WALL_RUNS times on the host clock, once under
+    the profiler: ([wall ms], device busy ms, {port kernel: (ms, calls)})."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
+    wall = []
+    for _ in range(WALL_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         fn()
@@ -73,12 +78,16 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
     dev = torch.device("cuda", 0)
-    busy, kernels = {}, {}
+    busy, walls, kernels = {}, {}, {}
 
     def report(key, wall, ms, ours):
-        busy[key], kernels[key] = ms, {k: v[0] for k, v in ours.items()}
-        print(f"{key}, {tree}: device busy {ms:.2f} ms of a {wall:.2f} ms "
-              f"run ({100 * ms / wall:.1f}%); the port's kernels:", flush=True)
+        busy[key], walls[key] = ms, wall
+        kernels[key] = {k: v[0] for k, v in ours.items()}
+        med = statistics.median(wall)
+        print(f"{key}, {tree}: device busy {ms:.2f} ms of a {med:.2f} ms "
+              f"run ({100 * ms / med:.1f}%; median of {len(wall)}, "
+              f"{min(wall):.2f}-{max(wall):.2f}); the port's kernels:",
+              flush=True)
         for name, (k_ms, calls) in sorted(ours.items(),
                                           key=lambda x: -x[1][0]):
             print(f"  {k_ms:8.3f} ms  {calls:4d}x  {name[:100]}", flush=True)
@@ -117,8 +126,8 @@ def main():
         report("boxer3d_train", *profile(lambda: step(state, batch)))
         del model, state, step
         torch.cuda.empty_cache()
-    print(json.dumps({"tree": tree, "busy_ms": busy, "kernels": kernels}),
-          flush=True)
+    print(json.dumps({"tree": tree, "busy_ms": busy, "wall_ms": walls,
+                      "kernels": kernels}), flush=True)
 
 
 if __name__ == "__main__":

@@ -65,7 +65,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
    step at 256x384 on the card, folded against per-tap with the same
    weights and batch (identical matches, loss terms 1e-4, gradient norm
    1e-3, worst leaf 0.1), and the folded step with K7b swapped for its plain
-   version (worst leaf 1e-4).
+   version (worst leaf 1e-4);
+9. BoxeR-3D at the Waymo config's width: bf16 inference at 468x468 on
+   32,000 drawn voxels (frames/s, launches K2 8 and K3 2 a forward, a
+   profiled forward), then one served frame: 180,000 points over the whole
+   pc_range -> the voxelizer -> pad_voxels -> the model at the voxelizer's
+   469x469 grid -> the top-125, ms by stage, every kept pillar on a canvas
+   cell of its own; (9b) card against CPU at 128x128 in f32 with perturbed
+   heads (top-125 labels equal, scores and metric boxes within 1e-3);
+   (9c) the batch-2 train step under bf16 autocast (launches K2 8, K5 8,
+   K3 2 a step; finite gradients, non-zero on every sampling projection);
+   (9d) one f32 step at 128x128, card against CPU by phase 8's rules on
+   frames whose matches clear every tie by 1e-4, and K5 against its plain
+   version in the card's step (worst leaf 1e-4).
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
 of their own, and one JSON line of per-kernel results (one row per kernel
@@ -875,22 +887,31 @@ def k7b_in_model(dev):
 
 
 class RecordingMatcher:
-    """A matcher that keeps every match it returns (on the CPU)."""
+    """A matcher that keeps every match it returns (on the CPU) and its
+    smallest margin: how near another query's cost comes to a matched
+    query's for the same target. Within rounding of 0, another device may
+    match the other query, so identical matches across devices need a
+    margin well above it."""
 
     def __init__(self, matcher):
-        self.matcher, self.calls = matcher, []
+        self.matcher, self.calls, self.margin = matcher, [], float("inf")
 
     def __call__(self, outputs, targets):
         qi, valid = self.matcher(outputs, targets)
         self.calls.append(torch.where(valid, qi, -1).cpu())
+        cost = self.matcher.cost_matrix(outputs, targets).transpose(-1, -2)
+        chosen = cost.gather(-1, qi[..., None])
+        gap = (cost - chosen).abs().scatter(-1, qi[..., None], float("inf"))
+        self.margin = min(self.margin, float(gap.amin(-1)[valid].min()))
         return qi, valid
 
 
 def recorded_step(model, device, setup, batch):
     """One f32 train step of a copy of `model` on `device`, through
     `setup(copy) -> (criterion, state, step)`, its matcher recording every
-    match. Returns (stats with the pre-clip gradients on the CPU, the
-    matches, the launches of each kernel)."""
+    match. Returns (stats with the pre-clip gradients on the CPU and the
+    matches' smallest margin, `match_margin`, the matches, the launches of
+    each kernel)."""
     import copy
 
     m = copy.deepcopy(model).to(device)
@@ -901,6 +922,7 @@ def recorded_step(model, device, setup, batch):
     torch.cuda.synchronize()
     after = {k: f.launches for k, f in counters().items()}
     stats["_grads"] = {n: g.cpu() for n, g in stats["_grads"].items()}
+    stats["match_margin"] = criterion.matcher.margin
     return stats, criterion.matcher.calls, {k: after[k] - before[k]
                                             for k in after}
 
@@ -1034,9 +1056,10 @@ def train_folded_vs_pertap(dev):
 
 
 def grid_3d(pc_range):
-    """(nx, ny): the whole 0.32 m pillars over pc_range, 468 x 468 at full
-    width as tools/mfu_bench.py:202 sets it (the voxelizer's rounding of
-    150 / 0.32 would give 469)."""
+    """(nx, ny) of the drawn voxels (`random_voxels_3d`): the whole 0.32 m
+    pillars over pc_range, 468 x 468 at full width as tools/mfu_bench.py:202
+    sets it. A voxelized frame runs at the voxelizer's own grid instead
+    (`dataset/waymo.py:grid_shape`, 469 x 469 there)."""
     return tuple(int((pc_range[3 + i] - pc_range[i]) / VOXEL_3D[i])
                  for i in range(2))
 
@@ -1091,18 +1114,24 @@ def random_voxels_3d(grid, n_voxels, batch, seed):
 
 
 def lidar_cloud(pc_range, n, seed):
-    """A seeded frame of n points inside pc_range's whole pillars: ranges
-    log-uniform from 2 m to the grid's edge (denser near the sensor, as a
-    spinning lidar's returns are), z around the ground, intensity and
-    elongation in [0, 1)."""
+    """A seeded frame of n points over the whole of pc_range's x-y square,
+    its edges and corners included: ranges log-uniform from 2 m to the
+    corner (denser near the sensor, as a spinning lidar's returns are), the
+    points outside the square drawn again; z around the ground, intensity
+    and elongation in [0, 1)."""
     rs = np.random.RandomState(seed)
-    edge = min(-pc_range[0], pc_range[0] + grid_3d(pc_range)[0] * VOXEL_3D[0])
-    r = np.exp(rs.uniform(np.log(2.0), np.log(0.999 * edge), n))
-    phi = rs.uniform(-np.pi, np.pi, n)
+    lo, hi = np.asarray(pc_range[:2]), np.asarray(pc_range[3:5])
+    corner = float(np.hypot(*np.maximum(-lo, hi)))
+    xy = np.zeros((0, 2))
+    while len(xy) < n:
+        r = np.exp(rs.uniform(np.log(2.0), np.log(corner), 2 * n))
+        phi = rs.uniform(-np.pi, np.pi, 2 * n)
+        cand = np.stack([r * np.cos(phi), r * np.sin(phi)], 1)
+        xy = np.concatenate([xy, cand[((cand >= lo) & (cand < hi)).all(1)]])
     z = np.clip(rs.normal(0.0, 1.0, n), pc_range[2] + 0.01,
                 pc_range[5] - 0.01)
-    return np.stack([r * np.cos(phi), r * np.sin(phi), z, rs.rand(n),
-                     rs.rand(n)], 1).astype(np.float32)
+    return np.concatenate([xy[:n], z[:, None], rs.rand(n, 2)],
+                          1).astype(np.float32)
 
 
 def voxelize_frames(clouds, pc_range, max_voxels):
@@ -1207,11 +1236,18 @@ def run_3d_inference(dev, smi):
     with torch.no_grad():
         busy = profile(lambda: model(*args), ms, "BoxeR-3D forward")
 
-    # one served frame, each stage up to a synchronize
+    # one served frame, each stage up to a synchronize, at the voxelizer's
+    # own grid (its last column lies past mfu_bench's 468)
     from boxer_tpu_torch.dataset.processor.voxelizer import (pad_voxels,
                                                              points_to_voxel)
+    from boxer_tpu_torch.dataset.waymo import grid_shape
 
+    serve_grid = grid_shape(PC_RANGE_3D, VOXEL_3D)
     cloud = lidar_cloud(PC_RANGE_3D, SERVE_POINTS, seed=3)
+    occupied = []
+    hook = model.backbone.extractor.register_forward_hook(
+        lambda mod, a, canvas: occupied.append(
+            int((canvas != 0).any(-1).sum())))
     for run in range(2):                     # the first warms the shapes
         stage = {}
         t0 = time.perf_counter()
@@ -1226,7 +1262,7 @@ def run_3d_inference(dev, smi):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         with torch.no_grad():
-            o = model(*dev_args, grid, 1)
+            o = model(*dev_args, serve_grid, 1)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             top = format_for_evalai(o["pred_logits"], o["pred_boxes"],
@@ -1235,16 +1271,27 @@ def run_3d_inference(dev, smi):
         t4 = time.perf_counter()
         stage = {"voxelize + pad (host)": t1 - t0, "to device": t2 - t1,
                  "model": t3 - t2, "top-125": t4 - t3}
+    hook.remove()
+    # every kept pillar on a cell of its own, the grid's last row and
+    # column among them: a pillar folded into another row would overwrite
+    # a live one or leave the count short
+    kept = c[c[:, 0] >= 0]
+    edges = (int(kept[:, 3].max()) == serve_grid[0] - 1
+             and int(kept[:, 2].max()) == serve_grid[1] - 1)
     boxes = top["pred_boxes3d"].float()
     lo = torch.tensor(PC_RANGE_3D[:3], device=dev)
     hi = torch.tensor(PC_RANGE_3D[3:], device=dev)
     inside = bool(((boxes[..., :3] >= lo) & (boxes[..., :3] <= hi)).all())
     finite = all(bool(torch.isfinite(t.float()).all()) for t in top.values())
-    log(f"BoxeR-3D served frame [{smi}]: {SERVE_POINTS} points -> {live} "
-        f"voxels (of {SERVE_VOXELS}) -> top-125 in "
+    log(f"BoxeR-3D served frame at {serve_grid[0]}x{serve_grid[1]} [{smi}]: "
+        f"{SERVE_POINTS} points -> {live} voxels (of {SERVE_VOXELS}; "
+        f"{occupied[-1]} canvas cells hit, the last row and column among "
+        f"them {edges}) -> top-125 in "
         f"{1e3 * sum(stage.values()):.2f} ms: " + ", ".join(
             f"{k} {1e3 * t:.2f} ms" for k, t in stage.items())
         + f"; finite {finite}, centres inside pc_range {inside}")
+    if occupied[-1] != live or not edges:
+        raise AssertionError("BoxeR-3D served frame: the canvas lost pillars")
     if not (finite and inside and top["pred_scores"].shape == (1, 125)):
         raise AssertionError("BoxeR-3D served frame: bad top-125")
     del model
@@ -1293,9 +1340,9 @@ def card_vs_cpu_3d(dev):
     """Phase 9b: one served frame at a 128x128 grid in f32 through the
     perturbed model, card (kernels) against CPU (plain versions): identical
     top-125 labels, scores and metric boxes within atol 1e-3."""
-    from boxer_tpu_torch.dataset.waymo import format_for_evalai
+    from boxer_tpu_torch.dataset.waymo import format_for_evalai, grid_shape
 
-    grid = grid_3d(E2E_PC_3D)
+    grid = grid_shape(E2E_PC_3D, VOXEL_3D)
     model = build_model_3d(E2E_PC_3D, seed=1, noise_seed=2)
     arrays = voxelize_frames([lidar_cloud(E2E_PC_3D, 40000, seed=4)],
                              E2E_PC_3D, E2E_VOXELS_3D)
@@ -1409,14 +1456,18 @@ def train_card_vs_cpu_3d(dev):
     """Phase 9d: one f32 BoxeR-3D train step at the 128x128 grid with phase
     9b's weights, on 2 served frames with 20 targets each: CPU (plain
     versions), card (kernels), and card with the fused K5 swapped for its
-    plain version (the same forward)."""
+    plain version (the same forward). Identical matches are asked of
+    frames whose CPU matches clear every tie by more than 1e-4 of cost
+    (`RecordingMatcher`); nearer, the devices' rounding may pick either
+    query, as it does on frames 5 and 6 of this cloud."""
+    from boxer_tpu_torch.dataset.waymo import grid_shape
     from boxer_tpu_torch.ops import box_attention as ba
     from boxer_tpu_torch.ops import scatter_accum as sa
 
-    grid = grid_3d(E2E_PC_3D)
+    grid = grid_shape(E2E_PC_3D, VOXEL_3D)
     model = build_model_3d(E2E_PC_3D, seed=1, noise_seed=2).train()
     arrays = voxelize_frames([lidar_cloud(E2E_PC_3D, 40000, seed=s)
-                              for s in (5, 6)], E2E_PC_3D, E2E_VOXELS_3D)
+                              for s in (8, 9)], E2E_PC_3D, E2E_VOXELS_3D)
     targets = targets_3d(2, seed=7)
 
     def run(device):
@@ -1426,6 +1477,9 @@ def train_card_vs_cpu_3d(dev):
             voxel_batch_3d(arrays, targets, grid, 2, device))
 
     want, want_qi, cpu_launches = run(torch.device("cpu"))
+    if want["match_margin"] <= 1e-4:
+        raise AssertionError(f"phase 9d's frames match within "
+                             f"{want['match_margin']:.3e} of a tie")
     got, got_qi, launches = run(dev)
     kernel = ba.scatter_add_rows_weighted_dw4
     ba.scatter_add_rows_weighted_dw4 = sa.scatter_accum_dw4_plain
@@ -1447,7 +1501,8 @@ def train_card_vs_cpu_3d(dev):
     k5_err, k5_leaf, _ = leaf_errs(got, plain)
     log(f"BoxeR-3D train step at {grid[0]}x{grid[1]} f32: card vs CPU "
         f"{len(got_qi)} matches (the encoder's binary one, then the decoder "
-        f"layers') identical {same_match}, loss terms ({len(keys)}) worst rel "
+        f"layers'; CPU margin {want['match_margin']:.3e}) identical "
+        f"{same_match}, loss terms ({len(keys)}) worst rel "
         f"err {loss_err:.3e}, grad norm {norm_err:.3e}, pre-clip grads worst "
         f"leaf {cpu_err:.3e} ({cpu_leaf}); card K5 (d_table and d_w4) vs its "
         f"plain version in the same step: worst leaf {k5_err:.3e} "

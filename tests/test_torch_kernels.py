@@ -779,8 +779,9 @@ def test_box3d_attention_cuda_grads_match_plain_k5(cuda, monkeypatch,
                                                    with_rotation):
     """`Box3dAttention`'s gradients on the card (forward K2, backward the
     fused K5) against the same module with K5 swapped for its plain
-    version: every parameter and the query, value and reference windows'
-    inputs (rel 1e-4: f32 atomics add in another order)."""
+    version: every parameter, and the query, the value and the reference
+    windows, whose gradient runs through the grid's rotation by each
+    window's angle (rel 1e-4: f32 atomics add in another order)."""
     from boxer_tpu_torch.nn.attention import Box3dAttention
     from boxer_tpu_torch.ops import box_attention as ba
 
@@ -802,12 +803,13 @@ def test_box3d_attention_cuda_grads_match_plain_k5(cuda, monkeypatch,
 
     def grads():
         attn.zero_grad()
-        q, v = (torch.from_numpy(a).to(cuda).requires_grad_()
-                for a in (query, value))
-        out, _ = attn(q, v, shapes, None, None, torch.from_numpy(ref).to(cuda))
+        q, v, r = (torch.from_numpy(a).to(cuda).requires_grad_()
+                   for a in (query, value, ref))
+        out, _ = attn(q, v, shapes, None, None, r)
         (out * cot).sum().backward()
         torch.cuda.synchronize()
-        return [q.grad, v.grad] + [p.grad.clone() for p in attn.parameters()]
+        return [q.grad, v.grad, r.grad] + [p.grad.clone()
+                                           for p in attn.parameters()]
 
     before = scatter_add_rows_weighted.launches
     got = grads()
