@@ -2,7 +2,8 @@
 `boxer_tpu/criterion/losses.py` (sigmoid focal loss, dice loss, focal
 labels, boxes, 3D boxes, masks, the composite Boxer2DCriterion and
 Boxer3DCriterion with the encoder's binary-label loss and the per-layer aux
-losses, and the weighted total).
+losses, the weighted total, and `build_loss` from a model config's `loss`
+node).
 
 Fixed-shape design, as in the JAX package: targets are padded to NT boxes
 with a `valid` mask, matching returns `query_idx (B, NT)`, and every loss is
@@ -14,6 +15,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from boxer_tpu_torch.nn.matcher import build_matcher
 from boxer_tpu_torch.utils.box3d_ops import (
     box_cxcyczlwh_to_xyxyxy, elementwise_generalized_box3d_iou)
 from boxer_tpu_torch.utils.box_ops import (box_cxcywh_to_xyxy,
@@ -229,6 +231,32 @@ class Boxer3DCriterion(Boxer2DCriterion):
     final layer, each aux layer and the encoder head (binary labels)."""
 
     boxes_loss = staticmethod(boxes3d_loss)
+
+
+def build_loss(loss_config, num_classes: int):
+    """The criterion of a model config's `loss` node (reference `build_loss`,
+    `losses.py:17-74`), with its weight dict. DETR's softmax loss is not
+    ported (ROADMAP queue 1, item 10)."""
+    loss_type = loss_config["type"]
+    params = loss_config["params"]
+    weight_dict = {
+        "loss_ce": params["class_loss_coef"],
+        "loss_bbox": params["bbox_loss_coef"],
+        "loss_giou": params["giou_loss_coef"],
+    }
+    matcher = build_matcher(params["matcher"])
+    if loss_type == "boxer2d":
+        losses = ["boxes", "focal_labels"]
+        if params.get("use_mask"):
+            weight_dict["loss_mask"] = params["mask_loss_coef"]
+            weight_dict["loss_dice"] = params["dice_loss_coef"]
+            losses.append("masks")
+        return Boxer2DCriterion(num_classes, matcher, weight_dict, losses)
+    if loss_type == "boxer3d":
+        weight_dict["loss_rad"] = params["rad_loss_coef"]
+        return Boxer3DCriterion(num_classes, matcher, weight_dict,
+                                ["boxes", "focal_labels"])
+    raise ValueError(f"Unsupported loss type: {loss_type}")
 
 
 def weighted_total(losses: Dict[str, torch.Tensor],

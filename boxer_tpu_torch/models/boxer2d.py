@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from boxer_tpu_torch.evaluate.postprocess import coco_postprocess
+from boxer_tpu_torch.models import register_model
 from boxer_tpu_torch.nn.box_transformer import BoxTransformer
 from boxer_tpu_torch.nn.init import reset_default_, xavier_uniform_
 from boxer_tpu_torch.nn.position_encoding import build_position_encoding
@@ -24,6 +25,7 @@ from boxer_tpu_torch.nn.resnet import BackBone, interpolate_mask_nearest
 GN_EPS = 1e-6       # flax GroupNorm's epsilon
 
 
+@register_model("boxer2d")
 class BoxeR2D(nn.Module):
     def __init__(self, num_classes: int = 91, hidden_dim: int = 256,
                  nhead: int = 8, num_level: int = 4, enc_layers: int = 6,

@@ -10,6 +10,7 @@ outputs are `enc_outputs` in training).
 import torch
 from torch import nn
 
+from boxer_tpu_torch.models import register_model
 from boxer_tpu_torch.nn.backbone3d import build_backbone3d
 from boxer_tpu_torch.nn.box3d_transformer import Box3dTransformer
 from boxer_tpu_torch.nn.init import reset_default_, xavier_uniform_
@@ -19,6 +20,7 @@ from boxer_tpu_torch.nn.predictor import Detector3d, MultiDetector3d
 NUM_REFERENCES = 3
 
 
+@register_model("boxer3d")
 class BoxeR3D(nn.Module):
     def __init__(self, num_classes: int = 3, hidden_dim: int = 256,
                  nhead: int = 8, num_level: int = 2, enc_layers: int = 2,

@@ -9,9 +9,10 @@ the JAX package's vmapped `lax.while_loop` does). Ties break as there:
 
 Cost (focal labels): w_cls * (pos - neg)[q, label_t] + w_l1 * |b_q - b_t|_1
 + w_giou * (-GIoU); the 3D matcher takes the L1 and the axis-aligned 3D
-GIoU over (cx, cy, cz, l, w, h) and adds w_rad * |rad_q - rad_t|. Invalid targets get a constant-zero cost row, which can
-take any leftover column without changing the valid rows' optimum. Matching
-carries no gradient: it runs under `torch.no_grad`.
+GIoU over (cx, cy, cz, l, w, h) and adds w_rad * |rad_q - rad_t|. Only
+the valid targets' rows are solved (`hungarian`); an invalid target's
+column is 0, masked by every caller. Matching carries no gradient: it runs
+under `torch.no_grad`.
 """
 
 from typing import Tuple
@@ -106,39 +107,59 @@ def _hungarian_batched(cost):
 @torch.no_grad()
 def hungarian(cost, row_valid):
     """Batched assignment. cost: (..., NT, NQ); row_valid: (..., NT) bool.
+    Returns col4row (..., NT) int64; entries of invalid rows are arbitrary
+    columns (0), to be masked by the caller.
 
-    Invalid rows are replaced by constant zeros. Returns col4row (..., NT)
-    int64; entries of invalid rows are arbitrary columns, to be masked by
-    the caller.
+    Only the valid rows are solved. The JAX package keeps a padding row in
+    the problem as a row of constant zeros, which can take any column the
+    valid rows leave without changing their optimum; but the solver spends
+    tens of iterations on each such row, each iteration a host sync here:
+    at the shipped configs' 100 padded targets, an image's 2-3 objects
+    cost about 5,000 syncs a matcher call. So the valid rows are moved
+    first (in their order) and the problem cut to the largest valid count
+    (one host sync). The valid rows' matches are the full problem's
+    unless two assignments tie exactly.
 
-    Column pruning (exact) when NQ > 4*NT: each problem is restricted to
-    the union of every row's NT cheapest columns. An optimal assignment that
-    used a column outside row i's NT best could swap to one of those NT
-    cheaper columns, at most NT-1 of which are taken, without raising the
-    total. Duplicate candidates get a BIG cost, so no column is assigned
-    twice. The encoder-output match (NT=20, NQ~20k) becomes a (20, 400)
-    solve.
+    Column pruning (exact) when NQ > 4*K for K rows: each problem is
+    restricted to the union of every row's K cheapest columns. An optimal
+    assignment that used a column outside row i's K best could swap to one
+    of those K cheaper columns, at most K-1 of which are taken, without
+    raising the total. Duplicate candidates get a BIG cost, so no column is
+    assigned twice. The encoder-output match (K=20, NQ~20k) becomes a
+    (20, 400) solve.
     """
-    cost = torch.where(row_valid[..., None], cost.float(), 0.0)
     batch_shape = cost.shape[:-2]
     nt, nq = cost.shape[-2:]
     if nt > nq:
         raise ValueError(f"hungarian: {nt} target rows for {nq} query "
                          "columns; every row needs a column")
-    flat = cost.reshape(-1, nt, nq)
+    valid = row_valid.reshape(-1, nt)
+    flat = torch.where(valid[..., None], cost.reshape(-1, nt, nq).float(),
+                       0.0)
     nb = flat.shape[0]
-    if nq > 4 * nt:
-        k = min(nt, nq)
-        _, idx = top_k(-flat, k)                          # (N, NT, k)
-        cand = idx.reshape(nb, nt * k).sort(dim=-1).values
-        dup = torch.cat([torch.zeros_like(cand[:, :1], dtype=torch.bool),
-                         cand[:, 1:] == cand[:, :-1]], dim=-1)
-        sub = flat.gather(2, cand[:, None, :].expand(nb, nt, nt * k))
-        sub = torch.where(dup[:, None, :], BIG, sub)
-        out = cand.gather(1, _hungarian_batched(sub))
-    else:
-        out = _hungarian_batched(flat)
+    out = torch.zeros(nb, nt, dtype=torch.long, device=cost.device)
+    k = int(valid.sum(1).max()) if nb else 0
+    if k:
+        rows = torch.sort((~valid).to(torch.uint8), dim=1,
+                          stable=True).indices[:, :k]
+        sub = flat.gather(1, rows[..., None].expand(nb, k, nq))
+        out.scatter_(1, rows, _solve_pruned(sub))
     return out.reshape(*batch_shape, nt)
+
+
+def _solve_pruned(flat):
+    """col4row (N, K) of the (N, K, NQ) problems, pruned to every row's K
+    cheapest columns when NQ > 4*K (see `hungarian`)."""
+    nb, k, nq = flat.shape
+    if nq <= 4 * k:
+        return _hungarian_batched(flat)
+    _, idx = top_k(-flat, k)                              # (N, K, K)
+    cand = idx.reshape(nb, k * k).sort(dim=-1).values
+    dup = torch.cat([torch.zeros_like(cand[:, :1], dtype=torch.bool),
+                     cand[:, 1:] == cand[:, :-1]], dim=-1)
+    sub = flat.gather(2, cand[:, None, :].expand(nb, k, k * k))
+    sub = torch.where(dup[:, None, :], BIG, sub)
+    return cand.gather(1, _hungarian_batched(sub))
 
 
 def _focal_class_cost(out_prob, tgt_labels, alpha=0.25, gamma=2.0):

@@ -1,22 +1,27 @@
-"""The training step; port of `boxer_tpu/parallel/steps.py:make_train_step`.
+"""The training, eval and inference steps; port of
+`boxer_tpu/parallel/steps.py`.
 
 One update: forward + criterion (matching on the step's device) and
 backward for each microbatch, the gradients summed over microbatches that
 share the update's global `num_boxes`; then the global-norm clip, the
 NaN/Inf skip (no update, no optimizer-state change, step not advanced) and
-the AdamW update at the scheduled LR. A batch is an image batch (BoxeR-2D)
+the optimizer's update at the scheduled LR. A batch is an image batch (BoxeR-2D)
 or a voxel batch (BoxeR-3D), as `apply_model` dispatches. On a CUDA card the forward runs under
 `torch.autocast(bfloat16)` when `compute_dtype` is bf16, with parameters in
-f32: the torch idiom for flax's `dtype=bf16` modules.
+f32: the torch idiom for flax's `dtype=bf16` modules. The eval and
+inference steps run the model in `eval()` under `torch.no_grad()` and the
+same autocast.
 """
 
 import contextlib
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
 
 from boxer_tpu_torch.criterion.losses import weighted_total
+from boxer_tpu_torch.criterion.metrics import compute_metrics
 from boxer_tpu_torch.optim import clip_by_global_norm, set_lr
 
 
@@ -52,9 +57,20 @@ def microbatch(batch, a: int):
     return {k: pick(v) for k, v in batch.items()}
 
 
+def _autocast(compute_dtype, device):
+    if compute_dtype == torch.float32:
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, dtype=compute_dtype)
+
+
+def _final(out):
+    return {k: v for k, v in out.items()
+            if k not in ("aux_outputs", "enc_outputs")}
+
+
 def make_train_step(criterion, max_norm: float = 0.0,
                     compute_dtype: torch.dtype = torch.float32,
-                    debug_grads: bool = False) -> Callable:
+                    metrics=None, debug_grads: bool = False) -> Callable:
     """Returns train_step(state, batch) -> (state, stats), updating `state`
     in place.
 
@@ -67,17 +83,14 @@ def make_train_step(criterion, max_norm: float = 0.0,
     voxel block holding its B samples' fixed `max_voxels` blocks with
     batch indices 0..B-1 (the loader's split), with A = iter_per_update
     microbatches, all on the model's device.
-    stats: every loss term (summed over microbatches), total_loss,
-    grad_norm (before clipping), num_boxes, skipped (1.0 when the update
-    was skipped) as host floats, and with debug_grads `_grads`, the
+    stats: every loss term and every metric of `metrics` ({name: fn},
+    `criterion.metrics.build_metrics`; on the final layer's matching),
+    summed over microbatches, total_loss, grad_norm (before clipping),
+    num_boxes, skipped (1.0 when the update was skipped) as host floats,
+    read from the device in one copy; with debug_grads `_grads`, the
     pre-clip summed gradients by parameter name.
     """
     weight_dict = criterion.expanded_weight_dict(num_aux=16, num_enc=2)
-
-    def autocast(device):
-        if compute_dtype == torch.float32:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=compute_dtype)
 
     def train_step(state: TrainState, batch):
         model = state.model
@@ -91,10 +104,13 @@ def make_train_step(criterion, max_norm: float = 0.0,
         loss_acc, stats_acc = 0.0, {}
         for a in range(targets["valid"].shape[0]):
             mb = microbatch(batch, a)
-            with autocast(targets["valid"].device):
+            with _autocast(compute_dtype, targets["valid"].device):
                 out = apply_model(model, mb, train=True, inference=False)
             losses = criterion(out, mb["targets"], num_boxes=num_boxes)
             total, stats = weighted_total(losses, weight_dict)
+            if metrics:
+                stats.update(compute_metrics(metrics, _final(out),
+                                             mb["targets"], losses))
             total.backward()
             loss_acc = loss_acc + total.detach()
             for k, v in stats.items():
@@ -109,19 +125,57 @@ def make_train_step(criterion, max_norm: float = 0.0,
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grad_norm = clip_by_global_norm([p.grad for p in params], max_norm)
-        ok = bool(torch.isfinite(grad_norm))
+        out_stats = dict(stats_acc, total_loss=loss_acc, grad_norm=grad_norm,
+                         num_boxes=num_boxes)
+        # one device-to-host copy for every stat
+        out_stats = dict(zip(out_stats, torch.stack(
+            [v.float() for v in out_stats.values()]).tolist()))
+        ok = math.isfinite(out_stats["grad_norm"])
         if ok:
             set_lr(state.optimizer, state.schedule, state.step)
             state.optimizer.step()
             state.step += 1
-
-        out_stats = {k: float(v) for k, v in stats_acc.items()}
-        out_stats.update(total_loss=float(loss_acc),
-                         grad_norm=float(grad_norm),
-                         num_boxes=float(num_boxes),
-                         skipped=0.0 if ok else 1.0)
+        out_stats["skipped"] = 0.0 if ok else 1.0
         if debug_grads:
             out_stats["_grads"] = raw_grads
         return state, out_stats
 
     return train_step
+
+
+def make_eval_step(criterion=None,
+                   compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """eval_step(state, batch) -> (outputs, losses | None): the model in
+    val mode (inference=False: every decoder layer's outputs and the
+    encoder head's), and with a criterion and targets the losses without
+    the `_` entries."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch):
+        state.model.eval()
+        with _autocast(compute_dtype, batch["image" if "image" in batch
+                                            else "voxels"].device):
+            out = apply_model(state.model, batch, train=False,
+                              inference=False)
+        losses = None
+        if criterion is not None and "targets" in batch:
+            losses = {k: v for k, v in criterion(out, batch["targets"]).items()
+                      if not k.startswith("_")}
+        return out, losses
+
+    return eval_step
+
+
+def make_inference_step(compute_dtype: torch.dtype = torch.float32
+                        ) -> Callable:
+    """inference_step(state, batch) -> outputs (test-mode topology)."""
+
+    @torch.no_grad()
+    def inference_step(state: TrainState, batch):
+        state.model.eval()
+        with _autocast(compute_dtype, batch["image" if "image" in batch
+                                            else "voxels"].device):
+            return apply_model(state.model, batch, train=False,
+                               inference=True)
+
+    return inference_step

@@ -1,0 +1,96 @@
+"""Checkpoint save/resume (torch.save); port of
+`boxer_tpu/utils/checkpoint.py`.
+
+Parity: reference `e2edet/utils/checkpoint.py` — rolling saves of {model,
+optimizer, update, epoch} (:160-192), latest-checkpoint resume (:112-140),
+`finalize` weights-only export (:194-196), sanitized config companion
+(:91-107).
+
+Files under `save_dir`: `checkpoints/model_<update>.pth` holding {"model":
+state_dict, "optimizer": state_dict, "step": completed updates, "extra":
+the trainer's metadata}, the newest `num_checkpoint` kept; `model_final`,
+the model's state_dict alone; `config.yaml`.
+"""
+
+import os
+import re
+from typing import Any, Dict, Optional
+
+import torch
+import yaml
+
+from boxer_tpu_torch.utils.logger import is_master
+
+_CKPT_RE = re.compile(r"^model_(\d+)\.pth$")
+
+
+class Checkpoint:
+    def __init__(self, save_dir: str, num_checkpoint: int = 5,
+                 device: Optional[torch.device] = None):
+        self.save_dir = os.path.abspath(save_dir)
+        self.ckpt_dir = os.path.join(self.save_dir, "checkpoints")
+        self.num_checkpoint = max(1, num_checkpoint)
+        self.device = device
+        os.makedirs(self.ckpt_dir, exist_ok=True)
+
+    def path(self, update: int) -> str:
+        return os.path.join(self.ckpt_dir, f"model_{update}.pth")
+
+    def steps(self):
+        """The updates of the checkpoints on disk, oldest first."""
+        return sorted(int(m.group(1)) for m in map(
+            _CKPT_RE.match, os.listdir(self.ckpt_dir)) if m)
+
+    def save(self, state, update: int, extra: Optional[Dict[str, Any]] = None):
+        """state: parallel.steps.TrainState; extra: plain metadata (epoch,
+        position in the epoch...)."""
+        if not is_master():
+            return
+        _save(self.path(update), {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step), "extra": extra})
+        for old in self.steps()[:-self.num_checkpoint]:
+            os.remove(self.path(old))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load a checkpoint (the latest by default) into `state`'s model,
+        optimizer and step, on the checkpoint's `device`. Returns (state,
+        extra|None) or (None, None) if nothing is saved."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        ckpt = torch.load(self.path(step), map_location=self.device,
+                          weights_only=True)
+        state.model.load_state_dict(ckpt["model"])
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.step = int(ckpt["step"])
+        return state, ckpt.get("extra")
+
+    def finalize(self, model: torch.nn.Module, name: str = "model_final"):
+        """Weights-only export (reference `checkpoint.py:194-196`)."""
+        path = os.path.join(self.save_dir, name)
+        if is_master():
+            _save(path, model.state_dict())
+        return path
+
+    def save_config(self, config):
+        """Sanitized yaml companion (reference `checkpoint.py:91-107`)."""
+        if not is_master():
+            return
+        path = os.path.join(self.save_dir, "config.yaml")
+        data = config.to_dict() if hasattr(config, "to_dict") else dict(config)
+        with open(path, "w") as f:
+            yaml.safe_dump(data, f, default_flow_style=False)
+
+
+def _save(path: str, obj):
+    """torch.save through a temporary file, so a cut run leaves no torn
+    checkpoint under the final name."""
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)

@@ -77,7 +77,22 @@ Run from the root of a checkout:  python3 chip_smoke.py
    K3 2 a step; finite gradients, non-zero on every sampling projection);
    (9d) one f32 step at 128x128, card against CPU by phase 8's rules on
    frames whose matches clear every tie by 1e-4, and K5 against its plain
-   version in the card's step (worst leaf 1e-4).
+   version in the card's step (worst leaf 1e-4);
+10. the trainer: the shipped COCO-InstanceSegmentation/boxer2d_r50_50eps
+   config through `build_trainer`, `load`, `train` at full width (R50,
+   hidden 256, 8x32 heads, 6+6 layers, 300 queries, bf16 autocast, the
+   1344x1344 canvas, the config's processors and step schedule on the
+   epoch clock) on a synthetic COCO directory (8 train and 8 val 480x640
+   JPEGs, 2-3 polygons each, COCO's 80 category ids), only the schedule's
+   length cut (TRAINER_CUTS): each update finite, not skipped, at the step
+   schedule's LR times each group's base LR, with phase 7's segm launches
+   x2 (two microbatches); the loader's first batch on the card bitwise
+   equal to its host build; val bbox and segm AP in [0, 1]; a
+   test_result.json record for every test image; config.yaml, the
+   checkpoints of updates 2 and 4 and model_final; a resumed trainer with
+   update 4's model and optimizer state bitwise, at (update, epoch, skip)
+   (4, 1, 0), taking 2 more finite updates; ms per update, peak memory,
+   the eval forwards' launches per image and one profiled update.
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
 of their own, and one JSON line of per-kernel results (one row per kernel
@@ -88,6 +103,7 @@ phase raises: the exit code is not 0 and no ok line is printed.
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -136,6 +152,18 @@ TRAIN_WEIGHTS_3D = {"loss_ce": 2.0, "loss_bbox": 5.0, "loss_giou": 2.0,
 OPTIM_3D = {"type": "adamw", "params": {
     "lr": 1e-3, "lr_backbone": 1e-3, "weight_decay": 1e-4, "eps": 1e-9,
     "deform_lr_multi": 0.1}}
+# phase 10: the shipped segm config through the trainer, only the length of
+# its schedule cut (two microbatches of one image an update, 4 updates, then
+# 2 more after a resume); a synthetic COCO directory of 480x640 JPEGs with
+# COCO's 80 category ids (1-90 less 10)
+TRAINER_CONFIG = "boxer_tpu_torch/config/COCO-InstanceSegmentation/boxer2d_r50_50eps.yaml"
+TRAINER_CUTS = ["training.seed=3", "training.batch_size=2",
+                "training.iter_per_update=2", "training.max_update=4",
+                "training.checkpoint_interval=2", "training.log_interval=1",
+                "training.run_type=train_val_test"]
+COCO_IDS = [i for i in range(1, 91)
+            if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+COCO_IMAGES, COCO_HW = 8, (480, 640)
 
 
 def per_run(**counts):
@@ -1515,6 +1543,269 @@ def train_card_vs_cpu_3d(dev):
                 k5_err=k5_err)
 
 
+def write_coco(root, seed=0):
+    """A COCO directory under root: COCO_IMAGES train and as many val
+    JPEGs at COCO_HW, 2-3 polygon annotations each (a pentagon in a random
+    box, one of COCO's 80 ids); test.json lists the val images alone."""
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    h, w = COCO_HW
+    cats = [{"id": i, "name": f"c{i}"} for i in COCO_IDS]
+    os.makedirs(root / "images")
+    for split, first in (("train", 1), ("val", 1 + COCO_IMAGES)):
+        images, anns = [], []
+        for img_id in range(first, first + COCO_IMAGES):
+            Image.fromarray((rs.rand(h, w, 3) * 255).astype(np.uint8)).save(
+                root / "images" / f"{img_id}.jpg")
+            images.append({"id": img_id, "height": h, "width": w,
+                           "file_name": f"{img_id}.jpg"})
+            for _ in range(rs.randint(2, 4)):
+                bw, bh = rs.randint(w // 8, w // 2), rs.randint(h // 8, h // 2)
+                x, y = rs.randint(0, w - bw), rs.randint(0, h - bh)
+                poly = [x, y, x + bw, y, x + bw, y + bh, x + bw / 2,
+                        y + 0.6 * bh, x, y + bh]
+                anns.append({"id": 1000 * img_id + len(anns),
+                             "image_id": img_id,
+                             "category_id": int(rs.choice(COCO_IDS)),
+                             "bbox": [float(v) for v in (x, y, bw, bh)],
+                             "area": float(bw * bh), "iscrowd": 0,
+                             "segmentation": [[float(v) for v in poly]]})
+        with open(root / f"{split}.json", "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": cats}, f)
+        if split == "val":
+            with open(root / "test.json", "w") as f:
+                json.dump({"images": images, "categories": cats}, f)
+
+
+def trainer_on_card(root, opts):
+    """The port's trainer on the card from the shipped segm config, the
+    synthetic COCO under root and the dotlist `opts`, loaded."""
+    from boxer_tpu_torch.trainer import build_trainer
+    from boxer_tpu_torch.utils.config import Configuration
+
+    data = [f"dataset_config.detection.imdb_files.{split}.{key}="
+            f"{root}/{name}"
+            for split in ("train", "val", "test")
+            for key, name in (("anno_file", f"{split}.json"),
+                              ("image_folder", "images"))]
+    configuration = Configuration(
+        str(ROOT / TRAINER_CONFIG),
+        opts=data + [f"training.save_dir={root}/save"] + opts,
+        extra={"task": "detection", "model": "boxer2d"}, device="cuda")
+    trainer = build_trainer(configuration, device="cuda")
+    trainer.load()
+    return trainer
+
+
+def tree_map(batch, fn):
+    return {k: tree_map(v, fn) if isinstance(v, dict)
+            else fn(v) if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()}
+
+
+def record_steps(trainer, log_update):
+    """Wrap the trainer's train, eval and inference steps: each train step
+    is timed up to a synchronize and its launches, stats and group LRs
+    (with the schedule's value at the step it took) are recorded; the
+    first batch is kept, on the card and copied to the host; the eval and
+    inference steps' launches and images are summed."""
+    from boxer_tpu_torch.optim import build_schedule
+
+    rec = {"updates": [], "eval": {}, "first": None,
+           "step": trainer._train_step}
+    sched = trainer.config.scheduler.to_dict()
+    sched["params"]["_steps_per_epoch"] = len(trainer.loaders["train"])
+    schedule = build_schedule(sched, trainer.config.optimizer.params.lr)
+    launched = lambda: {k: f.launches for k, f in counters().items()}
+    train_step = rec["step"]
+
+    def step(state, batch):
+        if rec["first"] is None:
+            rec["first"] = (tree_map(batch, torch.clone),
+                            tree_map(batch, lambda t: t.cpu()))
+        before, step_before = launched(), state.step
+        t0 = time.perf_counter()
+        state, stats = train_step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launched()
+        lrs = {g["name"]: (g["lr"], g["base_lr"] * schedule(step_before))
+               for g in state.optimizer.param_groups}
+        rec["updates"].append(dict(ms=ms, stats=stats, lrs=lrs, launches={
+            k: after[k] - before[k] for k in after}))
+        log_update(len(rec["updates"]), rec["updates"][-1])
+        return state, stats
+
+    def counted(name, fn):
+        def run(state, batch):
+            before = launched()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            tally = rec["eval"].setdefault(name, {"images": 0, "launches": {
+                k: 0 for k in before}})
+            tally["images"] += batch["image"].shape[0]
+            for k, v in launched().items():
+                tally["launches"][k] += v - before[k]
+            return out
+        return run
+
+    trainer._train_step = step
+    trainer._eval_step = counted("val", trainer._eval_step)
+    trainer._inference_step = counted("test", trainer._inference_step)
+    return rec
+
+
+def run_trainer(dev, smi):
+    """Phase 10: the shipped segm config through the port's trainer on the
+    card at full width (R50, hidden 256, 8x32 heads, 6+6 layers, 300
+    queries, bf16 autocast, the config's 1344x1344 canvas and processors,
+    its step schedule on the epoch clock), on a synthetic COCO directory,
+    with only the schedule's length cut (TRAINER_CUTS): 4 updates of two
+    microbatches of one image, val (bbox and segm AP) and test
+    (test_result.json), checkpoints at updates 2 and 4; then a resumed
+    trainer takes updates 5 and 6. Returns (launch counts of the main
+    path, results)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_coco(root)
+        cuts = TRAINER_CUTS + ["training.num_checkpoint=2"]
+        log(f"trainer [{smi}]: {TRAINER_CONFIG} with {' '.join(cuts)}")
+        t_load = time.perf_counter()
+        trainer = trainer_on_card(root, cuts)
+        t_load = time.perf_counter() - t_load
+        label = "trainer, segm R50 1344x1344 bf16 autocast"
+
+        def log_update(i, u):
+            log(f"  update {i}: {u['ms']:.2f} ms, total_loss "
+                f"{u['stats']['total_loss']:.5g}, grad_norm "
+                f"{u['stats']['grad_norm']:.5g}, accuracy "
+                f"{u['stats']['accuracy']:.4g}, skipped "
+                f"{u['stats']['skipped']:g}, launches {u['launches']}")
+
+        rec = record_steps(trainer, log_update)
+        evals = {}
+        evaluate = trainer.evaluate
+        trainer.evaluate = lambda split: evals.setdefault(split,
+                                                          evaluate(split))
+        torch.cuda.reset_peak_memory_stats(dev)
+        for f in counters().values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        counts = {k: f.launches for k, f in counters().items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+        updates = rec["updates"]
+        times = [u["ms"] for u in updates]
+        per_update = {k: 2 * v for k, v in TRAIN_LAUNCHES[True].items()}
+        for i, u in enumerate(updates):
+            st = u["stats"]
+            if st["skipped"] != 0.0 or not all(np.isfinite(v)
+                                               for v in st.values()):
+                raise AssertionError(f"{label}: update {i + 1}: {st}")
+            if any(lr != want for lr, want in u["lrs"].values()):
+                raise AssertionError(f"{label}: update {i + 1}: group LRs "
+                                     f"{u['lrs']} off the step schedule")
+            if u["launches"] != per_update:
+                raise AssertionError(f"{label}: update {i + 1} launched "
+                                     f"{u['launches']} != {per_update}")
+        if len(updates) != 4 or trainer.state.step != 4:
+            raise AssertionError(f"{label}: {len(updates)} updates, step "
+                                 f"{trainer.state.step}")
+
+        # the loader's copy: its first batch on the card against the same
+        # loader's first batch built on the host
+        from boxer_tpu_torch.dataset import build_dataloader
+
+        host_loader = build_dataloader(
+            trainer.datasets["train"], "train", batch_size=2,
+            iter_per_update=2, seed=trainer.seed, device="cpu")
+        host_loader.sampler.set_epoch(0)
+        host = next(iter(host_loader))
+        copied = rec["first"][1]
+        flat = lambda b: {**{k: v for k, v in b.items() if k not in (
+            "targets", "meta")}, **b["targets"]}
+        copy_ok = sorted(flat(copied)) == sorted(flat(host)) and all(
+            torch.equal(flat(copied)[k], v) for k, v in flat(host).items())
+        if not copy_ok:
+            raise AssertionError(f"{label}: the loader's first batch on the "
+                                 "card differs from its host build")
+
+        ap = {k: [float(x) for x in v] for k, v in evals["val"].items()}
+        if sorted(ap) != ["coco_eval_bbox", "coco_eval_segm"] or not all(
+                0.0 <= v[0] <= 1.0 for v in ap.values()):
+            raise AssertionError(f"{label}: val stats {ap}")
+        save = root / "save"
+        with open(save / "test_result.json") as f:
+            records = json.load(f)
+        test_ids = {r["image_id"] for r in records}
+        want_ids = set(range(1 + COCO_IMAGES, 1 + 2 * COCO_IMAGES))
+        files = ["config.yaml", "checkpoints/model_2.pth",
+                 "checkpoints/model_4.pth", "model_final"]
+        missing = [f for f in files if not (save / f).exists()]
+        if test_ids != want_ids or missing or not all(
+                "segmentation" in r for r in records):
+            raise AssertionError(f"{label}: test records of {test_ids}, "
+                                 f"missing files {missing}")
+        per_image = {split: {k: v / e["images"] for k, v in
+                             e["launches"].items()}
+                     for split, e in rec["eval"].items()}
+        log(f"{label} [{smi}]: load {t_load:.1f} s, train() {t_train:.1f} s "
+            f"(4 updates, val and test); {np.median(times):.2f} ms per "
+            f"update median (min {min(times):.2f}, max {max(times):.2f}; "
+            f"all {', '.join(f'{t:.2f}' for t in times)}); peak "
+            f"{peak:.2f} GiB; launches per update {updates[-1]['launches']};"
+            f" per eval image {per_image}; val AP bbox "
+            f"{ap['coco_eval_bbox'][0]:.4g}, segm "
+            f"{ap['coco_eval_segm'][0]:.4g}; {len(records)} test records of "
+            f"{len(test_ids)} images; the loader's first batch on the card "
+            f"equals its host build {copy_ok}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # resume: update 4's checkpoint, at the end of the first epoch
+        saved = torch.load(save / "checkpoints/model_4.pth",
+                           map_location="cpu", weights_only=True)
+        resumed = trainer_on_card(root, TRAINER_CUTS[:-2] + [
+            "training.max_update=6", "training.run_type=train",
+            "training.resume=true"])
+        model_ok = all(torch.equal(v.cpu(), saved["model"][k]) for k, v in
+                       resumed.state.model.state_dict().items())
+        opt = resumed.state.optimizer.state_dict()
+        opt_ok = all(torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
+                     for i, s in opt["state"].items() for k, v in s.items())
+        position = (resumed.current_update, resumed.current_epoch,
+                    resumed.epoch_batches_done)
+        log(f"  resumed from update 4: model bitwise {model_ok}, optimizer "
+            f"state bitwise {opt_ok} ({len(opt['state'])} tensors' state), "
+            f"(update, epoch, skip) {position}")
+        if not (model_ok and opt_ok and len(opt["state"]) > 0
+                and position == (4, 1, 0)):
+            raise AssertionError(f"{label}: resume restored {position}")
+        rec2 = record_steps(resumed, log_update)
+        resumed.train()
+        more = rec2["updates"]
+        if resumed.state.step != 6 or len(more) != 2 or not all(
+                np.isfinite(u["stats"]["total_loss"])
+                and u["stats"]["skipped"] == 0.0 for u in more):
+            raise AssertionError(f"{label}: after the resume "
+                                 f"{[u['stats'] for u in more]}")
+        batch, step = rec["first"][0], rec2["step"]
+        busy = profile(lambda: step(resumed.state, batch),
+                       float(np.median(times)), f"{label}, one update")
+        del resumed, rec, rec2, batch, step
+        torch.cuda.empty_cache()
+    return counts, dict(ms=float(np.median(times)), times=times, peak=peak,
+                        busy=busy, per_image=per_image, ap=ap,
+                        train_s=t_train)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1600,6 +1891,12 @@ def main():
     train_card_vs_cpu_3d(dev)
     log(f"phases 9-9d took {time.perf_counter() - t9:.1f} s")
 
+    # 10. the trainer: the shipped segm config at full width, from a COCO
+    # directory through the loader, checkpoint, resume and COCO eval
+    t10 = time.perf_counter()
+    runs["trainer"], trainer_run = run_trainer(dev, smi)
+    log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+
     # K7a has no caller in the package: its launches are those of its
     # op-level run in phase 3c; the T rows' those of the shootout
     qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
@@ -1653,6 +1950,12 @@ def main():
         f"ms of {infer_3d['ms']:.2f}); train {ms_3d:.2f} ms/step at batch "
         f"{TRAIN_BATCH_3D} (peak {peak_3d:.2f} GiB, device busy "
         f"{train_3d['busy'][0]:.2f} ms)")
+    log(f"trainer [{smi}]: {trainer_run['ms']:.2f} ms per update of 2 x 1 "
+        f"images at 1344x1344 (median of 4; min {min(trainer_run['times']):.2f}"
+        f", max {max(trainer_run['times']):.2f}), peak "
+        f"{trainer_run['peak']:.2f} GiB, device busy "
+        f"{trainer_run['busy'][0]:.2f} ms of an update "
+        f"({100 * trainer_run['busy'][1]:.1f}%)")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

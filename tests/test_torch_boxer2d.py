@@ -211,3 +211,8 @@ def test_port_imports_no_jax():
     assert "boxer_tpu_torch.models.boxer3d" in res.stdout
     assert "boxer_tpu_torch.ops._build" in res.stdout
     assert "boxer_tpu_torch.tools.bench_combine" in res.stdout
+    for name in ("trainer.base_trainer", "trainer.engine", "tools.run",
+                 "dataset.coco", "dataset.helper.loader",
+                 "dataset.processor.processors", "evaluate.coco_eval",
+                 "criterion.metrics", "utils.checkpoint", "utils.config"):
+        assert f"boxer_tpu_torch.{name}" in res.stdout, name
