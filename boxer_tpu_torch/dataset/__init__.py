@@ -47,16 +47,11 @@ def build_dataloader(dataset, dataset_type: str, batch_size: int,
     default). The sampler's replicas are the torch.distributed group's
     processes (1 without a group)."""
     from boxer_tpu_torch.dataset.helper.loader import DataLoader
-    from boxer_tpu_torch.dataset.helper.sampler import (
-        DistributedSampler,
-        ShardDistributedSampler,
-    )
+    from boxer_tpu_torch.dataset.helper.sampler import DistributedSampler
 
     dist = torch.distributed
     grouped = dist.is_available() and dist.is_initialized()
-    cache_mode = bool(getattr(dataset, "config", {}).get("cache_mode", False))
-    sampler_cls = ShardDistributedSampler if cache_mode else DistributedSampler
-    sampler = sampler_cls(
+    sampler = DistributedSampler(
         len(dataset),
         num_replicas=dist.get_world_size() if grouped else 1,
         rank=dist.get_rank() if grouped else 0,

@@ -147,11 +147,6 @@ class COCODetection:
 
         self.prepare = ConvertCocoPolysToMask(self.use_mask,
                                               self.cat_id_to_label)
-        # cache_mode: in-RAM decoded-image cache (reference CocoDetection
-        # cache_mode, `helper/coco_detection.py:41-71`; pair with
-        # ShardDistributedSampler for per-host shard locality)
-        self.cache_mode = bool(config.get("cache_mode", False))
-        self._image_cache = {} if self.cache_mode else None
         procs = config.get("processors", {})
         key = ("image_train_processor" if dataset_type == "train"
                else "image_test_processor")
@@ -172,12 +167,7 @@ class COCODetection:
         image_id = self.ids[idx]
         info = self.coco.load_img(image_id)
         path = os.path.join(self.image_folder, info["file_name"])
-        if self._image_cache is not None and image_id in self._image_cache:
-            img = self._image_cache[image_id].copy()
-        else:
-            img = Image.open(path).convert("RGB")
-            if self._image_cache is not None:
-                self._image_cache[image_id] = img.copy()
+        img = Image.open(path).convert("RGB")
 
         if self.dataset_type == "test":
             target = {"image_id": image_id, "annotations": []}

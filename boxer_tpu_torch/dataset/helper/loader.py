@@ -8,15 +8,14 @@ in the epoch and the sampler's epoch, so a batch is the same whichever
 thread builds it and a resumed epoch that starts at batch `start` replays
 the rest of it exactly.
 
-On a CUDA device the worker also puts the batch on the card, in place of
-the JAX loader's `jax.device_put` (and of the reference's side-stream
-`Prefetcher`, `dataset/helper/prefetcher.py:11-62`): the collated arrays are
-pinned and copied `non_blocking` on a side stream, and an event is
-recorded behind the copies. Before the batch is handed out, the consumer's
-current stream waits on that event and each tensor is `record_stream`ed on
-it, so the step never reads a half-copied batch and the caching allocator
-does not reuse its memory while the step may still read it. The copy of
-batch i+1 overlaps the step on batch i.
+On a CUDA device the worker also pins the batch, and the consumer's thread
+copies it to the card `non_blocking` on its current stream as it hands the
+batch out, in place of the JAX loader's `jax.device_put`: the step, on the
+same stream, reads it after the copy, and the pinned host memory is kept
+until the copy is done. A side-stream copy from the worker (the reference's
+`Prefetcher`, `dataset/helper/prefetcher.py:11-62`) measured no faster on
+an H100 (`tools/bench_trainer.py`); a pageable copy on the consumer's
+thread cost it about 18 ms an update.
 """
 
 import collections
@@ -54,7 +53,6 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.device = torch.device(device or "cpu")
-        self._copy_stream = None
 
     def __len__(self):
         n = len(self.sampler)
@@ -81,18 +79,17 @@ class DataLoader:
         """The epoch's batches from batch index `start` on (the earlier ones
         are not loaded); each as the whole epoch's run would give it."""
         todo = itertools.islice(enumerate(self._batches()), start, None)
-        if self.device.type == "cuda" and self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
         pool = ThreadPoolExecutor(self.num_workers)
         pending = collections.deque(
             pool.submit(self._make, bi, indices)
             for bi, indices in itertools.islice(todo, self.num_workers + 1))
         try:
             while pending:
-                batch, ready = pending.popleft().result()
+                batch = pending.popleft().result()
                 for bi, indices in itertools.islice(todo, 1):
                     pending.append(pool.submit(self._make, bi, indices))
-                yield self._hand_out(batch, ready)
+                yield _map_arrays(batch, lambda t: t.to(self.device,
+                                                         non_blocking=True))
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
@@ -104,30 +101,9 @@ class DataLoader:
             % 2 ** 32)
         items = [self.dataset.load(i, rng) for i in indices]
         batch = self._reshape_microbatches(self.dataset.collate(items))
-        return self._to_device(batch)
-
-    def _to_device(self, batch):
-        """(batch of tensors on self.device, event behind its copies or
-        None)."""
-        if self.device.type != "cuda":
-            return _map_arrays(batch, torch.from_numpy), None
-        with torch.cuda.stream(self._copy_stream):
-            batch = _map_arrays(batch, lambda x: torch.from_numpy(x)
-                                .pin_memory().to(self.device,
-                                                 non_blocking=True))
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return batch, ready
-
-    def _hand_out(self, batch, ready):
-        if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(ready)
-            for v in batch.values():
-                for t in v.values() if isinstance(v, dict) else (v,):
-                    if isinstance(t, torch.Tensor):
-                        t.record_stream(stream)
-        return batch
+        pinned = self.device.type == "cuda"
+        return _map_arrays(batch, lambda x: torch.from_numpy(x).pin_memory()
+                           if pinned else torch.from_numpy(x))
 
     def _reshape_microbatches(self, batch):
         a = self.iter_per_update
@@ -173,15 +149,16 @@ class DataLoader:
 
 
 def _map_arrays(batch, fn):
-    """fn over every numpy array of the batch (one level of nesting); the
-    host keys as they are."""
+    """fn over every array (numpy or torch) of the batch (one level of
+    nesting); the host keys as they are."""
+    arrays = (np.ndarray, torch.Tensor)
     out = {}
     for k, v in batch.items():
         if k in _HOST_KEYS:
             out[k] = v
         elif isinstance(v, dict):
-            out[k] = {kk: fn(vv) if isinstance(vv, np.ndarray) else vv
+            out[k] = {kk: fn(vv) if isinstance(vv, arrays) else vv
                       for kk, vv in v.items()}
         else:
-            out[k] = fn(v) if isinstance(v, np.ndarray) else v
+            out[k] = fn(v) if isinstance(v, arrays) else v
     return out

@@ -1,11 +1,11 @@
-"""Epoch-seeded distributed samplers; copy of
+"""Epoch-seeded distributed sampler; copy of the DistributedSampler of
 `boxer_tpu/dataset/helper/sampler.py`.
 
-Parity: reference `e2edet/dataset/helper/sampler.py:8-90` —
-DistributedSampler (pad to even shards, shard round-robin, epoch-seeded
-shuffle) and ShardDistributedSampler (shard *then* shuffle, preserving
-cache locality for cache_mode datasets). "Rank" is the process's rank in
-the torch.distributed group (0 of 1 without one).
+Parity: reference `e2edet/dataset/helper/sampler.py:8-53` (pad to even
+shards, shard round-robin, epoch-seeded shuffle). "Rank" is the process's
+rank in the torch.distributed group (0 of 1 without one). The JAX
+package's ShardDistributedSampler (for `cache_mode`) waits for data
+parallel: in one process it gives this sampler's order.
 """
 
 from typing import Iterator, List
@@ -46,19 +46,3 @@ class DistributedSampler:
     def __len__(self):
         return self.num_samples
 
-
-class ShardDistributedSampler(DistributedSampler):
-    """Shard first (contiguous), then shuffle within the shard —
-    cache-friendly (reference `sampler.py:56-90`)."""
-
-    def __iter__(self) -> Iterator[int]:
-        indices = np.arange(self.dataset_len)
-        pad = self.total_size - len(indices)
-        if pad > 0:
-            indices = np.concatenate([indices, indices[:pad]])
-        shard = indices[self.rank * self.num_samples:
-                        (self.rank + 1) * self.num_samples]
-        if self.shuffle:
-            rng = np.random.RandomState(self.seed + self.epoch)
-            shard = rng.permutation(shard)
-        return iter(shard.tolist())

@@ -108,7 +108,7 @@ def _hungarian_batched(cost):
 def hungarian(cost, row_valid):
     """Batched assignment. cost: (..., NT, NQ); row_valid: (..., NT) bool.
     Returns col4row (..., NT) int64; entries of invalid rows are arbitrary
-    columns (0), to be masked by the caller.
+    columns, to be masked by the caller.
 
     Only the valid rows are solved. The JAX package keeps a padding row in
     the problem as a row of constant zeros, which can take any column the

@@ -143,25 +143,19 @@ def make_train_step(criterion, max_norm: float = 0.0,
     return train_step
 
 
-def make_eval_step(criterion=None,
-                   compute_dtype: torch.dtype = torch.float32) -> Callable:
-    """eval_step(state, batch) -> (outputs, losses | None): the model in
-    val mode (inference=False: every decoder layer's outputs and the
-    encoder head's), and with a criterion and targets the losses without
-    the `_` entries."""
+def make_eval_step(compute_dtype: torch.dtype = torch.float32) -> Callable:
+    """eval_step(state, batch) -> outputs: the model in val mode
+    (inference=False: every decoder layer's outputs and the encoder
+    head's). The JAX step's losses, which its engine drops, are not
+    computed."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         state.model.eval()
         with _autocast(compute_dtype, batch["image" if "image" in batch
                                             else "voxels"].device):
-            out = apply_model(state.model, batch, train=False,
-                              inference=False)
-        losses = None
-        if criterion is not None and "targets" in batch:
-            losses = {k: v for k, v in criterion(out, batch["targets"]).items()
-                      if not k.startswith("_")}
-        return out, losses
+            return apply_model(state.model, batch, train=False,
+                               inference=False)
 
     return eval_step
 

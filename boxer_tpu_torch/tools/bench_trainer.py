@@ -1,0 +1,75 @@
+"""Wall time per update of the port's trainer on the shipped segm config,
+for the tree on PYTHONPATH.
+
+    PYTHONPATH=TREE python boxer_tpu_torch/tools/bench_trainer.py [UPDATES]
+
+TREE is the root of a checkout (this one, or a `git archive` of another
+commit): its `boxer_tpu_torch` package, and its `chip_smoke.py`, whose
+`write_coco` and `trainer_on_card` (phase 10) this script uses, are
+imported from there. It writes a synthetic COCO directory of UPDATES x 2
+train JPEGs (480x640, COCO's 80 category ids), so that the UPDATES updates
+(default 12) are one epoch, and trains `chip_smoke.TRAINER_CONFIG` (the
+shipped BoxeR-2D R50 segm config at full width, bf16 autocast, its 1344x1344
+canvas and processors) on the first CUDA card, cut only in the schedule:
+two microbatches of one image an update, `run_type=train`, no checkpoint
+before the last update, a log line every update.
+
+An update's wall time runs from the return of the previous update's train
+step to the return of its own: the loader's hand-out (with the batch's copy
+to the card), the step and the engine's logging, as a user's run pays them
+(no synchronize is added). The first update (the warm-up) has none. Prints
+one JSON line {"tree": ..., "wall_ms": [...], "median_wall_ms": ...,
+"step_ms": [...], "peak_gib": ...}, where a step's ms is the train step's
+own call.
+"""
+
+import json
+import statistics
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+
+def main(updates=12):
+    import chip_smoke
+
+    tree = Path(chip_smoke.__file__).resolve().parent
+    # the tree's write_coco takes its image count from its module
+    chip_smoke.COCO_IMAGES = 2 * updates
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        chip_smoke.write_coco(root)
+        trainer = chip_smoke.trainer_on_card(root, [
+            "training.seed=3", "training.batch_size=2",
+            "training.iter_per_update=2", f"training.max_update={updates}",
+            f"training.checkpoint_interval={updates}",
+            "training.log_interval=1", "training.run_type=train"])
+        ends, step_ms = [], []
+        train_step = trainer._train_step
+
+        def step(state, batch):
+            t0 = time.perf_counter()
+            out = train_step(state, batch)
+            ends.append(time.perf_counter())
+            step_ms.append((ends[-1] - t0) * 1e3)
+            return out
+
+        trainer._train_step = step
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train()
+        torch.cuda.synchronize()
+        if trainer.state.step != updates:
+            raise AssertionError(f"{trainer.state.step} of {updates} "
+                                 "updates taken")
+        wall = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+        print(json.dumps({
+            "tree": str(tree), "wall_ms": wall,
+            "median_wall_ms": statistics.median(wall), "step_ms": step_ms,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
+
+
+if __name__ == "__main__":
+    main(*map(int, sys.argv[1:]))

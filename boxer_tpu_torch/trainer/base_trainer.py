@@ -176,7 +176,7 @@ class BaseTrainer:
             metrics=build_metrics(model_cfg.get("metric")))
         # the engine reads only the outputs of a val batch, so the eval step
         # computes no losses
-        self._eval_step = make_eval_step(None, self.compute_dtype)
+        self._eval_step = make_eval_step(self.compute_dtype)
         self._inference_step = make_inference_step(self.compute_dtype)
 
         n_params = sum(p.numel() for p in model.parameters())

@@ -132,7 +132,7 @@ def evaluate(split: str, trainer):
         if is_test:
             out = trainer._inference_step(trainer.state, squeezed)
         else:
-            out, _ = trainer._eval_step(trainer.state, squeezed)
+            out = trainer._eval_step(trainer.state, squeezed)
         # numpy has no bf16: cast on the device, then one copy per output
         out_np = {k: v.float().cpu().numpy()
                   for k, v in _strip_aux(out).items()}

@@ -91,7 +91,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    test_result.json record for every test image; config.yaml, the
    checkpoints of updates 2 and 4 and model_final; a resumed trainer with
    update 4's model and optimizer state bitwise, at (update, epoch, skip)
-   (4, 1, 0), taking 2 more finite updates; ms per update, peak memory,
+   (4, 1, 0), taking 2 more finite updates; ms per update (the median of
+   updates 2-6, the first update a warm-up left out), peak memory,
    the eval forwards' launches per image and one profiled update.
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
@@ -1757,9 +1758,8 @@ def run_trainer(dev, smi):
                              e["launches"].items()}
                      for split, e in rec["eval"].items()}
         log(f"{label} [{smi}]: load {t_load:.1f} s, train() {t_train:.1f} s "
-            f"(4 updates, val and test); {np.median(times):.2f} ms per "
-            f"update median (min {min(times):.2f}, max {max(times):.2f}; "
-            f"all {', '.join(f'{t:.2f}' for t in times)}); peak "
+            f"(4 updates, val and test); ms per update "
+            f"{', '.join(f'{t:.2f}' for t in times)}; peak "
             f"{peak:.2f} GiB; launches per update {updates[-1]['launches']};"
             f" per eval image {per_image}; val AP bbox "
             f"{ap['coco_eval_bbox'][0]:.4g}, segm "
@@ -1788,7 +1788,7 @@ def run_trainer(dev, smi):
         if not (model_ok and opt_ok and len(opt["state"]) > 0
                 and position == (4, 1, 0)):
             raise AssertionError(f"{label}: resume restored {position}")
-        rec2 = record_steps(resumed, log_update)
+        rec2 = record_steps(resumed, lambda i, u: log_update(4 + i, u))
         resumed.train()
         more = rec2["updates"]
         if resumed.state.step != 6 or len(more) != 2 or not all(
@@ -1796,12 +1796,17 @@ def run_trainer(dev, smi):
                 and u["stats"]["skipped"] == 0.0 for u in more):
             raise AssertionError(f"{label}: after the resume "
                                  f"{[u['stats'] for u in more]}")
+        # the first update (the warm-up) left out
+        times = times[1:] + [u["ms"] for u in more]
+        median = float(np.median(times))
+        log(f"{label} [{smi}]: {median:.2f} ms per update, the median of "
+            f"updates 2-6 (min {min(times):.2f}, max {max(times):.2f})")
         batch, step = rec["first"][0], rec2["step"]
-        busy = profile(lambda: step(resumed.state, batch),
-                       float(np.median(times)), f"{label}, one update")
+        busy = profile(lambda: step(resumed.state, batch), median,
+                       f"{label}, one update")
         del resumed, rec, rec2, batch, step
         torch.cuda.empty_cache()
-    return counts, dict(ms=float(np.median(times)), times=times, peak=peak,
+    return counts, dict(ms=median, times=times, peak=peak,
                         busy=busy, per_image=per_image, ap=ap,
                         train_s=t_train)
 
@@ -1951,7 +1956,8 @@ def main():
         f"{TRAIN_BATCH_3D} (peak {peak_3d:.2f} GiB, device busy "
         f"{train_3d['busy'][0]:.2f} ms)")
     log(f"trainer [{smi}]: {trainer_run['ms']:.2f} ms per update of 2 x 1 "
-        f"images at 1344x1344 (median of 4; min {min(trainer_run['times']):.2f}"
+        f"images at 1344x1344 (median of updates 2-6; min "
+        f"{min(trainer_run['times']):.2f}"
         f", max {max(trainer_run['times']):.2f}), peak "
         f"{trainer_run['peak']:.2f} GiB, device busy "
         f"{trainer_run['busy'][0]:.2f} ms of an update "

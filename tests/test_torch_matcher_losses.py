@@ -4,7 +4,8 @@ package (and scipy for the assignment), on the CPU.
 - `hungarian`: the valid rows' assignment equals scipy's
   `linear_sum_assignment` and the JAX solver's exactly, below and above
   the column-pruning threshold (NQ > 4*NT), with and without padded
-  target rows (which the port leaves unsolved, at column 0).
+  target rows: the same count in both problems, counts that differ (one
+  of them 0), and valid rows scattered among the padding.
 - `HungarianMatcher`: the cost matrix within rel 1e-5 and the same query
   indices; `Boxer2DCriterion`: every loss term within rel 1e-5 (f32 sums in
   another order), with aux layers, the encoder head's binary-label match
@@ -33,26 +34,37 @@ def _scipy_col4row(cost):
     return out
 
 
+def _valid_rows(n_valid, n, rs):
+    """(2, n) bool: a prefix of n_valid rows in both problems, a prefix of
+    n_valid[b] rows in problem b, or rows scattered among the padding."""
+    if n_valid == "interleaved":
+        return np.stack([np.arange(n) % 2 == 1, rs.rand(n) < 0.3])
+    counts = np.broadcast_to(n_valid, (2,))
+    return np.arange(n)[None, :] < counts[:, None]
+
+
 @pytest.mark.parametrize("n,m,n_valid", [
     (4, 10, 4), (10, 10, 10), (25, 60, 25), (20, 80, 13),     # full solve
-    (10, 200, 10), (20, 2000, 20), (20, 20197, 7)])           # pruned
+    (10, 200, 10), (20, 2000, 20), (20, 20197, 7),            # pruned
+    (20, 80, (3, 13)), (20, 2000, (3, 13)), (20, 80, (0, 5)),
+    (20, 80, "interleaved"), (20, 2000, "interleaved")])
 def test_hungarian_matches_scipy_and_jax(n, m, n_valid):
     from boxer_tpu.nn.matcher import hungarian as j_hungarian
     from boxer_tpu_torch.nn.matcher import hungarian
 
     rs = np.random.RandomState(n * m)
     cost = (rs.randn(2, n, m) * 10).astype(np.float32)
-    valid = np.arange(n)[None, :].repeat(2, 0) < n_valid
+    valid = _valid_rows(n_valid, n, rs)
     got = hungarian(_t(cost), _t(valid)).numpy()
     want = np.asarray(j_hungarian(_j(cost), _j(valid)))
-    # the port solves the valid rows only (a padding row's column is
-    # arbitrary, 0, and masked by every caller); JAX solves the padding too
-    np.testing.assert_array_equal(got[:, :n_valid], want[:, :n_valid])
-    assert (got[:, n_valid:] == 0).all()
+    # the port solves the valid rows only, the JAX package the padding
+    # too: a padding row's column is arbitrary (masked by every caller)
+    assert ((got >= 0) & (got < m)).all()
     for b in range(2):
-        assert len(set(got[b, :n_valid].tolist())) == n_valid   # distinct
-        np.testing.assert_array_equal(
-            got[b, :n_valid], _scipy_col4row(cost[b, :n_valid]))
+        v = valid[b]
+        np.testing.assert_array_equal(got[b, v], want[b, v])
+        assert len(set(got[b, v].tolist())) == v.sum()        # distinct
+        np.testing.assert_array_equal(got[b, v], _scipy_col4row(cost[b, v]))
 
 
 def _outputs(rs, b, nq, ncls, masks=False, masked=None):
