@@ -2,10 +2,8 @@
 `boxer_tpu/dataset/__init__.py`.
 
 Parity: reference `e2edet/dataset/__init__.py:19-93` (`build_dataset`,
-`build_dataloader`, `register_task`). The port registers the COCO task
-(`detection`); the Waymo task (`detection3d`) is not ported yet (ROADMAP
-queue 1). Besides: `synthetic` (seeded training batches) and `waymo` (the
-BoxeR-3D detections and grid).
+`build_dataloader`, `register_task`). The tasks: COCO (`detection`) and
+Waymo (`detection3d`). Besides: `synthetic` (seeded training batches).
 """
 
 import os
@@ -67,3 +65,4 @@ def build_dataloader(dataset, dataset_type: str, batch_size: int,
 
 # populate registry
 from boxer_tpu_torch.dataset.coco import COCODetection  # noqa: E402,F401
+from boxer_tpu_torch.dataset.waymo import WaymoDetection  # noqa: E402,F401

@@ -8,6 +8,18 @@ in the epoch and the sampler's epoch, so a batch is the same whichever
 thread builds it and a resumed epoch that starts at batch `start` replays
 the rest of it exactly.
 
+A dataset with state that its loads advance (the Waymo task's GT-database
+sampler, whose per-class cursors every frame moves) exposes `draw(idx,
+rng)`, `draw_state()` and `set_draw_state(state)`. The loader takes a
+batch's draws on the consumer's thread as it submits the batch, in batch
+order, from a second RandomState of the batch's seed, and hands them to
+`load(idx, rng, drawn)`; so the draws follow batch order however the
+workers run (the JAX loader's single producer thread draws in its loads,
+from the batch's own RandomState). `draw_state` is the dataset's state
+after the last batch handed out; `iterate` starts from it, so draws made
+for batches fetched ahead and never handed out are taken again, and a
+trainer that records it in a checkpoint resumes with the same draws.
+
 On a CUDA device the worker also pins the batch, and the consumer's thread
 copies it to the card `non_blocking` on its current stream as it hands the
 batch out, in place of the JAX loader's `jax.device_put`: the step, on the
@@ -53,6 +65,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.device = torch.device(device or "cpu")
+        self.draw_state = None
 
     def __len__(self):
         n = len(self.sampler)
@@ -79,27 +92,48 @@ class DataLoader:
         """The epoch's batches from batch index `start` on (the earlier ones
         are not loaded); each as the whole epoch's run would give it."""
         todo = itertools.islice(enumerate(self._batches()), start, None)
+        drawing = hasattr(self.dataset, "draw")
+        if drawing and self.draw_state is not None:
+            self.dataset.set_draw_state(self.draw_state)
         pool = ThreadPoolExecutor(self.num_workers)
+
+        def submit(bi, indices):
+            if not drawing:
+                return pool.submit(self._make, bi, indices), None
+            rng = np.random.RandomState([self._seed(bi), 1])
+            drawn = [self.dataset.draw(i, rng) for i in indices]
+            return (pool.submit(self._make, bi, indices, drawn),
+                    self.dataset.draw_state())
+
         pending = collections.deque(
-            pool.submit(self._make, bi, indices)
+            submit(bi, indices)
             for bi, indices in itertools.islice(todo, self.num_workers + 1))
         try:
             while pending:
-                batch = pending.popleft().result()
+                future, state = pending.popleft()
+                batch = future.result()
                 for bi, indices in itertools.islice(todo, 1):
-                    pending.append(pool.submit(self._make, bi, indices))
+                    pending.append(submit(bi, indices))
+                if drawing:
+                    self.draw_state = state
                 yield _map_arrays(batch, lambda t: t.to(self.device,
                                                          non_blocking=True))
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
-    def _make(self, bi, indices):
+    def _seed(self, bi):
         # the JAX loader's seed, wrapped to RandomState's 32 bits (there it
         # overflows, and raises, for any loader seed above 42,948)
-        rng = np.random.RandomState(
-            (self.seed * 100003 + bi * 1009 + getattr(self.sampler, "epoch", 0))
-            % 2 ** 32)
-        items = [self.dataset.load(i, rng) for i in indices]
+        return ((self.seed * 100003 + bi * 1009
+                 + getattr(self.sampler, "epoch", 0)) % 2 ** 32)
+
+    def _make(self, bi, indices, drawn=None):
+        rng = np.random.RandomState(self._seed(bi))
+        if drawn is None:
+            items = [self.dataset.load(i, rng) for i in indices]
+        else:
+            items = [self.dataset.load(i, rng, d)
+                     for i, d in zip(indices, drawn)]
         batch = self._reshape_microbatches(self.dataset.collate(items))
         pinned = self.device.type == "cuda"
         return _map_arrays(batch, lambda x: torch.from_numpy(x).pin_memory()
@@ -145,6 +179,9 @@ class DataLoader:
             out["coordinates"] = np.concatenate(
                 [np.where(c[..., :1] >= 0, c[..., :1] % mb, -1), c[..., 1:]],
                 axis=-1)
+            # the static batch size the model takes is a microbatch's (the
+            # JAX trainer passes it to its step; the batch keeps B there)
+            out["batch_size"] = mb
         return out
 
 

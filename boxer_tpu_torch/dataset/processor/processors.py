@@ -1,11 +1,13 @@
-"""Composable processor (augmentation) registry; copy of the 2D part of
-`boxer_tpu/dataset/processor/processors.py` (the 3D processors come with the
-Waymo dataset).
+"""Composable processor (augmentation) registry; copy of
+`boxer_tpu/dataset/processor/processors.py`.
 
 Parity target: reference `e2edet/dataset/processor/processors.py` registry
 (:12-53) and the 2D processor set used by the COCO configs: to_tensor,
 normalize, random_resize, random_size_crop (+v2), fixed_size_crop,
-random_horizontal_flip, random_select, resize_scale (LSJ), compose.
+random_horizontal_flip, random_select, resize_scale (LSJ), compose; and
+the 3D set of the Waymo configs: random_flip, global_rotate, global_scale,
+global_translate, filter_by_range, shuffle_points, voxelize, normalize3d,
+double_flip, np_to_tensor.
 
 Each processor is `p(sample, target, rng) -> (sample, target)` with a
 per-call numpy RandomState for reproducibility.
@@ -16,6 +18,8 @@ from typing import Any, Dict, List
 import numpy as np
 
 from boxer_tpu_torch.dataset.processor import transforms_2d as T
+from boxer_tpu_torch.dataset.processor import transforms_3d as T3
+from boxer_tpu_torch.dataset.processor.voxelizer import points_to_voxel
 from boxer_tpu_torch.utils.registry import PROCESSOR_REGISTRY
 
 
@@ -175,6 +179,95 @@ class AnswerProcessor(BaseProcessor):
 
     def get_size(self) -> int:
         return len(self.classes)
+
+    def __call__(self, sample, target, rng):
+        return sample, target
+
+
+# =========================== #
+# --------- 3d ops ---------- #
+# =========================== #
+
+
+@register_processor("random_flip")
+class RandomFlip3D(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.random_flip(sample, target, rng,
+                              self.params.get("prob", 0.5))
+
+
+@register_processor("global_rotate")
+class GlobalRotate(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.global_rotation(sample, target, rng,
+                                  self.params["rotation"])
+
+
+@register_processor("global_scale")
+class GlobalScale(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.global_scaling(sample, target, rng,
+                                 self.params["min_scale"],
+                                 self.params["max_scale"])
+
+
+@register_processor("global_translate")
+class GlobalTranslate(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.global_translate(sample, target, rng,
+                                   self.params.get("noise_std", 0.0))
+
+
+@register_processor("filter_by_range")
+class FilterByRange(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.filter_by_pc_range(sample, target, self.params["pc_range"])
+
+
+@register_processor("shuffle_points")
+class ShufflePoints(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.shuffle_points(sample, target, rng)
+
+
+@register_processor("voxelize")
+class Voxelize(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        voxels, coords, num_points = points_to_voxel(
+            sample["points"],
+            self.params["voxel_size"],
+            self.params["pc_range"],
+            max_points=self.params.get("max_points_per_voxel", 20),
+            reverse=True,
+            max_voxels=self.params.get("max_voxel_num", 32000),
+        )
+        sample = dict(sample)
+        sample.update({
+            "voxels": voxels,
+            "coordinates": coords,
+            "num_points_per_voxel": num_points,
+        })
+        return sample, target
+
+
+@register_processor("normalize3d")
+class Normalize3D(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.normalize3d(sample, target, self.params["pc_range"],
+                              self.params.get("normalize_angle", "sigmoid"))
+
+
+@register_processor("double_flip")
+class DoubleFlip(BaseProcessor):
+    def __call__(self, sample, target, rng):
+        return T3.double_flip(sample, target)
+
+
+@register_processor("np_to_tensor")
+class NpToTensor(BaseProcessor):
+    """No-op: the arrays stay numpy until the loader makes tensors of the
+    collated batch; kept for the config surface (reference
+    `functional.py:459-463`)."""
 
     def __call__(self, sample, target, rng):
         return sample, target

@@ -58,10 +58,6 @@ def resolve_device(device: str) -> torch.device:
 def check_ported(config):
     """Raise on a task, model or parallel layout the port does not run yet,
     naming its ROADMAP item."""
-    if config.get("task") == "detection3d":
-        raise NotImplementedError(
-            "task detection3d (the Waymo trainer path) is not ported: "
-            "ROADMAP queue 1, the Waymo trainer item")
     if config.get("model") == "detr":
         raise NotImplementedError(
             "model detr is not ported: ROADMAP queue 1, item 10 (DETR)")
@@ -215,6 +211,9 @@ class BaseTrainer:
                 self.current_update = self.state.step
                 self.current_epoch = int(extra["epoch"])
                 self.epoch_batches_done = int(extra["epoch_batches"])
+                if ("train" in self.loaders
+                        and extra.get("draw_state") is not None):
+                    self.loaders["train"].draw_state = extra["draw_state"]
                 if ("train" in self.loaders and self.epoch_batches_done
                         >= len(self.loaders["train"])):
                     # saved on an epoch's last batch: resume at the next
@@ -229,9 +228,15 @@ class BaseTrainer:
         """What a checkpoint records of the run's position: the mid-epoch
         skip on resume comes from it, not from the update count, so an
         update skipped on a non-finite gradient or a save on an epoch's
-        last batch replays exactly."""
-        return {"epoch": self.current_epoch, "update": self.current_update,
-                "epoch_batches": self.epoch_batches_done}
+        last batch replays exactly; and, where the train loader draws from
+        a GT database, the draws' state after the last batch taken."""
+        extra = {"epoch": self.current_epoch, "update": self.current_update,
+                 "epoch_batches": self.epoch_batches_done}
+        train = self.loaders.get("train")
+        draw_state = None if train is None else train.draw_state
+        if draw_state is not None:
+            extra["draw_state"] = draw_state
+        return extra
 
     # ------------------------------------------------------------------
     def train(self):

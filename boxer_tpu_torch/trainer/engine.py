@@ -2,8 +2,9 @@
 
 Parity target: reference `e2edet/trainer/engine.py` — train_epoch loop
 with interval-driven checkpoint/eval (:126-192), evaluate (val:
-CocoEvaluator; test: result accumulation + dump, :20-123), per-interval
-meters/ups/ETA reporting (:246-299). The train step hands back its stats
+CocoEvaluator, or the offline Waymo metrics for the 3D task; test: result
+accumulation + dump, :20-123), per-interval meters/ups/ETA reporting
+(:246-299). The train step hands back its stats
 as host floats, read from the device in one copy a step (it needs the
 gradient norm on the host for the NaN skip); the loop adds no sync.
 """
@@ -108,13 +109,15 @@ def _update_info(trainer, stats, updates, window_s):
 
 
 def evaluate(split: str, trainer):
-    """val: streaming COCO eval; test: accumulate + dump results
-    (reference `engine.py:20-123`)."""
+    """val: streaming COCO eval (2D) or accumulated Waymo metrics (3D);
+    test: accumulate + dump results (reference `engine.py:20-123`)."""
     loader = trainer.loaders.get(split)
     if loader is None:
         return None
     dataset = trainer.datasets[split]
     is_test = split == "test"
+    if not hasattr(dataset, "coco"):
+        return _evaluate_3d(split, trainer, loader, dataset, is_test)
 
     from boxer_tpu_torch.evaluate.coco_eval import CocoEvaluator
 
@@ -170,6 +173,34 @@ def evaluate(split: str, trainer):
             trainer.writer.add_scalars(
                 {f"{split}/{k}_AP": float(v[0])}, trainer.current_update)
     return stats
+
+
+def _evaluate_3d(split, trainer, loader, dataset, is_test):
+    """3D (Waymo) eval, val and test alike: the inference step on each
+    batch, its top-125 records accumulated, `results.pkl` written to the
+    save dir; val then runs the offline metrics on the records."""
+    accumulated = {}
+    t0 = time.perf_counter()
+    for batch in loader:
+        meta = batch.pop("meta")
+        out = trainer._inference_step(trainer.state,
+                                      _squeeze_microbatch(batch))
+        accumulated.update(dataset.format_for_evalai(out, meta))
+    path = dataset.prepare_for_evaluation(accumulated, trainer.save_dir)
+    trainer.logger.info(f"{split}: {len(accumulated)} frames in "
+                        f"{time.perf_counter() - t0:.1f}s; wrote {path}")
+    if is_test:
+        return path
+
+    from boxer_tpu_torch.evaluate.waymo_eval import evaluate_results
+
+    metrics = evaluate_results(accumulated)
+    for k, v in sorted(metrics.items()):
+        trainer.logger.info(f"{split} {k}: {v:.4f}")
+        if trainer.writer is not None:
+            trainer.writer.add_scalars({f"{split}/{k}": v},
+                                       trainer.current_update)
+    return metrics
 
 
 def _squeeze_microbatch(batch):

@@ -93,7 +93,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
    update 4's model and optimizer state bitwise, at (update, epoch, skip)
    (4, 1, 0), taking 2 more finite updates; ms per update (the median of
    updates 2-6, the first update a warm-up left out), peak memory,
-   the eval forwards' launches per image and one profiled update.
+   the eval forwards' launches per image and one profiled update;
+11. the Waymo trainer: the shipped Waymo-Detection/boxer3d_pointpillar
+   config through `build_trainer`, `load`, `train` at full width (hidden
+   256, 8 heads, 2+2 layers, 300 queries, 5 classes, the 469x469 grid,
+   32,000 train and 60,000 test voxels of 20 points, 250 boxes, the
+   config's processors and GT-database sampler, cosine with warmup, AdamW,
+   bf16 autocast) on a generated Waymo directory (8 train and 16 val
+   frames of 180,000 points, 20-70 objects with points in every box,
+   9-column boxes) and its `create_gt_database`, only TRAINER_3D_CUTS cut:
+   each update finite, not skipped, at the schedule's LR times each
+   group's base LR, with K2 8, K5 8, K3 2; K2 4 and K3 1 a val or test
+   frame; db-sampled objects placed; the loader's first batch on the card
+   bitwise equal to its host build from the same draws; the val metrics
+   equal to `evaluate_results` of the val records; results.pkl with a
+   record per val and per test frame; config.yaml, the checkpoints of
+   updates 2 and 4, model_final; a resumed trainer with update 4's model,
+   optimizer state and db cursors bitwise, at (4, 1, 0), taking 2 more
+   finite updates; ms per update (median of updates 2-6), peak memory,
+   one profiled update's busy share, the matcher's host syncs an update,
+   K5's device ms a call beside phase 9c's, the matcher's cost matrices'
+   peak memory and the loader's host ms by stage.
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
 of their own, and one JSON line of per-kernel results (one row per kernel
@@ -165,6 +185,18 @@ TRAINER_CUTS = ["training.seed=3", "training.batch_size=2",
 COCO_IDS = [i for i in range(1, 91)
             if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
 COCO_IMAGES, COCO_HW = 8, (480, 640)
+# phase 11: the shipped Waymo config through the trainer at full width, cut
+# only here: batch 2 (the recipe's 16 over 8 cards, as phase 9c), a fixed
+# seed, 4 updates with a checkpoint every 2 (both kept), then 2 more after
+# a resume; on a generated Waymo directory in the converter's layout: 8
+# train frames and 16 val frames (the config's load_interval 5 evaluates 4
+# of them), SERVE_POINTS points and 20-70 objects a frame
+TRAINER_3D_CONFIG = "boxer_tpu_torch/config/Waymo-Detection/boxer3d_pointpillar.yaml"
+TRAINER_3D_CUTS = ["training.seed=3", "training.batch_size=2",
+                   "training.max_update=4", "training.checkpoint_interval=2",
+                   "training.num_checkpoint=2",
+                   "training.run_type=train_val_test"]
+WAYMO_FRAMES, WAYMO_OBJECTS = {"train": 8, "val": 16}, (20, 70)
 
 
 def per_run(**counts):
@@ -594,7 +626,8 @@ def profile(fn, wall_ms, label):
     """Run fn() once under torch.profiler after a warm-up call. Prints the
     device's summed kernel time against the unprofiled wall time `wall_ms`
     (the busy share; the rest the device idles while the host dispatches)
-    and the top kernels by device time. Returns (busy ms, share)."""
+    and the top kernels by device time. Returns (busy ms, share, {kernel
+    name: (device ms, calls)})."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     fn()
@@ -611,7 +644,16 @@ def profile(fn, wall_ms, label):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:4d}x  "
             f"{e.key[:90]}")
-    return busy_ms, busy_ms / wall_ms
+    return busy_ms, busy_ms / wall_ms, {
+        e.key: (e.self_device_time_total / 1e3, e.count) for e in kernels}
+
+
+def k5_call_ms(by_kernel):
+    """Device ms per call of the weighted scatter (K5, or K6: one kernel)
+    in a profile's kernels."""
+    ms, calls = map(sum, zip(*[v for k, v in by_kernel.items()
+                               if "scatter_weighted_kernel" in k]))
+    return ms / calls
 
 
 def profile_forward(dev, forward_ms, combine="pmajor"):
@@ -1477,6 +1519,7 @@ def run_train_3d(dev, smi):
     del model, state, step, debug_step
     torch.cuda.empty_cache()
     return ms, peak, counts, dict(times=times, busy=busy,
+                                  k5_ms=k5_call_ms(busy[2]),
                                   first={k: all_stats[0][k] for k in terms},
                                   last={k: all_stats[-1][k] for k in terms})
 
@@ -1606,12 +1649,14 @@ def tree_map(batch, fn):
             for k, v in batch.items()}
 
 
-def record_steps(trainer, log_update):
+def record_steps(trainer, log_update, syncs=None):
     """Wrap the trainer's train, eval and inference steps: each train step
-    is timed up to a synchronize and its launches, stats and group LRs
-    (with the schedule's value at the step it took) are recorded; the
-    first batch is kept, on the card and copied to the host; the eval and
-    inference steps' launches and images are summed."""
+    is timed up to a synchronize and its launches, stats, group LRs (with
+    the schedule's value at the step it took), the host's wait since the
+    previous step returned and, given the `matcher_syncs` tally, the
+    matcher's host syncs are recorded; the first batch is kept, on the
+    card and copied to the host; the eval and inference steps' launches
+    and images (frames) are summed."""
     from boxer_tpu_torch.optim import build_schedule
 
     rec = {"updates": [], "eval": {}, "first": None,
@@ -1623,19 +1668,24 @@ def record_steps(trainer, log_update):
     train_step = rec["step"]
 
     def step(state, batch):
+        t0 = time.perf_counter()
+        wait = (t0 - rec["end"]) * 1e3 if "end" in rec else None
         if rec["first"] is None:
             rec["first"] = (tree_map(batch, torch.clone),
                             tree_map(batch, lambda t: t.cpu()))
         before, step_before = launched(), state.step
+        synced = syncs["syncs"] if syncs else 0
         t0 = time.perf_counter()
         state, stats = train_step(state, batch)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        rec["end"] = time.perf_counter()
+        ms = (rec["end"] - t0) * 1e3
         after = launched()
         lrs = {g["name"]: (g["lr"], g["base_lr"] * schedule(step_before))
                for g in state.optimizer.param_groups}
         rec["updates"].append(dict(ms=ms, stats=stats, lrs=lrs, launches={
-            k: after[k] - before[k] for k in after}))
+            k: after[k] - before[k] for k in after}, wait_ms=wait,
+            syncs=(syncs["syncs"] - synced) if syncs else None))
         log_update(len(rec["updates"]), rec["updates"][-1])
         return state, stats
 
@@ -1646,7 +1696,8 @@ def record_steps(trainer, log_update):
             torch.cuda.synchronize()
             tally = rec["eval"].setdefault(name, {"images": 0, "launches": {
                 k: 0 for k in before}})
-            tally["images"] += batch["image"].shape[0]
+            tally["images"] += (batch["batch_size"] if "voxels" in batch
+                                else batch["image"].shape[0])
             for k, v in launched().items():
                 tally["launches"][k] += v - before[k]
             return out
@@ -1811,6 +1862,380 @@ def run_trainer(dev, smi):
                         train_s=t_train)
 
 
+def waymo_trainer_on_card(root, opts):
+    """The port's trainer on the card from the shipped Waymo config, the
+    Waymo directory under root (val and test on its val frames, as the
+    config has them; the train split's GT database) and the dotlist
+    `opts`, loaded."""
+    from boxer_tpu_torch.trainer import build_trainer
+    from boxer_tpu_torch.utils.config import Configuration
+
+    imdb = "dataset_config.detection3d.imdb_files"
+    data = [f"{imdb}.{split}.{key}={value}"
+            for split, info in (("train", "train"), ("val", "val"),
+                                ("test", "val"))
+            for key, value in (("root_path", root), (
+                "info_path", f"{root}/infos/infos_{info}.pkl"))]
+    data.append(f"{imdb}.train.db_sampler.db_info_path="
+                f"{root}/infos/dbinfos_infos_train.pkl")
+    configuration = Configuration(
+        str(ROOT / TRAINER_3D_CONFIG),
+        opts=data + [f"training.save_dir={root}/save"] + opts,
+        extra={"task": "detection3d", "model": "boxer3d"}, device="cuda")
+    trainer = build_trainer(configuration, device="cuda")
+    trainer.load()
+    return trainer
+
+
+@contextlib.contextmanager
+def matcher_syncs():
+    """Count the matcher's host syncs: each bool(), int() or item() of a
+    tensor while the port's `hungarian` runs (the solver's loop tests, one
+    an iteration, and the valid count). Yields {"syncs", "calls"}, which
+    grow until the block ends."""
+    from boxer_tpu_torch.nn import matcher
+
+    tally, inside = {"syncs": 0, "calls": 0}, [False]
+    solve = matcher.hungarian
+
+    def counted(*args, **kw):
+        tally["calls"] += 1
+        inside[0] = True
+        try:
+            return solve(*args, **kw)
+        finally:
+            inside[0] = False
+
+    def counting(name):
+        base = getattr(torch.Tensor, name)
+
+        def call(self, *args, **kw):
+            if inside[0]:
+                tally["syncs"] += 1
+            return base(self, *args, **kw)
+        return call
+
+    names = ("__bool__", "__int__", "item")
+    saved = {n: torch.Tensor.__dict__.get(n) for n in names}
+    for n in names:
+        setattr(torch.Tensor, n, counting(n))
+    matcher.hungarian = counted
+    try:
+        yield tally
+    finally:
+        matcher.hungarian = solve
+        for n, v in saved.items():
+            if v is None:
+                delattr(torch.Tensor, n)
+            else:
+                setattr(torch.Tensor, n, v)
+
+
+def cost_matrix_peak(fn):
+    """fn() with the 3D matcher's cost matrices measured: the most device
+    memory a `cost_matrix` call held above what was allocated as it began
+    (GiB), and the (B, NQ, NT) shape of each."""
+    from boxer_tpu_torch.nn.matcher import HungarianMatcher3d
+
+    cost = HungarianMatcher3d.cost_matrix
+    peaks, shapes = [], []
+
+    def measured(self, outputs, targets):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = cost(self, outputs, targets)
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        shapes.append(tuple(out.shape))
+        return out
+
+    HungarianMatcher3d.cost_matrix = measured
+    try:
+        fn()
+    finally:
+        HungarianMatcher3d.cost_matrix = cost
+    return max(peaks), shapes
+
+
+def loader_stage_ms(ds, frames):
+    """Host ms of a train frame's load by stage, one frame after another on
+    this thread, over the first `frames` frames of the Waymo dataset ds:
+    read (the lidar pkl), db sample (draw, collision test, object points),
+    each processor by class; and the collate of two frames. The db
+    sampler's cursors are restored after."""
+    from boxer_tpu_torch.dataset import waymo
+
+    stages = {}
+
+    def timing(name, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                stages[name] = (stages.get(name, 0.0)
+                                + (time.perf_counter() - t0) * 1e3)
+        return run
+
+    read, sampler, procs = (waymo.read_points_with_sweeps, ds.db_sampler,
+                            ds.processor.procs)
+    state = ds.draw_state()
+    waymo.read_points_with_sweeps = timing("read", read)
+    sampler.draw = timing("db sample", sampler.draw)
+    sampler.place = timing("db sample", sampler.place)
+    ds.processor.procs = [timing(type(p).__name__, p) for p in procs]
+    try:
+        items = [ds.load(i, np.random.RandomState(i),
+                         ds.draw(i, np.random.RandomState([i, 1])))
+                 for i in range(frames)]
+    finally:
+        waymo.read_points_with_sweeps = read
+        del sampler.draw, sampler.place
+        ds.processor.procs = procs
+        ds.set_draw_state(state)
+    per_frame = {k: v / frames for k, v in stages.items()}
+    t0 = time.perf_counter()
+    ds.collate(items[:2])
+    per_frame["collate (a batch of 2)"] = (time.perf_counter() - t0) * 1e3
+    return per_frame
+
+
+def run_trainer_3d(dev, smi):
+    """Phase 11: the shipped Waymo config through the port's trainer on the
+    card at full width (hidden 256, 8 heads, 2+2 layers, 300 queries, 5
+    classes, the 469x469 grid, 32,000 train and 60,000 test voxels of 20
+    points, 250 boxes, the config's processors, the GT-database sampler,
+    the cosine schedule with warmup, AdamW with the offsets at 0.1 of the
+    LR, bf16 autocast), on a generated Waymo directory and its GT
+    database, with only TRAINER_3D_CUTS: 4 updates of a batch of 2 frames,
+    val (the offline metrics) and test, both into results.pkl, checkpoints
+    at updates 2 and 4; then a resumed trainer takes updates 5 and 6.
+    Returns (launch counts of the main path, results)."""
+    import pickle
+    import tempfile
+
+    from boxer_tpu_torch.dataset import build_dataloader
+    from boxer_tpu_torch.dataset.synthetic import write_waymo
+    from boxer_tpu_torch.evaluate.waymo_eval import evaluate_results
+    from boxer_tpu_torch.tools.preprocess.create_gt_database import \
+        create_gt_database
+
+    label = "trainer 3D, BoxeR-3D 469x469 bf16 autocast"
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_waymo(root, WAYMO_FRAMES, PC_RANGE_3D, SERVE_POINTS,
+                    WAYMO_OBJECTS, seed=0)
+        _, db = create_gt_database(str(root), "infos/infos_train.pkl")
+        log(f"{label} [{smi}]: Waymo directory of {WAYMO_FRAMES} frames of "
+            f"{SERVE_POINTS} points and {WAYMO_OBJECTS} objects, its GT "
+            f"database {({k: len(v) for k, v in db.items()})}, in "
+            f"{time.perf_counter() - t0:.1f} s; {TRAINER_3D_CONFIG} with "
+            f"{' '.join(TRAINER_3D_CUTS)}")
+        t_load = time.perf_counter()
+        trainer = waymo_trainer_on_card(root, TRAINER_3D_CUTS)
+        t_load = time.perf_counter() - t_load
+        ds = trainer.datasets["train"]
+        start_state = ds.draw_state()
+        placed, place = [], ds.db_sampler.place
+
+        def counted_place(*args, **kw):
+            out = place(*args, **kw)
+            placed.append(0 if out is None else len(out["gt_boxes"]))
+            return out
+
+        def log_update(i, u):
+            st = u["stats"]
+            log(f"  update {i}: {u['ms']:.2f} ms (host wait before it "
+                f"{u['wait_ms'] or 0:.2f} ms), total_loss "
+                f"{st['total_loss']:.5g}, grad_norm {st['grad_norm']:.5g}, "
+                f"num_boxes {st['num_boxes']:g}, skipped {st['skipped']:g}, "
+                f"matcher syncs {u['syncs']}, launches {u['launches']}")
+
+        evals, records, eval_s = {}, {}, {}
+        evaluate = trainer.evaluate
+
+        def evaluate_and_read(split):
+            t0 = time.perf_counter()
+            evals[split] = evaluate(split)
+            eval_s[split] = time.perf_counter() - t0
+            with open(root / "save" / "results.pkl", "rb") as f:
+                records[split] = pickle.load(f)
+            return evals[split]
+
+        trainer.evaluate = evaluate_and_read
+        ds.db_sampler.place = counted_place
+        with matcher_syncs() as syncs:
+            rec = record_steps(trainer, log_update, syncs)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for f in counters().values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            trainer.train()
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            counts = {k: f.launches for k, f in counters().items()}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del ds.db_sampler.place
+        with open(root / "save" / "results.pkl", "rb") as f:
+            records["test"] = pickle.load(f)
+
+        updates = rec["updates"]
+        for i, u in enumerate(updates):
+            st = u["stats"]
+            if st["skipped"] != 0.0 or not all(np.isfinite(v)
+                                               for v in st.values()):
+                raise AssertionError(f"{label}: update {i + 1}: {st}")
+            if any(lr != want for lr, want in u["lrs"].values()):
+                raise AssertionError(f"{label}: update {i + 1}: group LRs "
+                                     f"{u['lrs']} off the cosine schedule")
+            if u["launches"] != TRAIN_3D_LAUNCHES:
+                raise AssertionError(f"{label}: update {i + 1} launched "
+                                     f"{u['launches']} != {TRAIN_3D_LAUNCHES}")
+        if len(updates) != 4 or trainer.state.step != 4:
+            raise AssertionError(f"{label}: {len(updates)} updates, step "
+                                 f"{trainer.state.step}")
+        if sum(placed) == 0:
+            raise AssertionError(f"{label}: the db sampler placed no object "
+                                 f"in {len(placed)} train frames")
+
+        # the loader's copy: its first batch on the card against the same
+        # loader's first batch built on the host, from the same draws
+        host_loader = build_dataloader(ds, "train", batch_size=2,
+                                       seed=trainer.seed, device="cpu")
+        host_loader.sampler.set_epoch(0)
+        host_loader.draw_state = start_state
+        host = next(iter(host_loader))
+        copied = rec["first"][1]
+        arrays = lambda b: {**{k: v for k, v in b.items() if isinstance(
+            v, torch.Tensor)}, **b["targets"]}
+        copy_ok = (sorted(arrays(copied)) == sorted(arrays(host)) and all(
+            torch.equal(arrays(copied)[k], v)
+            for k, v in arrays(host).items()) and all(
+            copied[k] == host[k] for k in ("grid_shape", "batch_size")))
+        if not copy_ok:
+            raise AssertionError(f"{label}: the loader's first batch on the "
+                                 "card differs from its host build")
+
+        # results.pkl after val and after test: a record per frame; the
+        # val metrics are evaluate_results' of the val records
+        tokens = {s: sorted(i["token"] for i in trainer.datasets[s].infos)
+                  for s in ("val", "test")}
+        metrics = evals["val"]
+        want_metrics = evaluate_results(records["val"])
+        if (any(sorted(records[s]) != tokens[s] for s in tokens)
+                or len(tokens["val"]) != 4 or metrics != want_metrics
+                or not metrics or not all(np.isfinite(v)
+                                          for v in metrics.values())):
+            raise AssertionError(f"{label}: val metrics {metrics} (want "
+                                 f"{want_metrics}), records of "
+                                 f"{ {s: sorted(r) for s, r in records.items()} }"
+                                 f" for frames {tokens}")
+        save = root / "save"
+        files = ["config.yaml", "checkpoints/model_2.pth",
+                 "checkpoints/model_4.pth", "model_final"]
+        missing = [f for f in files if not (save / f).exists()]
+        if missing:
+            raise AssertionError(f"{label}: missing files {missing}")
+        frames = rec["eval"]["test"]["images"]
+        per_frame = {k: v / frames
+                     for k, v in rec["eval"]["test"]["launches"].items()}
+        want_frame = {k: v / TRAIN_BATCH_3D
+                      for k, v in INFER_3D_LAUNCHES.items()}
+        if frames != 8 or per_frame != want_frame:
+            raise AssertionError(f"{label}: {frames} eval frames launched "
+                                 f"{per_frame} a frame != {want_frame}")
+        update_ms = ", ".join(f"{u['ms']:.2f}" for u in updates)
+        log(f"{label} [{smi}]: load {t_load:.1f} s, train() {t_train:.1f} s "
+            f"(4 updates, val {eval_s['val']:.1f} s with the metrics, test);"
+            f" ms per update {update_ms};"
+            f" peak {peak:.2f} GiB; launches per update "
+            f"{updates[-1]['launches']}, per val or test frame {per_frame}; "
+            f"db-sampled objects placed in the {len(placed)} train frames "
+            f"{sum(placed)} ({placed}); valid targets per batch "
+            f"{[int(u['stats']['num_boxes']) for u in updates]}; matcher "
+            f"syncs per update {[u['syncs'] for u in updates]} in "
+            f"{syncs['calls']} calls; val metrics {metrics}; results.pkl "
+            f"records {len(records['val'])} val, {len(records['test'])} "
+            f"test; the loader's first batch on the card equals its host "
+            f"build {copy_ok}")
+        saved_extra = torch.load(save / "checkpoints/model_4.pth",
+                                 map_location="cpu",
+                                 weights_only=True)["extra"]
+        del trainer, host_loader
+        torch.cuda.empty_cache()
+
+        # resume: update 4's checkpoint, at the end of the first epoch
+        saved = torch.load(save / "checkpoints/model_4.pth",
+                           map_location="cpu", weights_only=True)
+        resumed = waymo_trainer_on_card(root, [
+            c for c in TRAINER_3D_CUTS if not c.startswith(
+                ("training.max_update", "training.run_type"))] + [
+            "training.max_update=6", "training.run_type=train",
+            "training.resume=true"])
+        model_ok = all(torch.equal(v.cpu(), saved["model"][k]) for k, v in
+                       resumed.state.model.state_dict().items())
+        opt = resumed.state.optimizer.state_dict()
+        opt_ok = all(torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
+                     for i, s in opt["state"].items() for k, v in s.items())
+        draws = resumed.loaders["train"].draw_state
+        draws_ok = sorted(draws) == sorted(saved_extra["draw_state"]) and all(
+            torch.equal(o.cpu(), saved_extra["draw_state"][n][0])
+            and c == saved_extra["draw_state"][n][1]
+            for n, (o, c) in draws.items())
+        position = (resumed.current_update, resumed.current_epoch,
+                    resumed.epoch_batches_done)
+        log(f"  resumed from update 4: model bitwise {model_ok}, optimizer "
+            f"state bitwise {opt_ok} ({len(opt['state'])} tensors' state), "
+            f"the db sampler's cursors {draws_ok}, (update, epoch, skip) "
+            f"{position}")
+        if not (model_ok and opt_ok and draws_ok and len(opt["state"]) > 0
+                and position == (4, 1, 0)):
+            raise AssertionError(f"{label}: resume restored {position}")
+        with matcher_syncs() as syncs2:
+            rec2 = record_steps(resumed, lambda i, u: log_update(4 + i, u),
+                                syncs2)
+            resumed.train()
+        more = rec2["updates"]
+        if resumed.state.step != 6 or len(more) != 2 or not all(
+                np.isfinite(u["stats"]["total_loss"])
+                and u["stats"]["skipped"] == 0.0 for u in more):
+            raise AssertionError(f"{label}: after the resume "
+                                 f"{[u['stats'] for u in more]}")
+        # the first update (the warm-up) left out
+        kept = updates[1:] + more
+        times = [u["ms"] for u in kept]
+        median = float(np.median(times))
+        waits = [u["wait_ms"] for u in kept if u["wait_ms"] is not None]
+        sync_counts = [u["syncs"] for u in kept]
+        log(f"{label} [{smi}]: {median:.2f} ms per update, the median of "
+            f"updates 2-6 (min {min(times):.2f}, max {max(times):.2f}); "
+            f"host wait before a step, median {np.median(waits):.2f} ms of "
+            f"{len(waits)}; matcher syncs per update, median "
+            f"{np.median(sync_counts):g} (min {min(sync_counts)}, max "
+            f"{max(sync_counts)})")
+        batch, step = rec["first"][0], rec2["step"]
+        busy = profile(lambda: step(resumed.state, batch), median,
+                       f"{label}, one update")
+        k5_ms = k5_call_ms(busy[2])
+        cost_peak, cost_shapes = cost_matrix_peak(
+            lambda: step(resumed.state, batch))
+        log(f"{label}: the matcher's cost matrices {cost_shapes}, the "
+            f"largest {cost_peak:.2f} GiB above the memory at its start")
+        stages = loader_stage_ms(resumed.datasets["train"], 4)
+        log(f"{label} [{smi}]: the loader's host ms, one frame after "
+            f"another: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                      stages.items()) + " (per frame)")
+        del resumed, rec, rec2, batch, step
+        torch.cuda.empty_cache()
+    return counts, dict(ms=median, times=times, peak=peak, busy=busy,
+                        k5_ms=k5_ms, cost_peak=cost_peak,
+                        syncs=sync_counts, waits=waits,
+                        stages=stages, metrics=metrics, train_s=t_train,
+                        val_s=eval_s["val"], placed=sum(placed))
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -1902,6 +2327,13 @@ def main():
     runs["trainer"], trainer_run = run_trainer(dev, smi)
     log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
 
+    # 11. the Waymo trainer: the shipped BoxeR-3D config at full width, from
+    # a Waymo frame directory through the loader (GT-database sampler, 3D
+    # augmentations, voxelizer), checkpoint, resume and the offline metrics
+    t11 = time.perf_counter()
+    runs["trainer 3d"], trainer_3d = run_trainer_3d(dev, smi)
+    log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+
     # K7a has no caller in the package: its launches are those of its
     # op-level run in phase 3c; the T rows' those of the shootout
     qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
@@ -1962,6 +2394,22 @@ def main():
         f"{trainer_run['peak']:.2f} GiB, device busy "
         f"{trainer_run['busy'][0]:.2f} ms of an update "
         f"({100 * trainer_run['busy'][1]:.1f}%)")
+    stages = trainer_3d["stages"]
+    loader_ms = stages["collate (a batch of 2)"] + 2 * sum(
+        v for k, v in stages.items() if not k.startswith("collate"))
+    log(f"trainer 3D [{smi}]: {trainer_3d['ms']:.2f} ms per update of 2 "
+        f"frames (median of updates 2-6; min {min(trainer_3d['times']):.2f}"
+        f", max {max(trainer_3d['times']):.2f}), peak "
+        f"{trainer_3d['peak']:.2f} GiB, device busy "
+        f"{trainer_3d['busy'][0]:.2f} ms of an update "
+        f"({100 * trainer_3d['busy'][1]:.1f}%), matcher syncs per update "
+        f"{trainer_3d['syncs']}, K5 {trainer_3d['k5_ms']:.4f} device ms a "
+        f"call in the update (phase 9c's random rows: "
+        f"{train_3d['k5_ms']:.4f}), the matcher's cost matrices "
+        f"{trainer_3d['cost_peak']:.2f} GiB at their peak, the loader's "
+        f"host ms per batch "
+        f"{loader_ms:.2f} one frame after another, val pass "
+        f"{trainer_3d['val_s']:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
