@@ -4,9 +4,9 @@
 Worker threads run the host-side load/augment/collate pipeline, one whole
 batch each, and the batches come out in sampler order. Every batch has its
 own `np.random.RandomState`, seeded by the loader's seed, the batch's index
-in the epoch and the sampler's epoch, so a batch is the same whichever
-thread builds it and a resumed epoch that starts at batch `start` replays
-the rest of it exactly.
+in the epoch and the sampler's epoch (and, in a data-parallel run, the
+rank), so a batch is the same whichever thread builds it and a resumed
+epoch that starts at batch `start` replays the rest of it exactly.
 
 A dataset with state that its loads advance (the Waymo task's GT-database
 sampler, whose per-class cursors every frame moves) exposes `draw(idx,
@@ -100,7 +100,7 @@ class DataLoader:
         def submit(bi, indices):
             if not drawing:
                 return pool.submit(self._make, bi, indices), None
-            rng = np.random.RandomState([self._seed(bi), 1])
+            rng = np.random.RandomState(self._seed(bi, 1))
             drawn = [self.dataset.draw(i, rng) for i in indices]
             return (pool.submit(self._make, bi, indices, drawn),
                     self.dataset.draw_state())
@@ -121,11 +121,20 @@ class DataLoader:
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
-    def _seed(self, bi):
-        # the JAX loader's seed, wrapped to RandomState's 32 bits (there it
-        # overflows, and raises, for any loader seed above 42,948)
-        return ((self.seed * 100003 + bi * 1009
+    def _seed(self, bi, *stream):
+        """The seed of batch bi's RandomState (stream 1: its draws): the
+        JAX loader's seed, wrapped to RandomState's 32 bits (there it
+        overflows, and raises, for any loader seed above 42,948); with more
+        than one replica the sampler's (replicas, rank) are folded in, so
+        the ranks of a data-parallel run augment (and draw for) their own
+        images differently (the JAX loader gives every process the same
+        stream)."""
+        seed = ((self.seed * 100003 + bi * 1009
                  + getattr(self.sampler, "epoch", 0)) % 2 ** 32)
+        replicas = getattr(self.sampler, "num_replicas", 1)
+        key = [seed, *stream] + ([replicas, self.sampler.rank]
+                                 if replicas > 1 else [])
+        return key if len(key) > 1 else seed
 
     def _make(self, bi, indices, drawn=None):
         rng = np.random.RandomState(self._seed(bi))

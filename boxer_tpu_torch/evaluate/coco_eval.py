@@ -410,14 +410,16 @@ class CocoEvaluator:
                 if r["image_id"] in fresh_set)
 
     def synchronize_between_processes(self):
-        import torch.distributed as dist
+        """Every rank's (img_ids, results) gathered onto every rank, an
+        image evaluated on several ranks (the sampler pads its shards
+        evenly) keeping the first rank's records (the JAX package's
+        `synchronize_between_processes`)."""
+        from boxer_tpu_torch.parallel.distributed import all_gather
 
-        if not (dist.is_available() and dist.is_initialized()) \
-                or dist.get_world_size() == 1:
-            return
-        raise NotImplementedError(
-            "gathering eval results across processes comes with data "
-            "parallelism (ROADMAP queue 1, item 5)")
+        parts = all_gather((self.img_ids, self.results))
+        if len(parts) > 1:
+            self.img_ids, self.results = merge_gathered_results(
+                parts, self.iou_types)
 
     def accumulate_and_summarize(self, verbose: bool = True) -> Dict[str, np.ndarray]:
         stats = {}

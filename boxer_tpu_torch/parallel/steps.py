@@ -5,7 +5,15 @@ One update: forward + criterion (matching on the step's device) and
 backward for each microbatch, the gradients summed over microbatches that
 share the update's global `num_boxes`; then the global-norm clip, the
 NaN/Inf skip (no update, no optimizer-state change, step not advanced) and
-the optimizer's update at the scheduled LR. A batch is an image batch (BoxeR-2D)
+the optimizer's update at the scheduled LR. In a process group (data
+parallel, one rank a process: `parallel/distributed.py`) a rank's batch is
+its share of the global batch, and the update is the global batch's: the
+target count is summed over the ranks before the forward (the losses are
+over the global `num_boxes`, as JAX takes it over the whole batch), and
+after the last microbatch one `all_reduce` of one flat buffer sums the
+gradients and the stats' sums (loss terms, the metrics' parts) over the
+ranks, so the clip, the NaN/Inf skip and the optimizer act on the same
+summed gradient on every rank. A batch is an image batch (BoxeR-2D)
 or a voxel batch (BoxeR-3D), as `apply_model` dispatches. On a CUDA card the forward runs under
 `torch.autocast(bfloat16)` when `compute_dtype` is bf16, with parameters in
 f32: the torch idiom for flax's `dtype=bf16` modules. The eval and
@@ -21,8 +29,9 @@ from typing import Callable, Optional
 import torch
 
 from boxer_tpu_torch.criterion.losses import weighted_total
-from boxer_tpu_torch.criterion.metrics import compute_metrics
+from boxer_tpu_torch.criterion.metrics import Metric
 from boxer_tpu_torch.optim import clip_by_global_norm, set_lr
+from boxer_tpu_torch.parallel import distributed
 
 
 @dataclass
@@ -88,7 +97,8 @@ def make_train_step(criterion, max_norm: float = 0.0,
     summed over microbatches, total_loss, grad_norm (before clipping),
     num_boxes, skipped (1.0 when the update was skipped) as host floats,
     read from the device in one copy; with debug_grads `_grads`, the
-    pre-clip summed gradients by parameter name.
+    pre-clip summed gradients by parameter name (over the ranks too, in a
+    process group). In a process group every stat is the global batch's.
     """
     weight_dict = criterion.expanded_weight_dict(num_aux=16, num_enc=2)
 
@@ -96,35 +106,60 @@ def make_train_step(criterion, max_norm: float = 0.0,
         model = state.model
         params = [p for p in model.parameters() if p.requires_grad]
         targets = batch["targets"]
-        num_boxes = criterion.compute_num_boxes(targets)
+        grouped = distributed.is_dist_avail_and_initialized()
+        if grouped and metrics and not all(
+                isinstance(fn, Metric) for fn in metrics.values()):
+            raise ValueError("a metric summed over ranks must be a Metric "
+                             "(criterion.metrics), with parts")
+        # the target count over the whole update: every microbatch, every
+        # rank
+        num_boxes = distributed.all_reduce_sum(
+            targets["valid"].float().sum()).clamp(min=1.0)
         model.train()
         for p in params:
             p.grad = None
 
-        loss_acc, stats_acc = 0.0, {}
+        loss_acc, stats_acc, parts = 0.0, {}, {}
         for a in range(targets["valid"].shape[0]):
             mb = microbatch(batch, a)
             with _autocast(compute_dtype, targets["valid"].device):
                 out = apply_model(model, mb, train=True, inference=False)
             losses = criterion(out, mb["targets"], num_boxes=num_boxes)
             total, stats = weighted_total(losses, weight_dict)
-            if metrics:
-                stats.update(compute_metrics(metrics, _final(out),
-                                             mb["targets"], losses))
+            if metrics and "_query_idx" in losses:
+                args = (_final(out), mb["targets"], losses["_query_idx"],
+                        losses["_valid"])
+                for name, fn in metrics.items():
+                    parts.setdefault(name, []).append(
+                        fn.parts(*args) if isinstance(fn, Metric)
+                        else (fn(*args),))
             total.backward()
             loss_acc = loss_acc + total.detach()
             for k, v in stats.items():
                 stats_acc[k] = stats_acc.get(k, 0.0) + v.detach()
 
-        raw_grads = ({n: None if p.grad is None else p.grad.clone()
-                      for n, p in model.named_parameters() if p.requires_grad}
-                     if debug_grads else None)
+        # this process's unused parameters (None in `_grads` without a
+        # group; in one, the gradients are the ranks' sums)
+        unused = {id(p) for p in params if p.grad is None and not grouped}
         for p in params:
             # an unused parameter's gradient is zero, as under jax.grad, so
             # AdamW still decays it
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grad_norm = clip_by_global_norm([p.grad for p in params], max_norm)
+        grads = [p.grad for p in params]
+        sums = [loss_acc, *stats_acc.values(),
+                *(t for ps in parts.values() for part in ps for t in part)]
+        if grouped:
+            _sum_over_ranks(grads + sums)
+        raw_grads = ({n: None if id(p) in unused else p.grad.clone()
+                      for n, p in model.named_parameters() if p.requires_grad}
+                     if debug_grads else None)
+        grad_norm = clip_by_global_norm(grads, max_norm)
+        for name, ps in parts.items():
+            fn = metrics[name]
+            for part in ps:
+                value = fn.finish(*part) if isinstance(fn, Metric) else part[0]
+                stats_acc[name] = stats_acc.get(name, 0.0) + value
         out_stats = dict(stats_acc, total_loss=loss_acc, grad_norm=grad_norm,
                          num_boxes=num_boxes)
         # one device-to-host copy for every stat
@@ -141,6 +176,17 @@ def make_train_step(criterion, max_norm: float = 0.0,
         return state, out_stats
 
     return train_step
+
+
+def _sum_over_ranks(tensors):
+    """Sum every tensor over the ranks in place, in one all_reduce of one
+    flat buffer (the tensors share a dtype and a device)."""
+    flat = distributed.all_reduce_sum(
+        torch.cat([t.reshape(-1) for t in tensors]))
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
 
 
 def make_eval_step(compute_dtype: torch.dtype = torch.float32) -> Callable:

@@ -11,13 +11,28 @@
 detection3d` BoxeR-3D from a Waymo frame directory (infos pkl, per-frame
 lidar pkl, the GT database of `tools/preprocess/create_gt_database.py`).
 `training.run_type` picks the run: train (then val and test, as the split
-files exist), val, or test. It runs on the first CUDA card unless
-`--device cpu` asks for the CPU; without a card it raises before it builds
-anything. The model `detr` and a `distributed` layout of more than one
-process raise NotImplementedError, naming their ROADMAP item.
+files exist), val, or test. Without a card `--device cuda` (the default)
+raises before it builds anything; `--device cpu` runs on the CPU.
+
+Data parallel, one process a card, the config's global `batch_size`
+split over the processes:
+- the processes are `distributed.dp`, or `distributed.world_size` when dp
+  is null (the shipped default: `${device_count:}`, every visible card on
+  cuda, 1 on cpu);
+- at one process it trains in this process, with no process group;
+- at more, it spawns one process a card (NCCL on cuda; a number above the
+  visible cards raises) or, with `--device cpu`, one process a rank over
+  gloo (`--device cpu distributed.dp=2`);
+- under torchrun (its environment set: `torchrun --nproc-per-node 8 -m
+  boxer_tpu_torch.tools.run ...`, across nodes with `--nnodes` and a
+  rendezvous) each process joins torchrun's group and trains as its rank.
+The model `detr` and the `mp`/`sp` axes raise NotImplementedError, naming
+their ROADMAP item.
 """
 
 import argparse
+
+import torch
 
 
 def get_parser():
@@ -36,23 +51,21 @@ def get_parser():
     return parser
 
 
-def run(argv=None):
-    args = get_parser().parse_args(argv)
-
-    from boxer_tpu_torch.trainer import build_trainer
-    from boxer_tpu_torch.trainer.base_trainer import resolve_device
+def configuration(args):
     from boxer_tpu_torch.utils.config import Configuration
 
-    resolve_device(args.device)
-    configuration = Configuration(
-        config_path=args.config,
-        opts=args.opts,
-        extra={"task": args.task, "model": args.model},
-        device=args.device,
-    )
-    trainer = build_trainer(configuration, device=args.device)
-    trainer.load()
+    return Configuration(config_path=args.config, opts=args.opts,
+                         extra={"task": args.task, "model": args.model},
+                         device=args.device)
 
+
+def train(args):
+    """Build the trainer in this process (a rank, in a process group) and
+    run `training.run_type`."""
+    from boxer_tpu_torch.trainer import build_trainer
+
+    trainer = build_trainer(configuration(args), device=args.device)
+    trainer.load()
     run_type = trainer.running_config.get("run_type", "train_val_test")
     if "train" in run_type:
         trainer.train()
@@ -61,6 +74,34 @@ def run(argv=None):
     else:
         trainer.inference()
     return trainer
+
+
+def run(argv=None):
+    """Returns the trainer when it ran in this process, None when the run
+    was spawned over several processes."""
+    args = get_parser().parse_args(argv)
+
+    from boxer_tpu_torch.parallel import distributed
+    from boxer_tpu_torch.parallel.mesh import num_processes
+    from boxer_tpu_torch.trainer.base_trainer import resolve_device
+
+    resolve_device(args.device)
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    if distributed.initialize_if_needed(backend):
+        return train(args)
+    world = num_processes(
+        configuration(args).get_config().get("distributed", {}) or {})
+    if world == 1:
+        return train(args)
+    devices = None
+    if args.device == "cuda":
+        cards = torch.cuda.device_count()
+        if world > cards:
+            raise RuntimeError(f"{world} processes of one card each, but "
+                               f"{cards} CUDA cards are visible")
+        devices = list(range(world))
+    distributed.launch(train, world, backend, args=(args,), devices=devices)
+    return None
 
 
 if __name__ == "__main__":

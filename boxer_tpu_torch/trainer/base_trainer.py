@@ -4,13 +4,19 @@ Parity target: reference `e2edet/trainer/base_trainer.py` (load →
 device/logger/datasets/model/optimizer, train loop until max_update,
 interval-driven checkpoint/eval, resume, inference), as the JAX package
 restructures it around one train step. One process drives one device:
-`cuda` (the default) or `cpu`, chosen by the caller and never by fallback.
+`cuda` (the default: the process's current card) or `cpu`, chosen by the
+caller and never by fallback. Data parallel: in a `torch.distributed`
+process group (`parallel/distributed.py:launch` or torchrun) every process
+is one rank, with the config's global `batch_size` split evenly over the
+ranks, one seed drawn on rank 0, rank 0's weights, and, with
+`distributed.zero1` (the default) at more than one rank, the optimizer
+state sharded over the ranks (`parallel/sharding.py`). Without a group
+the trainer runs alone, as it always has.
 """
 
 import os
 from typing import Dict
 
-import numpy as np
 import torch
 
 from boxer_tpu_torch.criterion.losses import build_loss
@@ -18,6 +24,9 @@ from boxer_tpu_torch.criterion.metrics import build_metrics
 from boxer_tpu_torch.dataset import build_dataloader, build_dataset
 from boxer_tpu_torch.models import build_model
 from boxer_tpu_torch.optim import build_optimizer, build_schedule
+from boxer_tpu_torch.parallel import distributed
+from boxer_tpu_torch.parallel.mesh import resolve_dp
+from boxer_tpu_torch.parallel.sharding import zero1
 from boxer_tpu_torch.parallel.steps import (TrainState, make_eval_step,
                                             make_inference_step,
                                             make_train_step)
@@ -43,8 +52,8 @@ def build_trainer(configuration, device: str = "cuda"):
 
 
 def resolve_device(device: str) -> torch.device:
-    """`cuda` (the first visible card) or `cpu`; `cuda` without a card
-    raises: the port has no CPU fallback."""
+    """`cuda` (the current card: a rank's own, set by its launcher) or
+    `cpu`; `cuda` without a card raises: the port has no CPU fallback."""
     if device == "cpu":
         return torch.device("cpu")
     if device != "cuda":
@@ -56,18 +65,15 @@ def resolve_device(device: str) -> torch.device:
 
 
 def check_ported(config):
-    """Raise on a task, model or parallel layout the port does not run yet,
-    naming its ROADMAP item."""
+    """Raise on a model the port does not run yet, naming its ROADMAP item,
+    and on a parallel layout this run's processes cannot hold
+    (`parallel/mesh.py:resolve_dp`)."""
     if config.get("model") == "detr":
         raise NotImplementedError(
             "model detr is not ported: ROADMAP queue 1, item 10 (DETR)")
     dist = config.get("distributed", {}) or {}
-    for axis in ("dp", "mp", "sp"):
-        if int(dist.get(axis) or 1) > 1:
-            raise NotImplementedError(
-                f"distributed.{axis}={dist.get(axis)}: the port trains in "
-                "one process on one device; data parallel is ROADMAP queue "
-                "1, item 5, and the mp/sp axes come after it")
+    resolve_dp(distributed.get_world_size(), dist.get("dp"),
+               dist.get("mp", 1), dist.get("sp", 1))
 
 
 @register_trainer("base_trainer")
@@ -78,6 +84,8 @@ class BaseTrainer:
         self.running_config = self.config.training
         check_ported(self.config)
         self.device = resolve_device(device)
+        self.rank = distributed.get_rank()
+        self.world_size = distributed.get_world_size()
         self.current_update = 0
         self.current_epoch = 0
         # batches of current_epoch already consumed (the resume position)
@@ -96,9 +104,12 @@ class BaseTrainer:
 
         seed = rc.get("seed", -1)
         if seed is None or seed == -1:
-            seed = np.random.randint(1, 100000)
+            # drawn on rank 0: every rank must build the same weights and
+            # the same sampler order
+            seed = distributed.shared_random_seed(1, 100000)
         self.seed = int(seed)
-        self.logger.info(f"device: {self.device} seed={self.seed}")
+        self.logger.info(f"device: {self.device} seed={self.seed} ranks="
+                         f"{self.world_size}")
 
         self.load_task()
         self.load_model_and_optimizer()
@@ -115,6 +126,15 @@ class BaseTrainer:
         bs = int(self.running_config.get("batch_size", 16))
         ipu = int(self.running_config.get("iter_per_update", 1))
         workers = int(self.running_config.get("num_workers", 2))
+        if bs % (self.world_size * ipu):
+            raise ValueError(
+                f"training.batch_size {bs} (the global batch) does not "
+                f"split into {self.world_size} ranks x iter_per_update "
+                f"{ipu} microbatches")
+        # each rank loads its share of the global batch (of a BoxeR-3D
+        # update, bs // world // ipu frames a microbatch: the JAX trainer's
+        # static batch)
+        bs //= self.world_size
         for split in ("train", "val", "test"):
             if split not in run_type:
                 continue
@@ -146,6 +166,9 @@ class BaseTrainer:
             load_pretrained_backbone(model, ppath)
             self.logger.info(f"Loaded pretrained backbone from {ppath}")
         model.to(self.device)
+        if distributed.is_dist_avail_and_initialized():
+            for t in model.state_dict().values():
+                distributed.broadcast(t)
         self.criterion = build_loss(model_cfg["loss"], self.num_classes)
 
         opt_cfg = self.config.get("optimizer", {}).to_dict()
@@ -163,8 +186,11 @@ class BaseTrainer:
                 sched_cfg.setdefault("params", {})["_steps_per_epoch"] = max(
                     1, len(self.loaders["train"]))
             schedule = build_schedule(sched_cfg, base_lr)
-        self.state = TrainState(model, build_optimizer(opt_cfg, model),
-                                schedule)
+        optimizer = build_optimizer(opt_cfg, model)
+        dist_cfg = self.config.get("distributed", {}) or {}
+        if dist_cfg.get("zero1", True) and self.world_size > 1:
+            optimizer = zero1(optimizer)
+        self.state = TrainState(model, optimizer, schedule)
 
         self._train_step = make_train_step(
             self.criterion, max_norm=float(rc.get("max_norm", 0) or 0),
@@ -211,9 +237,17 @@ class BaseTrainer:
                 self.current_update = self.state.step
                 self.current_epoch = int(extra["epoch"])
                 self.epoch_batches_done = int(extra["epoch_batches"])
-                if ("train" in self.loaders
-                        and extra.get("draw_state") is not None):
-                    self.loaders["train"].draw_state = extra["draw_state"]
+                draws = extra.get("draw_states")
+                if "train" in self.loaders and draws is not None:
+                    if len(draws) != self.world_size:
+                        raise ValueError(
+                            f"the checkpoint holds the GT-database draws of "
+                            f"{len(draws)} ranks; this run has "
+                            f"{self.world_size}: resume it at "
+                            f"{len(draws)} processes")
+                    self.loaders["train"].draw_state = {
+                        name: (order.cpu(), idx)
+                        for name, (order, idx) in draws[self.rank].items()}
                 if ("train" in self.loaders and self.epoch_batches_done
                         >= len(self.loaders["train"])):
                     # saved on an epoch's last batch: resume at the next
@@ -228,14 +262,18 @@ class BaseTrainer:
         """What a checkpoint records of the run's position: the mid-epoch
         skip on resume comes from it, not from the update count, so an
         update skipped on a non-finite gradient or a save on an epoch's
-        last batch replays exactly; and, where the train loader draws from
-        a GT database, the draws' state after the last batch taken."""
+        last batch replays exactly (the global batch is fixed, so the
+        position in updates holds at any world size); and, where the train
+        loader draws from a GT database, every rank's draws' state after
+        the last batch taken, in rank order. Every rank calls it."""
         extra = {"epoch": self.current_epoch, "update": self.current_update,
-                 "epoch_batches": self.epoch_batches_done}
+                 "epoch_batches": self.epoch_batches_done,
+                 "world_size": self.world_size}
         train = self.loaders.get("train")
-        draw_state = None if train is None else train.draw_state
-        if draw_state is not None:
-            extra["draw_state"] = draw_state
+        draws = distributed.all_gather(None if train is None
+                                       else train.draw_state)
+        if any(d is not None for d in draws):
+            extra["draw_states"] = draws
         return extra
 
     # ------------------------------------------------------------------

@@ -7,6 +7,11 @@ accumulation + dump, :20-123), per-interval meters/ups/ETA reporting
 (:246-299). The train step hands back its stats
 as host floats, read from the device in one copy a step (it needs the
 gradient norm on the host for the NaN skip); the loop adds no sync.
+Data parallel: every rank runs the loop and each eval on its shard of the
+split; the records are gathered over the ranks (an image or frame the
+sampler's padding gives twice keeps its first record), rank 0 writes the
+result files, and every rank returns the same metrics. The log, the
+scalars and the trace are rank 0's.
 """
 
 import json
@@ -14,6 +19,8 @@ import os
 import time
 
 import torch
+
+from boxer_tpu_torch.parallel import distributed
 
 
 def train_epoch(trainer):
@@ -27,8 +34,10 @@ def train_epoch(trainer):
     t_window = time.perf_counter()
     updates_in_window = 0
 
-    # optional device trace: training.jax_profile = <dir> records updates 5-8
-    profile_dir = trainer.running_config.get("jax_profile")
+    # optional device trace: training.jax_profile = <dir> records updates
+    # 5-8 of rank 0
+    profile_dir = (trainer.running_config.get("jax_profile")
+                   if distributed.is_master() else None)
     profiler = None
 
     start = trainer.epoch_batches_done
@@ -159,13 +168,17 @@ def evaluate(split: str, trainer):
 
     if is_test:
         out_path = os.path.join(trainer.save_dir, "test_result.json")
-        with open(out_path, "w") as f:
-            json.dump(dataset.prepare_for_evaluation(accumulated), f)
-        trainer.logger.info(f"Wrote {out_path}")
+        records = _merge_first(distributed.gather(accumulated))
+        if distributed.is_master():
+            with open(out_path, "w") as f:
+                json.dump(dataset.prepare_for_evaluation(records), f)
+            trainer.logger.info(f"Wrote {out_path}")
+        distributed.synchronize()
         return out_path
 
     evaluator.synchronize_between_processes()
-    stats = evaluator.accumulate_and_summarize()
+    stats = evaluator.accumulate_and_summarize(
+        verbose=distributed.is_master())
     for k, v in stats.items():
         trainer.logger.info(f"{split} {k}: AP={v[0]:.4f} AP50={v[1]:.4f} "
                             f"AP75={v[2]:.4f}")
@@ -186,7 +199,10 @@ def _evaluate_3d(split, trainer, loader, dataset, is_test):
         out = trainer._inference_step(trainer.state,
                                       _squeeze_microbatch(batch))
         accumulated.update(dataset.format_for_evalai(out, meta))
-    path = dataset.prepare_for_evaluation(accumulated, trainer.save_dir)
+    accumulated = _merge_first(distributed.all_gather(accumulated))
+    path = distributed.broadcast_scalar(
+        dataset.prepare_for_evaluation(accumulated, trainer.save_dir)
+        if distributed.is_master() else None)
     trainer.logger.info(f"{split}: {len(accumulated)} frames in "
                         f"{time.perf_counter() - t0:.1f}s; wrote {path}")
     if is_test:
@@ -201,6 +217,16 @@ def _evaluate_3d(split, trainer, loader, dataset, is_test):
             trainer.writer.add_scalars({f"{split}/{k}": v},
                                        trainer.current_update)
     return metrics
+
+
+def _merge_first(parts):
+    """The ranks' {image id or frame token: record} dicts in one, each key
+    with its first record in rank order."""
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out.setdefault(k, v)
+    return out
 
 
 def _squeeze_microbatch(batch):

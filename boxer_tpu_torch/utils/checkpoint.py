@@ -9,7 +9,12 @@ optimizer, update, epoch} (:160-192), latest-checkpoint resume (:112-140),
 Files under `save_dir`: `checkpoints/model_<update>.pth` holding {"model":
 state_dict, "optimizer": state_dict, "step": completed updates, "extra":
 the trainer's metadata}, the newest `num_checkpoint` kept; `model_final`,
-the model's state_dict alone; `config.yaml`.
+the model's state_dict alone; `config.yaml`. Data parallel: every rank
+calls `save` and `finalize` (a ZeRO-1 optimizer's state is gathered to rank
+0), rank 0 writes, and the ranks meet at a barrier after; every rank
+restores. The files do not depend on the world size: the model's own
+keys and a plain optimizer's state_dict, so a checkpoint resumes at any
+number of ranks.
 """
 
 import os
@@ -19,7 +24,8 @@ from typing import Any, Dict, Optional
 import torch
 import yaml
 
-from boxer_tpu_torch.utils.logger import is_master
+from boxer_tpu_torch.parallel.distributed import is_master, synchronize
+from boxer_tpu_torch.parallel.sharding import optimizer_state_dict
 
 _CKPT_RE = re.compile(r"^model_(\d+)\.pth$")
 
@@ -43,15 +49,15 @@ class Checkpoint:
 
     def save(self, state, update: int, extra: Optional[Dict[str, Any]] = None):
         """state: parallel.steps.TrainState; extra: plain metadata (epoch,
-        position in the epoch...)."""
-        if not is_master():
-            return
-        _save(self.path(update), {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": int(state.step), "extra": extra})
-        for old in self.steps()[:-self.num_checkpoint]:
-            os.remove(self.path(old))
+        position in the epoch...). Every rank calls it."""
+        optimizer = optimizer_state_dict(state.optimizer)
+        if is_master():
+            _save(self.path(update), {
+                "model": state.model.state_dict(), "optimizer": optimizer,
+                "step": int(state.step), "extra": extra})
+            for old in self.steps()[:-self.num_checkpoint]:
+                os.remove(self.path(old))
+        synchronize()
 
     def latest_step(self) -> Optional[int]:
         steps = self.steps()
@@ -72,10 +78,12 @@ class Checkpoint:
         return state, ckpt.get("extra")
 
     def finalize(self, model: torch.nn.Module, name: str = "model_final"):
-        """Weights-only export (reference `checkpoint.py:194-196`)."""
+        """Weights-only export (reference `checkpoint.py:194-196`); every
+        rank calls it."""
         path = os.path.join(self.save_dir, name)
         if is_master():
             _save(path, model.state_dict())
+        synchronize()
         return path
 
     def save_config(self, config):

@@ -4,7 +4,8 @@
 Parity: reference `e2edet/utils/logger.py` — master-gated file+stdout logger
 with json/simple formats (:21-127) and scalar summary writer (:130-169).
 Non-master print suppression (reference `distributed.py:327-351`) gates on
-the torch.distributed rank (rank 0 without a process group).
+the torch.distributed rank (`parallel/distributed.py:is_master`; rank 0
+without a process group).
 
 TensorBoard protobufs aren't available in this image; `ScalarWriter` writes
 JSONL scalars (one {"step", "tag", "value"} per line) which TensorBoard's
@@ -18,12 +19,7 @@ import sys
 import time
 from typing import Dict, Optional
 
-
-def is_master() -> bool:
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) \
-        or dist.get_rank() == 0
+from boxer_tpu_torch.parallel.distributed import is_master
 
 
 class Logger:

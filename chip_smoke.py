@@ -113,7 +113,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    finite updates; ms per update (median of updates 2-6), peak memory,
    one profiled update's busy share, the matcher's host syncs an update,
    K5's device ms a call beside phase 9c's, the matcher's cost matrices'
-   peak memory and the loader's host ms by stage.
+   peak memory and the loader's host ms by stage;
+12. data parallel through the trainer (`parallel/distributed.py:launch`),
+   the shipped configs at full width at a global batch of 2, one image or
+   frame a rank; two ranks share the card over gloo (NCCL refuses two
+   ranks on one card): (12a) one f32 update of the segm config at
+   256x384 (SGD, no autocast) on two images against a world-1 update of
+   the same images from the same weights (stats within 1e-4, the updated
+   parameters' worst leaf within phase 8's 0.1, the ranks bitwise equal),
+   then 2 bf16 updates from the loader with a ZeRO-1 checkpoint, resumed
+   at world 2 (model and optimizer state bitwise) and at world 1 (one
+   more update), the gradient all-reduce's bytes and ms; (12b) the
+   trainer in a process group of one over NCCL against two no-group
+   runs (bitwise, or within their run-to-run spread), ms per update
+   beside phase 10's; (12c) each rank's optimizer-state bytes and peak
+   memory with zero1 true and false (sharded: the ranks' states sum to
+   the replica and none holds 3/4 of it); (12d) the Waymo config at
+   world 2: the ranks' GT-database draws differ, val and test
+   results.pkl hold every frame once (3 frames, one padded), a resume
+   restores each rank's cursors. Launches per rank and update as phases
+   10 and 11 count them (one microbatch).
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
 of their own, and one JSON line of per-kernel results (one row per kernel
@@ -197,6 +216,29 @@ TRAINER_3D_CUTS = ["training.seed=3", "training.batch_size=2",
                    "training.num_checkpoint=2",
                    "training.run_type=train_val_test"]
 WAYMO_FRAMES, WAYMO_OBJECTS = {"train": 8, "val": 16}, (20, 70)
+# phase 12: data parallel through the trainer, the shipped configs at full
+# width; two ranks share the one card over gloo (NCCL refuses two ranks on
+# one card), NCCL runs a group of one. The global batch is 2 (one image or
+# frame a rank); 12a's update against a world-1 update runs in f32 at
+# phase 8's canvas with SGD at LR 10 (an update of the clipped gradient
+# well above the parameters' f32 spacing, as the CPU tests take it)
+DP_CUTS = ["training.seed=3", "training.batch_size=2",
+           "training.iter_per_update=1", "training.log_interval=1",
+           "training.run_type=train", "training.checkpoint_interval=2",
+           "training.num_checkpoint=2"]
+DP_F32_CUTS = DP_CUTS + [
+    "training.mixed_precision=none", "training.max_update=1",
+    f"dataset_config.detection.canvas_size=[{E2E_CANVAS[0]},{E2E_CANVAS[1]}]",
+    "optimizer.type=sgd", "optimizer.params.lr=10.0",
+    "optimizer.params.lr_backbone=1.0"]
+DP_3D_CUTS = ["training.seed=3", "training.batch_size=2",
+              "training.max_update=2", "training.checkpoint_interval=2",
+              "training.num_checkpoint=2", "training.log_interval=1",
+              "training.run_type=train_val_test"] + [
+    f"dataset_config.detection3d.imdb_files.{s}.load_interval=1"
+    for s in ("val", "test")]
+# 3 val frames: the sampler pads them to 4 over 2 ranks
+WAYMO_DP_FRAMES = {"train": 4, "val": 3}
 
 
 def per_run(**counts):
@@ -1887,6 +1929,13 @@ def waymo_trainer_on_card(root, opts):
     return trainer
 
 
+def draws_equal(a, b):
+    """Two GT-database draw states ({class: (order, cursor)}) equal."""
+    return sorted(a) == sorted(b) and all(
+        torch.equal(o.cpu(), b[n][0].cpu()) and c == b[n][1]
+        for n, (o, c) in a.items())
+
+
 @contextlib.contextmanager
 def matcher_syncs():
     """Count the matcher's host syncs: each bool(), int() or item() of a
@@ -2180,10 +2229,7 @@ def run_trainer_3d(dev, smi):
         opt_ok = all(torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
                      for i, s in opt["state"].items() for k, v in s.items())
         draws = resumed.loaders["train"].draw_state
-        draws_ok = sorted(draws) == sorted(saved_extra["draw_state"]) and all(
-            torch.equal(o.cpu(), saved_extra["draw_state"][n][0])
-            and c == saved_extra["draw_state"][n][1]
-            for n, (o, c) in draws.items())
+        draws_ok = draws_equal(draws, saved_extra["draw_states"][0])
         position = (resumed.current_update, resumed.current_epoch,
                     resumed.epoch_batches_done)
         log(f"  resumed from update 4: model bitwise {model_ok}, optimizer "
@@ -2234,6 +2280,455 @@ def run_trainer_3d(dev, smi):
                         syncs=sync_counts, waits=waits,
                         stages=stages, metrics=metrics, train_s=t_train,
                         val_s=eval_s["val"], placed=sum(placed))
+
+
+def allreduce_timer():
+    """Wrap torch.distributed.all_reduce: each call on more than a million
+    elements (the step's flat gradient buffer) is timed on the host clock
+    between two synchronizes. Returns (the list of (bytes, ms), restore)."""
+    import torch.distributed as dist
+
+    calls, all_reduce = [], dist.all_reduce
+
+    def timed_all_reduce(tensor, *args, **kw):
+        if tensor.numel() < 10 ** 6:
+            return all_reduce(tensor, *args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kw)
+        torch.cuda.synchronize()
+        calls.append((tensor.numel() * tensor.element_size(),
+                      (time.perf_counter() - t0) * 1e3))
+        return out
+
+    dist.all_reduce = timed_all_reduce
+    return calls, lambda: setattr(dist, "all_reduce", all_reduce)
+
+
+def dp_train(make, label, per_update, verbose):
+    """Build a trainer with `make()`, train it with the launch counters
+    zeroed just before and read just after, each update recorded (and
+    logged if `verbose`). Returns (trainer, record, counts, (peak GiB,
+    GiB allocated) after the first update, optimizer-state bytes this
+    rank holds: its shard's under ZeRO-1)."""
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    def local_state_bytes(optimizer):
+        if isinstance(optimizer, ZeroRedundancyOptimizer):
+            optimizer = optimizer.optim
+        return sum(v.numel() * v.element_size()
+                   for st in optimizer.state.values() for v in st.values()
+                   if torch.is_tensor(v))
+
+    trainer = make()
+    dev = trainer.device
+    first = {}
+
+    def log_update(i, u):
+        if i == 1:
+            first["peak"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                             torch.cuda.memory_allocated(dev) / 2 ** 30)
+            first["state"] = local_state_bytes(trainer.state.optimizer)
+        if verbose:
+            st = u["stats"]
+            log(f"  {label}, update {i}: {u['ms']:.2f} ms, "
+                f"total_loss {st['total_loss']:.5g}, num_boxes "
+                f"{st['num_boxes']:g}, grad_norm {st['grad_norm']:.5g}, "
+                f"skipped {st['skipped']:g}, launches {u['launches']}")
+
+    rec = record_steps(trainer, log_update)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for f in counters().values():
+        f.launches = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in counters().items()}
+    for i, u in enumerate(rec["updates"]):
+        st = u["stats"]
+        if st["skipped"] != 0.0 or not all(np.isfinite(v)
+                                           for v in st.values()):
+            raise AssertionError(f"{label}: update {i + 1}: {st}")
+        if u["launches"] != per_update:
+            raise AssertionError(f"{label}: update {i + 1} launched "
+                                 f"{u['launches']} != {per_update}")
+    return trainer, rec, counts, first["peak"], first["state"]
+
+
+def dp_ranks(task_path):
+    """Phases 12a, 12c and 12d in one of the two ranks that share the card
+    over gloo (`run_data_parallel` launches them); writes what the parent
+    checks to <out>/rank<r>.pt."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from boxer_tpu_torch.parallel.sharding import optimizer_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    task = torch.load(task_path, weights_only=False)
+    root, rank = Path(task["root"]), dist.get_rank()
+    out = {}
+    cpu = lambda t: {k: v.detach().cpu().clone() for k, v in t.items()}
+
+    # 12a: one f32 update on this rank's image of the parent's batch
+    trainer = trainer_on_card(root, DP_F32_CUTS + [
+        f"training.save_dir={root}/dp2_f32"])
+    out["init_equal"] = all(torch.equal(v.cpu(), task["weights"][k]) for k, v
+                            in trainer.state.model.state_dict().items())
+    batch = tree_map(task["batch"], lambda t: t[:, rank:rank + 1].to(
+        trainer.device))
+    _, out["f32_stats"] = trainer._train_step(trainer.state, batch)
+    out["f32_params"] = cpu(dict(trainer.state.model.named_parameters()))
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # 12a: 2 updates from the loader at bf16 autocast with a ZeRO-1
+    # checkpoint at update 2, the gradient all-reduce timed; 12c: its
+    # optimizer state and peak
+    calls, restore = allreduce_timer()
+    trainer, rec, out["counts"], out["peak_zero1"], out["state_zero1"] = \
+        dp_train(lambda: trainer_on_card(root, DP_CUTS + [
+            "training.max_update=2", f"training.save_dir={root}/dp2"]),
+            "segm bf16 world 2, rank 0", TRAIN_LAUNCHES[True], rank == 0)
+    restore()
+    out["allreduce"] = calls
+    out["ms"] = [u["ms"] for u in rec["updates"]]
+    out["sharded"] = type(trainer.state.optimizer).__name__
+    # the ZeRO-1 state gathered to rank 0: the port's one gather_object
+    # (what a checkpoint runs) against ZeRO's own consolidate_state_dict
+    for name, gather in (
+            ("gather_s", lambda o: optimizer_state_dict(o)),
+            ("consolidate_s", lambda o: o.consolidate_state_dict(to=0))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gather(trainer.state.optimizer)
+        out[name] = time.perf_counter() - t0
+    del trainer, rec
+    torch.cuda.empty_cache()
+
+    # 12a: the checkpoint resumed at world 2, one more update
+    saved = torch.load(root / "dp2/checkpoints/model_2.pth",
+                       map_location="cpu", weights_only=True)
+    resumed = trainer_on_card(root, DP_CUTS + [
+        "training.max_update=3", "training.resume=true",
+        f"training.save_dir={root}/dp2"])
+    out["resume_model"] = all(torch.equal(v.cpu(), saved["model"][k]) for k, v
+                              in resumed.state.model.state_dict().items())
+    opt = optimizer_state_dict(resumed.state.optimizer)
+    out["resume_opt"] = None if opt is None else (
+        sorted(opt["state"]) == sorted(saved["optimizer"]["state"]) and all(
+            torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
+            for i, st in opt["state"].items() for k, v in st.items()
+            if torch.is_tensor(v)))
+    out["resume_position"] = (resumed.current_update, resumed.current_epoch,
+                              resumed.epoch_batches_done)
+    resumed.train()
+    out["resume_step"] = resumed.state.step
+    del resumed, saved, opt
+    torch.cuda.empty_cache()
+
+    # 12c: the same updates with the optimizer state replicated
+    trainer, _, _, out["peak_plain"], out["state_plain"] = dp_train(
+        lambda: trainer_on_card(root, DP_CUTS + [
+            "training.max_update=1", "distributed.zero1=false",
+            f"training.save_dir={root}/dp2_plain"]),
+        "segm bf16 world 2, zero1 false, rank 0", TRAIN_LAUNCHES[True],
+        rank == 0)
+    out["sharded_plain"] = type(trainer.state.optimizer).__name__
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 12d: the Waymo trainer, val and test, then a resume with the draws
+    wroot = root / "waymo"
+    save = wroot / "save_dp2"
+    records = {}
+
+    def make():
+        trainer = waymo_trainer_on_card(wroot, DP_3D_CUTS + [
+            f"training.save_dir={save}"])
+        evaluate = trainer.evaluate
+
+        def evaluate_and_read(split):
+            result = evaluate(split)
+            with open(save / "results.pkl", "rb") as f:
+                records[split] = sorted(pickle.load(f))
+            return result
+
+        trainer.evaluate = evaluate_and_read
+        return trainer
+
+    trainer, rec, out["counts_3d"], out["peak_3d"], _ = dp_train(
+        make, "Waymo bf16 world 2, rank 0", TRAIN_3D_LAUNCHES, rank == 0)
+    with open(save / "results.pkl", "rb") as f:
+        records["test"] = sorted(pickle.load(f))
+    out["records"] = records
+    out["tokens"] = {s: sorted(i["token"] for i in trainer.datasets[s].infos)
+                     for s in ("val", "test")}
+    out["ms_3d"] = [u["ms"] for u in rec["updates"]]
+    out["draws"] = trainer.loaders["train"].draw_state
+    del trainer, rec
+    torch.cuda.empty_cache()
+    saved = torch.load(save / "checkpoints/model_2.pth", map_location="cpu",
+                       weights_only=True)["extra"]["draw_states"]
+    resumed = waymo_trainer_on_card(wroot, DP_3D_CUTS + [
+        f"training.save_dir={save}", "training.max_update=3",
+        "training.run_type=train", "training.resume=true"])
+    out["restored_draws"] = draws_equal(resumed.loaders["train"].draw_state,
+                                        saved[rank])
+    out["saved_draws"] = len(saved)
+    resumed.train()
+    out["resume_step_3d"] = resumed.state.step
+    torch.save(out, root / f"rank{rank}.pt")
+
+
+def nccl_rank(task_path):
+    """Phase 12b: the trainer in a process group of one over NCCL, 2
+    updates from the loader at bf16 autocast."""
+    task = torch.load(task_path, weights_only=False)
+    root = Path(task["root"])
+    trainer, rec, counts, _, _ = dp_train(
+        lambda: trainer_on_card(root, DP_CUTS + [
+            "training.max_update=2", f"training.save_dir={root}/nccl"]),
+        "segm bf16 NCCL world 1", TRAIN_LAUNCHES[True], True)
+    torch.save(dict(params={n: p.detach().cpu() for n, p in
+                            trainer.state.model.named_parameters()},
+                    ms=[u["ms"] for u in rec["updates"]], counts=counts,
+                    stats=[u["stats"] for u in rec["updates"]],
+                    lr=max(g["base_lr"]
+                           for g in trainer.state.optimizer.param_groups)),
+               root / "nccl.pt")
+
+
+def run_data_parallel(dev, smi, phase10_ms):
+    """Phase 12: data parallel through the port's trainer at full width on
+    the one card. 12a: two ranks over gloo on the shipped segm config at a
+    global batch of 2 (1 image a rank): one f32 update (256x384, no
+    autocast) against a world-1 update of the same 2 images from the same
+    weights, then 2 bf16 updates from the loader with a ZeRO-1 checkpoint,
+    resumed at world 2 (model and optimizer state bitwise) and at world 1
+    (one update); the gradient all-reduce's bytes and ms. 12b: the trainer
+    in a process group of one over NCCL against the no-group trainer. 12c:
+    each rank's optimizer-state bytes and peak memory with zero1 true and
+    false. 12d: the Waymo config at world 2 (1 frame a rank): the ranks'
+    GT-database draws differ, val and test results.pkl hold every frame
+    once, a resume restores each rank's cursors. Returns (launch counts of
+    the world-2 and NCCL trainers' runs, results)."""
+    import shutil
+    import tempfile
+
+    from boxer_tpu_torch.dataset.synthetic import synthetic_batch, \
+        write_waymo
+    from boxer_tpu_torch.parallel.distributed import launch
+    from boxer_tpu_torch.tools.preprocess.create_gt_database import \
+        create_gt_database
+
+    label = "data parallel"
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_coco(root)
+        write_waymo(root / "waymo", WAYMO_DP_FRAMES, PC_RANGE_3D,
+                    SERVE_POINTS, WAYMO_OBJECTS, seed=1)
+        create_gt_database(str(root / "waymo"), "infos/infos_train.pkl")
+
+        # 12a, world 1: one f32 update on 2 images in this process
+        trainer = trainer_on_card(root, DP_F32_CUTS + [
+            f"training.save_dir={root}/w1_f32"])
+        batch = synthetic_batch(2, *E2E_CANVAS, num_targets=20,
+                                num_classes=trainer.num_classes,
+                                with_masks=True, seed=1, iter_per_update=1)
+        as_torch = lambda x: ({k: as_torch(v) for k, v in x.items()}
+                              if isinstance(x, dict) else torch.from_numpy(x))
+        batch = as_torch(batch)
+        weights = {k: v.detach().cpu().clone() for k, v in
+                   trainer.state.model.state_dict().items()}
+        _, want = trainer._train_step(
+            trainer.state, tree_map(batch, lambda t: t.to(dev)))
+        want_params = {n: p.detach().cpu() for n, p in
+                       trainer.state.model.named_parameters()}
+        del trainer
+        torch.cuda.empty_cache()
+        task = root / "task.pt"
+        torch.save(dict(root=str(root), batch=batch, weights=weights), task)
+        log(f"{label} [{smi}]: data in {time.perf_counter() - t0:.1f} s; "
+            f"{TRAINER_CONFIG} and {TRAINER_3D_CONFIG} at 2 ranks over gloo "
+            f"on the one card")
+
+        t_ranks = time.perf_counter()
+        launch(dp_ranks, 2, "gloo", args=(str(task),), devices=[0, 0],
+               timeout=900)
+        t_ranks = time.perf_counter() - t_ranks
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+
+        # 12a: the world-2 update against the world-1 update
+        got = ranks[0]["f32_stats"]
+        keys = [k for k in want if k.startswith("loss_")] + [
+            "total_loss", "num_boxes", "grad_norm"]
+        stat_err = max(rel_err(got[k], want[k]) for k in keys)
+        upd = {n: rel_err(p - weights[n], want_params[n] - weights[n])
+               for n, p in ranks[0]["f32_params"].items()}
+        worst = max(upd, key=upd.get)
+        ranks_equal = all(torch.equal(p, ranks[1]["f32_params"][n])
+                          for n, p in ranks[0]["f32_params"].items())
+        log(f"12a [{smi}]: f32 update at {E2E_CANVAS}, world 2 (1 image a "
+            f"rank) vs world 1 (2 images): {len(keys)} stats worst rel err "
+            f"{stat_err:.3e} (num_boxes {got['num_boxes']:g} vs "
+            f"{want['num_boxes']:g}), updated parameters worst leaf "
+            f"{upd[worst]:.3e} ({worst}), median leaf "
+            f"{float(np.median(list(upd.values()))):.3e}; the ranks' "
+            f"parameters bitwise equal {ranks_equal}; each rank's initial "
+            f"weights equal world 1's {[r['init_equal'] for r in ranks]}")
+        # phase 8's rules: stats 1e-4; a leaf within 0.1 (a ReLU input
+        # within rounding of 0 can take the other branch)
+        if not (stat_err <= 1e-4 and upd[worst] <= 0.1 and ranks_equal
+                and all(r["init_equal"] for r in ranks)):
+            raise AssertionError("12a: world 2 and world 1 disagree")
+
+        a0 = ranks[0]
+        ar_bytes = {b for r in ranks for b, _ in r["allreduce"]}
+        ar_ms = [ms for r in ranks for _, ms in r["allreduce"]]
+        log(f"12a [{smi}]: bf16 updates at 1344x1344, world 2, rank 0 ms "
+            f"{', '.join(f'{t:.2f}' for t in a0['ms'])} (phase 10's world "
+            f"1: {phase10_ms:.2f} ms an update of 2 microbatches; two ranks "
+            f"share one card here, so this is no scaling number); gradient "
+            f"all-reduce {sorted(ar_bytes)} bytes an update, ms "
+            f"{', '.join(f'{t:.2f}' for t in ar_ms)} (gloo stages the CUDA "
+            f"buffer through the host: nothing of NCCL over NVLink); "
+            f"optimizer {a0['sharded']}; resumed at world 2: model bitwise "
+            f"{[r['resume_model'] for r in ranks]}, optimizer state bitwise "
+            f"{a0['resume_opt']}, (update, epoch, skip) "
+            f"{a0['resume_position']}, step after "
+            f"{[r['resume_step'] for r in ranks]}")
+        if not (all(r["resume_model"] and r["resume_step"] == 3
+                    and r["resume_position"] == (2, 0, 2) for r in ranks)
+                and a0["resume_opt"] and len(ar_bytes) == 1
+                and a0["sharded"] == "ZeroRedundancyOptimizer"):
+            raise AssertionError("12a: the world-2 checkpoint's resume")
+
+        # 12a: the world-2 ZeRO-1 checkpoint resumed at world 1
+        os.makedirs(root / "w1_resume/checkpoints")
+        shutil.copy(root / "dp2/checkpoints/model_2.pth",
+                    root / "w1_resume/checkpoints")
+        one = trainer_on_card(root, DP_CUTS + [
+            "training.max_update=3", "training.resume=true",
+            f"training.save_dir={root}/w1_resume"])
+        one_step = one.state.step
+        rec = record_steps(one, lambda i, u: None)
+        one.train()
+        one_ok = (one_step == 2 and one.state.step == 3 and
+                  rec["updates"][0]["stats"]["skipped"] == 0.0
+                  and np.isfinite(rec["updates"][0]["stats"]["total_loss"]))
+        log(f"12a [{smi}]: the world-2 checkpoint resumed at world 1 at "
+            f"step {one_step}, one update: {rec['updates'][0]['ms']:.2f} ms,"
+            f" total_loss {rec['updates'][0]['stats']['total_loss']:.5g}")
+        if not one_ok:
+            raise AssertionError("12a: the world-1 resume")
+        del one, rec
+        torch.cuda.empty_cache()
+
+        # 12c
+        state_mb = {k: [r[f"state_{k}"] / 2 ** 20 for r in ranks]
+                    for k in ("zero1", "plain")}
+        peak = {k: [r[f"peak_{k}"] for r in ranks] for k in ("zero1",
+                                                           "plain")}
+        log(f"12c [{smi}]: optimizer state MiB per rank, zero1 true "
+            f"{[round(v, 2) for v in state_mb['zero1']]} (sum "
+            f"{sum(state_mb['zero1']):.2f}), false "
+            f"{[round(v, 2) for v in state_mb['plain']]}; GiB (peak, "
+            f"allocated) after the first update per rank, zero1 true "
+            f"{[tuple(round(v, 3) for v in p) for p in peak['zero1']]}, "
+            f"false {[tuple(round(v, 3) for v in p) for p in peak['plain']]};"
+            f" the state gathered to rank 0 in {a0['gather_s']:.2f} s "
+            f"(gather_object), ZeRO's consolidate_state_dict "
+            f"{a0['consolidate_s']:.2f} s")
+        if not (abs(sum(state_mb["zero1"]) - state_mb["plain"][0]) < 1.0
+                and max(state_mb["zero1"]) < 0.75 * state_mb["plain"][0]
+                and a0["sharded_plain"] == "AdamW"):
+            raise AssertionError("12c: the optimizer state is not sharded")
+
+        # 12d
+        draws_differ = not draws_equal(ranks[0]["draws"], ranks[1]["draws"])
+        records_ok = all(r["records"][s] == r["tokens"][s] for r in ranks
+                         for s in ("val", "test"))
+        log(f"12d [{smi}]: Waymo bf16 world 2, rank 0 ms "
+            f"{', '.join(f'{t:.2f}' for t in a0['ms_3d'])}; the ranks' draws "
+            f"differ {draws_differ}; results.pkl val and test frames "
+            f"{ {s: len(a0['records'][s]) for s in ('val', 'test')} } of "
+            f"{ {s: len(a0['tokens'][s]) for s in ('val', 'test')} }, every "
+            f"frame once {records_ok}; resumed with the checkpoint's "
+            f"{a0['saved_draws']} ranks' cursors, each rank's restored "
+            f"{[r['restored_draws'] for r in ranks]}, step after "
+            f"{[r['resume_step_3d'] for r in ranks]}; peak GiB "
+            f"{[round(r['peak_3d'][0], 2) for r in ranks]}")
+        if not (draws_differ and records_ok and a0["saved_draws"] == 2
+                and len(a0["tokens"]["val"]) == 3
+                and all(r["restored_draws"] and r["resume_step_3d"] == 3
+                        for r in ranks)):
+            raise AssertionError("12d: the Waymo trainer at world 2")
+
+        # 12b: NCCL at world 1 against the no-group trainer, twice
+        t_nccl = time.perf_counter()
+        launch(nccl_rank, 1, "nccl", args=(str(task),), devices=[0],
+               timeout=600)
+        t_nccl = time.perf_counter() - t_nccl
+        nccl = torch.load(root / "nccl.pt", weights_only=False)
+        alone = []
+        for i in range(2):
+            trainer, rec, _, _, _ = dp_train(
+                lambda: trainer_on_card(root, DP_CUTS + [
+                    "training.max_update=2",
+                    f"training.save_dir={root}/alone{i}"]),
+                "segm bf16 no group", TRAIN_LAUNCHES[True], False)
+            alone.append(({n: p.detach().cpu() for n, p in
+                           trainer.state.model.named_parameters()},
+                          [u["ms"] for u in rec["updates"]],
+                          [u["stats"] for u in rec["updates"]]))
+            del trainer, rec
+            torch.cuda.empty_cache()
+
+        # the largest parameter difference (an element whose gradient is
+        # near 0 may step by +lr or -lr: a leaf's relative error says
+        # nothing after AdamW's first steps)
+        def max_diff(a, b):
+            return max(float((p - b[n]).abs().max()) for n, p in a.items())
+
+        bitwise = all(torch.equal(p, alone[0][0][n])
+                      for n, p in nccl["params"].items())
+        nccl_err = max_diff(nccl["params"], alone[0][0])
+        noise = max_diff(alone[1][0], alone[0][0])
+        losses = [[st["total_loss"] for st in run] for run in
+                  (nccl["stats"], alone[0][2], alone[1][2])]
+        log(f"12b [{smi}]: NCCL world 1 vs no group after 2 AdamW updates: "
+            f"parameters bitwise {bitwise}, at most {nccl_err:.3e} apart; "
+            f"two no-group runs {noise:.3e} apart (K5/K6's "
+            f"f32 atomics and cuDNN's backward add in a run-dependent "
+            f"order); total_loss of updates 1 and 2, NCCL {losses[0]}, no "
+            f"group {losses[1]} and {losses[2]}; ms per update NCCL "
+            f"{', '.join(f'{t:.2f}' for t in nccl['ms'])} (the first "
+            f"builds NCCL's communicator), no group "
+            f"{', '.join(f'{t:.2f}' for t in alone[0][1])} and "
+            f"{', '.join(f'{t:.2f}' for t in alone[1][1])} (phase 10: "
+            f"{phase10_ms:.2f} ms an update of two 1-image microbatches)")
+        # the same weights and batch: update 1's forward (K2, K3 and cuDNN's
+        # forward are deterministic) gives the same loss; after it, each
+        # AdamW step moves an element by about the LR either way
+        if not (len({run[0] for run in losses}) == 1 and (
+                bitwise or nccl_err <= max(2 * noise, 4 * nccl["lr"]))):
+            raise AssertionError("12b: NCCL world 1 departs from the "
+                                 "no-group trainer beyond run-to-run noise")
+        log(f"phase 12 [{smi}]: ranks {t_ranks:.1f} s, NCCL {t_nccl:.1f} s")
+        runs = {"dp2 segm rank 0": ranks[0]["counts"],
+                "dp2 segm rank 1": ranks[1]["counts"],
+                "dp2 waymo rank 0": ranks[0]["counts_3d"],
+                "dp2 waymo rank 1": ranks[1]["counts_3d"],
+                "nccl world 1": nccl["counts"]}
+    return runs, dict(stat_err=stat_err, leaf_err=upd[worst],
+                      allreduce_ms=ar_ms, allreduce_bytes=sorted(ar_bytes),
+                      state_mb=state_mb, peak=peak, ms=a0["ms"],
+                      ms_3d=a0["ms_3d"], nccl_ms=nccl["ms"],
+                      nccl_err=nccl_err, noise=noise, bitwise=bitwise)
 
 
 def main():
@@ -2334,6 +2829,13 @@ def main():
     runs["trainer 3d"], trainer_3d = run_trainer_3d(dev, smi)
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    # 12. data parallel: two ranks sharing the card over gloo (the segm and
+    # Waymo configs, ZeRO-1 checkpoints and resumes), NCCL in a group of one
+    t12 = time.perf_counter()
+    dp_runs, dp = run_data_parallel(dev, smi, trainer_run["ms"])
+    runs.update(dp_runs)
+    log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
+
     # K7a has no caller in the package: its launches are those of its
     # op-level run in phase 3c; the T rows' those of the shootout
     qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
@@ -2410,6 +2912,19 @@ def main():
         f"host ms per batch "
         f"{loader_ms:.2f} one frame after another, val pass "
         f"{trainer_3d['val_s']:.1f} s")
+    nccl = "bitwise" if dp["bitwise"] else f"{dp['nccl_err']:.3e} apart"
+    log(f"data parallel [{smi}] (two ranks sharing the card over gloo; no "
+        f"scaling number): world 2 vs world 1 stats {dp['stat_err']:.3e}, "
+        f"worst leaf {dp['leaf_err']:.3e}; segm bf16 ms per update "
+        f"{', '.join(f'{t:.2f}' for t in dp['ms'])}, Waymo "
+        f"{', '.join(f'{t:.2f}' for t in dp['ms_3d'])}; gradient all-reduce "
+        f"{dp['allreduce_bytes']} bytes in "
+        f"{', '.join(f'{t:.2f}' for t in dp['allreduce_ms'])} ms; optimizer "
+        f"state MiB a rank {[round(v, 2) for v in dp['state_mb']['zero1']]} "
+        f"(replicated {dp['state_mb']['plain'][0]:.2f}); NCCL world 1 ms "
+        f"per update {', '.join(f'{t:.2f}' for t in dp['nccl_ms'])}, "
+        f"{nccl} from the no-group run (two no-group runs "
+        f"{dp['noise']:.3e})")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,9 @@ masks, non-contiguous category ids), with the tiny model of
 - The CLI as a subprocess with `--device cpu` (rc 0, files written), and
   the same command without it, on this card-less machine: a non-zero exit
   with the "no CUDA device" error and nothing built. The model and
-  layouts the port does not run raise NotImplementedError.
+  layouts the port does not run raise NotImplementedError. Two CPU ranks
+  through the CLI (`distributed.dp=2`), and more ranks than cards
+  refused.
 - BoxeR-3D (`--task detection3d`) from the shipped Waymo config, cut by
   dotlist to the tiny model of `tests/test_torch_boxer3d.py` (hidden 32)
   and to `tests/test_torch_waymo.py`'s generated frame directory (±5.12 m,
@@ -320,12 +322,48 @@ def test_run_cli_without_card_refuses(coco_root, tmp_path):
     assert not os.path.exists(tmp_path / "save")
 
 
+def test_run_cli_two_cpu_ranks(coco_root, tmp_path):
+    """`--device cpu distributed.dp=2`: two ranks over gloo, the global
+    batch of 2 split into one image a rank; rank 0 writes one log, one
+    checkpoint and a test_result.json whose records cover every test image
+    once (the ranks' records gathered)."""
+    from collections import Counter
+
+    cfg = _config_path(coco_root, tmp_path)
+    proc = _cli(["--config", cfg, "--task", "detection", "--model",
+                 "boxer2d", "--device", "cpu", "distributed.dp=2",
+                 "training.max_update=2", "training.checkpoint_interval=2",
+                 "training.log_interval=1"], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ranks=2" in proc.stdout and "update 2/2" in proc.stdout
+    save = tmp_path / "save"
+    assert len(list(save.glob("train_*.log"))) == 1
+    assert os.listdir(save / "checkpoints") == ["model_2.pth"]
+    per_image = Counter(r["image_id"] for r in json.loads(
+        (save / "test_result.json").read_text()))
+    assert sorted(per_image) == list(range(1, 9))
+    assert len(set(per_image.values())) == 1
+
+
+def test_run_refuses_more_ranks_than_cards(coco_root, tmp_path, monkeypatch):
+    """`distributed.dp=2` on cuda with one card raises before anything is
+    spawned or built (the card count patched: this machine has none)."""
+    from boxer_tpu_torch.tools import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    with pytest.raises(RuntimeError, match="2 processes .* 1 CUDA cards"):
+        run.run(["--config", _config_path(coco_root, tmp_path), "--task",
+                 "detection", "--model", "boxer2d", "distributed.dp=2"])
+    assert not os.path.exists(tmp_path / "save")
+
+
 @pytest.mark.parametrize("opts,extra", [
     ([], {"model": "detr"}),
-    (["distributed.dp=2"], {}),
     (["distributed.mp=2"], {}),
     (["distributed.sp=2"], {}),
-], ids=["detr", "dp2", "mp2", "sp2"])
+], ids=["detr", "mp2", "sp2"])
 def test_unported_layouts_raise(coco_root, tmp_path, opts, extra):
     from boxer_tpu_torch.trainer import build_trainer
     from boxer_tpu_torch.utils.config import Configuration
