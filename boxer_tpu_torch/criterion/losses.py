@@ -1,9 +1,9 @@
-"""Set-prediction losses for BoxeR-2D and BoxeR-3D; port of
+"""Set-prediction losses for BoxeR-2D, BoxeR-3D and DETR; port of
 `boxer_tpu/criterion/losses.py` (sigmoid focal loss, dice loss, focal
-labels, boxes, 3D boxes, masks, the composite Boxer2DCriterion and
-Boxer3DCriterion with the encoder's binary-label loss and the per-layer aux
-losses, the weighted total, and `build_loss` from a model config's `loss`
-node).
+labels, DETR's softmax labels, boxes, 3D boxes, masks, the composite
+Boxer2DCriterion, Boxer3DCriterion and DETRCriterion with the encoder's
+binary-label loss and the per-layer aux losses, the weighted total, and
+`build_loss` from a model config's `loss` node).
 
 Fixed-shape design, as in the JAX package: targets are padded to NT boxes
 with a `valid` mask, matching returns `query_idx (B, NT)`, and every loss is
@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from boxer_tpu_torch.nn.matcher import build_matcher
+from boxer_tpu_torch.parallel import distributed
 from boxer_tpu_torch.utils.box3d_ops import (
     box_cxcyczlwh_to_xyxyxy, elementwise_generalized_box3d_iou)
 from boxer_tpu_torch.utils.box_ops import (box_cxcywh_to_xyxy,
@@ -72,6 +73,27 @@ def focal_label_loss(outputs, targets, query_idx, valid, num_boxes,
     onehot = F.one_hot(target_classes, num_classes + 1)[..., :num_classes]
     return {"loss_ce": sigmoid_focal_loss(logits, onehot, num_boxes,
                                           alpha=focal_alpha, gamma=2.0)}
+
+
+def label_loss_ce(outputs, targets, query_idx, valid, num_boxes,
+                  num_classes: int, eos_coef: float, iter_per_update: int = 1):
+    """DETR's softmax CE over num_classes + 1 columns, the no-object
+    column weighted by `eos_coef`, normalised by the summed class weights
+    (over every rank's share of the microbatch) and divided by
+    `iter_per_update`, not by `num_boxes` (`boxer_tpu/criterion/losses.py:
+    94-110`)."""
+    logits = outputs["pred_logits"].float()                # (B, NQ, C+1)
+    b, nq, _ = logits.shape
+    labels = torch.where(valid, targets["labels"].long(), num_classes)
+    scatter_idx = torch.where(valid, query_idx, nq)
+    target_classes = torch.full((b, nq + 1), num_classes, dtype=torch.long,
+                                device=logits.device)
+    target_classes = target_classes.scatter(1, scatter_idx, labels)[:, :nq]
+    nll = -torch.log_softmax(logits, dim=-1).gather(
+        2, target_classes[..., None])[..., 0]
+    weights = torch.where(target_classes == num_classes, eos_coef, 1.0)
+    total = distributed.all_reduce_sum(weights.sum())
+    return {"loss_ce": (nll * weights).sum() / total / iter_per_update}
 
 
 def boxes_loss(outputs, targets, query_idx, valid, num_boxes):
@@ -233,10 +255,36 @@ class Boxer3DCriterion(Boxer2DCriterion):
     boxes_loss = staticmethod(boxes3d_loss)
 
 
-def build_loss(loss_config, num_classes: int):
+class DETRCriterion(Boxer2DCriterion):
+    """The DETR loss: softmax labels (`label_loss_ce`) + boxes on the final
+    layer and each aux layer; no encoder head."""
+
+    def __init__(self, num_classes, matcher, weight_dict, losses, eos_coef,
+                 iter_per_update: int = 1):
+        super().__init__(num_classes, matcher, weight_dict, losses)
+        self.eos_coef = eos_coef
+        self.iter_per_update = iter_per_update
+
+    def _eval_losses(self, outputs, targets, query_idx, valid, num_boxes,
+                     n_classes, with_masks):
+        out = {}
+        for loss in self.losses:
+            if loss == "boxes":
+                out.update(boxes_loss(outputs, targets, query_idx, valid,
+                                      num_boxes))
+            elif loss == "labels":
+                out.update(label_loss_ce(outputs, targets, query_idx, valid,
+                                         num_boxes, n_classes, self.eos_coef,
+                                         self.iter_per_update))
+            else:
+                raise ValueError(f"Unsupported detr loss: {loss}")
+        return out
+
+
+def build_loss(loss_config, num_classes: int, iter_per_update: int = 1):
     """The criterion of a model config's `loss` node (reference `build_loss`,
-    `losses.py:17-74`), with its weight dict. DETR's softmax loss is not
-    ported (ROADMAP queue 1, item 10)."""
+    `losses.py:17-74`), with its weight dict; `iter_per_update` divides
+    DETR's label loss."""
     loss_type = loss_config["type"]
     params = loss_config["params"]
     weight_dict = {
@@ -245,6 +293,10 @@ def build_loss(loss_config, num_classes: int):
         "loss_giou": params["giou_loss_coef"],
     }
     matcher = build_matcher(params["matcher"])
+    if loss_type == "detr":
+        return DETRCriterion(num_classes, matcher, weight_dict,
+                             ["boxes", "labels"], eos_coef=params["eos_coef"],
+                             iter_per_update=iter_per_update)
     if loss_type == "boxer2d":
         losses = ["boxes", "focal_labels"]
         if params.get("use_mask"):

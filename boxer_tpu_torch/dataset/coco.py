@@ -299,16 +299,23 @@ class COCODetection:
         return results
 
     def prepare_for_evaluation(self, predictions: Dict) -> List[Dict]:
-        """-> COCO result json records (parity `coco.py:72-109`)."""
+        """-> COCO result json records (parity `coco.py:72-109`). A pick of
+        DETR's no-object column is left out: the JAX package raises
+        KeyError on it (`ROADMAP.md` section 3)."""
         records = []
         for image_id, pred in predictions.items():
             boxes = pred["boxes"]
             xywh = np.concatenate(
                 [boxes[:, :2], boxes[:, 2:] - boxes[:, :2]], -1)
             for k in range(len(boxes)):
+                label = int(pred["labels"][k])
+                if label not in self.label_to_cat_id:
+                    # DETR's no-object column (label num_classes), which
+                    # the sigmoid top-k can pick, names no category
+                    continue
                 rec = {
                     "image_id": int(image_id),
-                    "category_id": self.label_to_cat_id[int(pred["labels"][k])],
+                    "category_id": self.label_to_cat_id[label],
                     "bbox": [round(float(v), 3) for v in xywh[k]],
                     "score": float(pred["scores"][k]),
                 }

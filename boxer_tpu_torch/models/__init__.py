@@ -14,8 +14,7 @@ def register_model(name):
 
 
 def build_model(config, num_classes: int):
-    """config: the per-model config node (e.g. config.model_config.boxer2d).
-    DETR is not ported (ROADMAP queue 1, item 10)."""
+    """config: the per-model config node (e.g. config.model_config.boxer2d)."""
     return MODEL_REGISTRY.get(config.get("type")).from_config(config,
                                                              num_classes)
 
@@ -23,3 +22,4 @@ def build_model(config, num_classes: int):
 # populate registry
 from boxer_tpu_torch.models.boxer2d import BoxeR2D  # noqa: E402,F401
 from boxer_tpu_torch.models.boxer3d import BoxeR3D  # noqa: E402,F401
+from boxer_tpu_torch.models.detr import DETR  # noqa: E402,F401

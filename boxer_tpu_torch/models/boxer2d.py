@@ -17,6 +17,7 @@ from torch import nn
 from boxer_tpu_torch.evaluate.postprocess import coco_postprocess
 from boxer_tpu_torch.models import register_model
 from boxer_tpu_torch.nn.box_transformer import BoxTransformer
+from boxer_tpu_torch.nn.dropout import name_sites
 from boxer_tpu_torch.nn.init import reset_default_, xavier_uniform_
 from boxer_tpu_torch.nn.position_encoding import build_position_encoding
 from boxer_tpu_torch.nn.predictor import Detector
@@ -36,8 +37,6 @@ class BoxeR2D(nn.Module):
                  backbone_arch: str = "resnet50",
                  position_encoding: str = "fixed_box"):
         super().__init__()
-        # every shipped config trains with dropout 0; forward(train=True)
-        # refuses any other value (dropout is not ported)
         self.dropout = dropout
         self.hidden_dim, self.num_level = hidden_dim, num_level
         self.use_mask, self.ref_size = use_mask, ref_size
@@ -59,10 +58,12 @@ class BoxeR2D(nn.Module):
             d_model=hidden_dim, nhead=nhead, nlevel=num_level,
             num_encoder_layers=enc_layers, num_decoder_layers=dec_layers,
             dim_feedforward=dim_feedforward, num_queries=num_queries,
-            use_mask=use_mask, ref_size=ref_size, residual_mode=residual_mode)
+            use_mask=use_mask, ref_size=ref_size, residual_mode=residual_mode,
+            dropout=dropout)
         self.enc_detector = Detector(hidden_dim, 1, aux_loss=False)
         self.detector = Detector(hidden_dim, num_classes, aux_loss,
                                  mask_mode="mask_v1" if use_mask else "none")
+        name_sites(self)
 
     @classmethod
     def from_config(cls, config, num_classes: int):
@@ -99,7 +100,7 @@ class BoxeR2D(nn.Module):
 
     def forward(self, image, mask: Optional[torch.Tensor] = None,
                 train: bool = False, inference: bool = True,
-                postprocess: Optional[dict] = None):
+                postprocess: Optional[dict] = None, dropout_key=None):
         """image: (B, H, W, 3) NHWC normalized; mask: (B, H, W) bool padding
         mask (True = padded) or None.
 
@@ -109,12 +110,12 @@ class BoxeR2D(nn.Module):
         encoder head, through the differentiable sampling). With postprocess
         (dict with canvas_hw, topk[, scale]; inference only): {scores,
         labels, boxes[, masks]} — for use_mask through the deferred top-k
-        mask decode.
+        mask decode. In training at dropout > 0 `dropout_key`
+        (`nn/dropout.py:DropoutKey`) draws the masks: it is required there.
         """
-        if train and self.dropout > 0:
-            raise NotImplementedError(
-                f"dropout {self.dropout} in training: the port runs dropout 0 "
-                "only, as every shipped config does")
+        if train and self.dropout > 0 and dropout_key is None:
+            raise ValueError(f"dropout {self.dropout} in training needs a "
+                             "dropout_key")
         assert postprocess is None or inference, \
             "postprocess is an inference-only fast path"
         dtype = self.input_proj[0][0].weight.dtype
@@ -148,7 +149,7 @@ class BoxeR2D(nn.Module):
                                     postprocess=postprocess)
         hs, roi, dec_ref_windows, *_, enc_outputs = self.transformer(
             features, masks, pos_encodings, self.enc_detector,
-            inference=inference)
+            inference=inference, dropout_key=dropout_key if train else None)
         out = self.detector(hs, dec_ref_windows, roi=roi)
         if not inference:
             out["enc_outputs"] = enc_outputs

@@ -13,6 +13,7 @@ from torch import nn
 from boxer_tpu_torch.models import register_model
 from boxer_tpu_torch.nn.backbone3d import build_backbone3d
 from boxer_tpu_torch.nn.box3d_transformer import Box3dTransformer
+from boxer_tpu_torch.nn.dropout import name_sites
 from boxer_tpu_torch.nn.init import reset_default_, xavier_uniform_
 from boxer_tpu_torch.nn.point_pillar import GN_EPS
 from boxer_tpu_torch.nn.predictor import Detector3d, MultiDetector3d
@@ -31,8 +32,6 @@ class BoxeR3D(nn.Module):
         """backbone_cfg: the config's `backbone` dict ({"type":
         "pointpillar", "params": {...}})."""
         super().__init__()
-        # every shipped config trains with dropout 0; forward(train=True)
-        # refuses any other value (dropout is not ported)
         self.dropout = dropout
         self.num_level = num_level
         self.backbone = build_backbone3d(backbone_cfg)
@@ -46,10 +45,12 @@ class BoxeR3D(nn.Module):
             d_model=hidden_dim, nhead=nhead, nlevel=num_level,
             num_encoder_layers=enc_layers, num_decoder_layers=dec_layers,
             dim_feedforward=dim_feedforward, num_queries=num_queries,
-            num_references=NUM_REFERENCES, ref_size=ref_size)
+            num_references=NUM_REFERENCES, ref_size=ref_size,
+            dropout=dropout)
         self.enc_detector = MultiDetector3d(hidden_dim, 1, NUM_REFERENCES,
                                             aux_loss=False)
         self.detector = Detector3d(hidden_dim, num_classes, aux_loss)
+        name_sites(self)
 
     @classmethod
     def from_config(cls, config, num_classes: int):
@@ -74,23 +75,26 @@ class BoxeR3D(nn.Module):
         return self
 
     def forward(self, voxels, coordinates, num_points_per_voxel, grid_shape,
-                batch_size: int, train: bool = False, inference: bool = True):
+                batch_size: int, train: bool = False, inference: bool = True,
+                dropout_key=None):
         """voxels: (V, P, F); coordinates: (V, 4) [b, z, y, x], -1 rows are
         padding; num_points_per_voxel: (V,); grid_shape: (nx, ny).
 
         Returns pred_logits (B, NQ, C), pred_boxes (B, NQ, 7) (cx, cy, cz,
         l, w, h, angle, normalized to [0, 1]) and aux_outputs; with
-        inference=False every decoder layer's outputs and enc_outputs."""
-        if train and self.dropout > 0:
-            raise NotImplementedError(
-                f"dropout {self.dropout} in training: the port runs dropout 0 "
-                "only, as every shipped config does")
+        inference=False every decoder layer's outputs and enc_outputs. In
+        training at dropout > 0 `dropout_key` draws the masks: it is
+        required there."""
+        if train and self.dropout > 0 and dropout_key is None:
+            raise ValueError(f"dropout {self.dropout} in training needs a "
+                             "dropout_key")
         outs, pos = self.backbone(voxels, coordinates, num_points_per_voxel,
                                   batch_size, tuple(grid_shape))
         features = [self.input_proj[i](src.permute(0, 3, 1, 2)).permute(
             0, 2, 3, 1) for i, (src, _) in enumerate(outs)]
         hs, dec_ref_windows, _, _, enc_outputs = self.transformer(
-            features, pos, self.enc_detector, inference=inference)
+            features, pos, self.enc_detector, inference=inference,
+            dropout_key=dropout_key if train else None)
         out = self.detector(hs, dec_ref_windows)
         if not inference:
             out["enc_outputs"] = enc_outputs

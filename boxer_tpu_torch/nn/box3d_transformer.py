@@ -8,9 +8,12 @@ over the first 3 references of every cell. Module names follow the 2D
 port's: `transformer.encoder.layers.{i}`, `transformer.encoder.enc_linear.
 {0,1}` (the JAX `enc_linear` and `enc_norm`), `transformer.decoder.layers.
 {i}.{self_attn,multihead_attn}`; the encoder head (`enc_detector`) sits at
-the top of the model and is passed in.
+the top of the model and is passed in. Dropout at the JAX package's sites
+(`boxer_tpu/nn/box3d_transformer.py:72`, `:96-108`), drawn from the train
+step's key (`nn/dropout.py`); no remat, as in JAX.
 """
 
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -20,6 +23,7 @@ from torch import nn
 
 from boxer_tpu_torch.nn.attention import Box3dAttention
 from boxer_tpu_torch.nn.dense_attention import PallasMultiHeadAttention
+from boxer_tpu_torch.nn.dropout import Dropout
 from boxer_tpu_torch.nn.predictor import NEG_INF
 from boxer_tpu_torch.utils.general import (flatten_with_shape,
                                            get_proposal_pos_embed,
@@ -56,7 +60,7 @@ def create_ref_windows_3d(tensor_list, ref_size: int):
 
 class Box3dEncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, nlevel: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
         self.self_attn = Box3dAttention(d_model, nlevel, nhead,
                                         with_rotation=False)
@@ -64,21 +68,24 @@ class Box3dEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, src, pos, v_shape: Shapes, ref_windows):
+    def forward(self, src, pos, v_shape: Shapes, ref_windows, key=None):
+        drop = functools.partial(self.dropout, key=key)
         src2, _ = self.self_attn(src + pos, src, v_shape, None, None,
                                  ref_windows)
-        src = self.norm1(src + src2)
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        src = self.norm1(src + drop(src2, index=0))
+        src2 = self.linear2(drop(F.relu(self.linear1(src)), index=1))
+        return self.norm2(src + drop(src2, index=2))
 
 
 class Box3dDecoderLayer(nn.Module):
     """Dense self-attention (K3), then rotated box cross-attention."""
 
     def __init__(self, d_model: int, nhead: int, nlevel: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
-        self.self_attn = PallasMultiHeadAttention(d_model, nhead)
+        self.self_attn = PallasMultiHeadAttention(d_model, nhead, dropout)
         self.multihead_attn = Box3dAttention(d_model, nlevel, nhead,
                                              with_rotation=True)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -86,31 +93,38 @@ class Box3dDecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, tgt, query_pos, memory, v_shape: Shapes, ref_windows):
+    def forward(self, tgt, query_pos, memory, v_shape: Shapes, ref_windows,
+                key=None):
+        drop = functools.partial(self.dropout, key=key)
         q = tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm1(tgt + drop(self.self_attn(q, q, tgt, dropout_key=key),
+                                    index=0))
         tgt2, _ = self.multihead_attn(tgt + query_pos, memory, v_shape, None,
                                       None, ref_windows)
-        tgt = self.norm2(tgt + tgt2)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        tgt = self.norm2(tgt + drop(tgt2, index=1))
+        tgt2 = self.linear2(drop(F.relu(self.linear1(tgt)), index=2))
+        return self.norm3(tgt + drop(tgt2, index=3))
 
 
 class _Encoder(nn.Module):
-    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers):
+    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers,
+                 dropout):
         super().__init__()
         self.layers = nn.ModuleList(
-            Box3dEncoderLayer(d_model, nhead, nlevel, dim_feedforward)
+            Box3dEncoderLayer(d_model, nhead, nlevel, dim_feedforward, dropout)
             for _ in range(num_layers))
         self.enc_linear = nn.Sequential(nn.Linear(d_model, d_model),
                                         nn.LayerNorm(d_model, eps=LN_EPS))
 
 
 class _Decoder(nn.Module):
-    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers):
+    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers,
+                 dropout):
         super().__init__()
         self.layers = nn.ModuleList(
-            Box3dDecoderLayer(d_model, nhead, nlevel, dim_feedforward)
+            Box3dDecoderLayer(d_model, nhead, nlevel, dim_feedforward, dropout)
             for _ in range(num_layers))
 
 
@@ -118,14 +132,15 @@ class Box3dTransformer(nn.Module):
     def __init__(self, d_model: int = 256, nhead: int = 8, nlevel: int = 2,
                  num_encoder_layers: int = 2, num_decoder_layers: int = 2,
                  dim_feedforward: int = 1024, num_queries: int = 300,
-                 num_references: int = 3, ref_size: int = 4):
+                 num_references: int = 3, ref_size: int = 4,
+                 dropout: float = 0.0):
         super().__init__()
         self.d_model, self.num_queries = d_model, num_queries
         self.num_references, self.ref_size = num_references, ref_size
         self.encoder = _Encoder(d_model, nhead, nlevel, dim_feedforward,
-                                num_encoder_layers)
+                                num_encoder_layers, dropout)
         self.decoder = _Decoder(d_model, nhead, nlevel, dim_feedforward,
-                                num_decoder_layers)
+                                num_decoder_layers, dropout)
 
     def _get_enc_proposals(self, enc_detector, output, ref_windows):
         """Top-num_queries over the L * R encoder proposals (invalid
@@ -161,7 +176,7 @@ class Box3dTransformer(nn.Module):
         return out_embed, out_ref, out_pos, indexes
 
     def forward(self, srcs: Sequence[torch.Tensor], pos_list, enc_detector,
-                inference: bool = True):
+                inference: bool = True, dropout_key=None):
         """srcs, pos_list: lists of (B, Hi, Wi, C). Returns (hs (nl, B, NQ,
         C), dec_ref_windows (B, NQ, 7), encoder output, src_ref_windows (B,
         S, 8, 5), enc_outputs); nl = 1 and enc_outputs None with
@@ -173,14 +188,15 @@ class Box3dTransformer(nn.Module):
                              for p in pos_list], dim=1)
         output = src
         for layer in self.encoder.layers:
-            output = layer(output, src_pos, v_shape, src_ref_windows)
+            output = layer(output, src_pos, v_shape, src_ref_windows,
+                           key=dropout_key)
 
         tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
             enc_detector, output, src_ref_windows)
         inter = []
         for layer in self.decoder.layers:
             tgt = layer(tgt, dec_pos, output, v_shape,
-                        dec_ref_windows[..., :5])
+                        dec_ref_windows[..., :5], key=dropout_key)
             inter.append(tgt)
         hs = torch.stack(inter[-1:] if inference else inter)
         enc_outputs = None

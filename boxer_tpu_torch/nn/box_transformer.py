@@ -7,25 +7,55 @@ Module names follow the reference e2edet state_dict
 an `nn.ModuleList` where the JAX package scans one layer. The encoder
 proposal head (`enc_detector`) sits at the top of the reference model, so
 the transformer takes it as an argument instead of owning it.
+
+Dropout: the JAX package's sites (`boxer_tpu/nn/box_transformer.py:125-131`
+in the encoder layer, `:180-200` in the decoder layer, and the decoder's
+self-attention probabilities), each drawn from the train step's dropout
+key (`nn/dropout.py`); without a key (eval, inference) none is drawn.
+
+Remat (`remat`, on by default, as JAX's `:261-264`): in training each
+encoder layer, and each decoder layer of a segm model, runs under
+`torch.utils.checkpoint` (non-reentrant) with a selective policy: its
+`context_fn` keeps the sampling outputs (`ops/box_attention.py:
+keeping_samples`, JAX's `save_only_these_names("box_attn_sample"[,
+"instance_attn_sample"])`, `:401-405`, `:450-453`) and everything else is
+recomputed in the backward. The recompute replays the layer's dropout
+masks (they are a function of the key) and does not launch K2 again; the
+decoder's K3 runs again, as JAX's flash attention does under its remat.
 """
 
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from boxer_tpu_torch.evaluate.postprocess import paste_and_rescore, select_topk
 from boxer_tpu_torch.nn.attention import BoxAttention, InstanceAttention
 from boxer_tpu_torch.nn.dense_attention import PallasMultiHeadAttention
+from boxer_tpu_torch.nn.dropout import Dropout
 from boxer_tpu_torch.nn.position_encoding import box_windows
 from boxer_tpu_torch.nn.predictor import NEG_INF
+from boxer_tpu_torch.ops import box_attention
 from boxer_tpu_torch.utils.general import (flatten_with_shape,
                                            get_proposal_pos_embed,
                                            inverse_sigmoid, top_k)
 
 Shapes = Tuple[Tuple[int, int], ...]
 LN_EPS = 1e-6       # flax LayerNorm's epsilon
+
+
+def remat(fn, *args, **kwargs):
+    """fn(*args, **kwargs) under non-reentrant checkpoint, the sampling
+    outputs of its forward kept for its recompute."""
+    kept = []
+    return checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (box_attention.keeping_samples(kept, False),
+                            box_attention.keeping_samples(kept, True)),
+        **kwargs)
 
 
 def create_ref_windows_2d(tensor_list, mask_list, ref_size: int):
@@ -52,22 +82,24 @@ def create_valid_ratios(mask_list):
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, nlevel: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
         self.self_attn = BoxAttention(d_model, nlevel, nhead)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
+        self.dropout = Dropout(dropout)
 
     def forward(self, src, pos, v_shape: Shapes, src_mask, valid_ratios,
-                ref_windows, fold=None):
+                ref_windows, fold=None, key=None):
+        drop = functools.partial(self.dropout, key=key)
         q = src if pos is None else src + pos
         src2, _ = self.self_attn(q, src, v_shape, src_mask, valid_ratios,
                                  ref_windows, fold=fold)
-        src = self.norm1(src + src2)
-        src = self.norm2(src + self.linear2(F.relu(self.linear1(src))))
-        return src
+        src = self.norm1(src + drop(src2, index=0))
+        src2 = self.linear2(drop(F.relu(self.linear1(src)), index=1))
+        return self.norm2(src + drop(src2, index=2))
 
 
 class DecoderLayer(nn.Module):
@@ -78,11 +110,11 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, nhead: int, nlevel: int,
                  dim_feedforward: int, use_mask: bool,
-                 residual_mode: str = "v1"):
+                 residual_mode: str = "v1", dropout: float = 0.0):
         super().__init__()
         assert residual_mode in ("v1", "v2")
         self.use_mask, self.residual_mode = use_mask, residual_mode
-        self.self_attn = PallasMultiHeadAttention(d_model, nhead)
+        self.self_attn = PallasMultiHeadAttention(d_model, nhead, dropout)
         self.multihead_attn = (
             InstanceAttention(d_model, nlevel, nhead, kernel_size=14)
             if use_mask else BoxAttention(d_model, nlevel, nhead))
@@ -91,15 +123,21 @@ class DecoderLayer(nn.Module):
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.dropout = Dropout(dropout)
 
-    def _ffn(self, x):
-        return self.linear2(F.relu(self.linear1(x)))
+    def _ffn(self, x, key=None, index: int = 0):
+        """linear2(drop(relu(linear1(x)))), draw `index` inside."""
+        return self.linear2(self.dropout(F.relu(self.linear1(x)), key,
+                                         index))
 
     def forward(self, tgt, query_pos, memory, v_shape: Shapes, memory_mask,
-                valid_ratios, ref_windows, emit_roi=False, train: bool = False):
+                valid_ratios, ref_windows, emit_roi=False, train: bool = False,
+                key=None):
         defer = emit_roi == "defer"
+        drop = functools.partial(self.dropout, key=key)
         q = k = tgt if query_pos is None else tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(q, k, tgt))
+        tgt = self.norm1(tgt + drop(self.self_attn(q, k, tgt,
+                                                   dropout_key=key), index=0))
 
         roi = None
         q2 = tgt if query_pos is None else tgt + query_pos
@@ -112,16 +150,16 @@ class DecoderLayer(nn.Module):
                 q2, memory, v_shape, memory_mask, valid_ratios, ref_windows,
                 fold=None if train else True)
 
-        tgt = self.norm2(tgt + tgt2)
+        tgt = self.norm2(tgt + drop(tgt2, index=1))
         tgt_norm2 = tgt
         if roi is not None and not defer:
-            roi = self.norm2(tgt[:, :, None, None, :] + roi)
-        tgt = self.norm3(tgt + self._ffn(tgt))
+            roi = self.norm2(tgt[:, :, None, None, :] + drop(roi, index=2))
+        tgt = self.norm3(tgt + drop(self._ffn(tgt, key, 3), index=4))
         if roi is not None and not defer:
             if self.residual_mode == "v1":
-                roi = roi + self._ffn(roi)
+                roi = roi + drop(self._ffn(roi, key, 5), index=6)
             else:
-                roi = tgt[:, :, None, None, :] + roi
+                roi = tgt[:, :, None, None, :] + drop(roi, index=7)
             roi = self.norm3(roi)
         if defer:
             return tgt, (roi, tgt_norm2, tgt)
@@ -142,10 +180,11 @@ class DecoderLayer(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers):
+    def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers,
+                 dropout):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d_model, nhead, nlevel, dim_feedforward)
+            EncoderLayer(d_model, nhead, nlevel, dim_feedforward, dropout)
             for _ in range(num_layers))
         self.enc_linear = nn.Sequential(nn.Linear(d_model, d_model),
                                         nn.LayerNorm(d_model, eps=LN_EPS))
@@ -153,11 +192,11 @@ class _Encoder(nn.Module):
 
 class _Decoder(nn.Module):
     def __init__(self, d_model, nhead, nlevel, dim_feedforward, num_layers,
-                 use_mask, residual_mode):
+                 use_mask, residual_mode, dropout):
         super().__init__()
         self.layers = nn.ModuleList(
             DecoderLayer(d_model, nhead, nlevel, dim_feedforward, use_mask,
-                         residual_mode) for _ in range(num_layers))
+                         residual_mode, dropout) for _ in range(num_layers))
 
 
 class BoxTransformer(nn.Module):
@@ -165,14 +204,17 @@ class BoxTransformer(nn.Module):
                  num_encoder_layers: int = 6, num_decoder_layers: int = 6,
                  dim_feedforward: int = 1024, num_queries: int = 300,
                  use_mask: bool = False, ref_size: int = 4,
-                 residual_mode: str = "v1"):
+                 residual_mode: str = "v1", dropout: float = 0.0,
+                 remat: bool = True):
         super().__init__()
         self.d_model, self.num_queries = d_model, num_queries
         self.use_mask, self.ref_size = use_mask, ref_size
+        self.remat = remat
         self.encoder = _Encoder(d_model, nhead, nlevel, dim_feedforward,
-                                num_encoder_layers)
+                                num_encoder_layers, dropout)
         self.decoder = _Decoder(d_model, nhead, nlevel, dim_feedforward,
-                                num_decoder_layers, use_mask, residual_mode)
+                                num_decoder_layers, use_mask, residual_mode,
+                                dropout)
 
     def _get_enc_proposals(self, enc_detector, output, src_mask, ref_windows):
         """Top-num_queries proposal selection. Returns (decoder embed,
@@ -243,7 +285,8 @@ class BoxTransformer(nn.Module):
 
     def forward(self, srcs: Sequence[torch.Tensor], masks, pos_list,
                 enc_detector, detector=None,
-                postprocess: Optional[dict] = None, inference: bool = True):
+                postprocess: Optional[dict] = None, inference: bool = True,
+                dropout_key=None):
         """srcs: list of (B, Hi, Wi, C); masks: list of (B, Hi, Wi) bool or
         None; pos_list: list of (B, Hi, Wi, C).
 
@@ -254,7 +297,9 @@ class BoxTransformer(nn.Module):
         RoI from every decoder layer, every layer's output and the encoder
         head's outputs. With `postprocess` and use_mask (inference only),
         the deferred top-k mask decode's {scores, labels, boxes, masks}
-        instead.
+        instead. `dropout_key` (training only) draws the dropout sites;
+        with `remat`, training rematerialises the encoder layers and a segm
+        model's decoder layers.
         """
         defer_mask = postprocess is not None and self.use_mask
         assert not defer_mask or detector is not None
@@ -270,10 +315,17 @@ class BoxTransformer(nn.Module):
         src_pos = torch.cat([p.reshape(p.shape[0], -1, p.shape[-1])
                              for p in pos_list], dim=1)
 
+        # JAX remats the encoder whenever it trains, the decoder only with
+        # use_mask (`boxer_tpu/nn/box_transformer.py:394-412`, `:439-453`)
+        enc_remat = self.remat and train and torch.is_grad_enabled()
+        dec_remat = enc_remat and self.use_mask
         output = src
         for layer in self.encoder.layers:
-            output = layer(output, src_pos, v_shape, src_mask, valid_ratios,
-                           src_ref_windows, fold=True if inference else None)
+            args = (output, src_pos, v_shape, src_mask, valid_ratios,
+                    src_ref_windows)
+            kw = dict(fold=True if inference else None, key=dropout_key)
+            output = remat(layer, *args, **kw) if enc_remat else layer(
+                *args, **kw)
 
         tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
             enc_detector, output, src_mask, src_ref_windows)
@@ -285,8 +337,10 @@ class BoxTransformer(nn.Module):
             emit_roi = self.use_mask and (train or i == len(layers) - 1)
             if emit_roi and defer_mask:
                 emit_roi = "defer"
-            tgt, roi = layer(tgt, dec_pos, output, v_shape, src_mask,
-                             valid_ratios, dec_ref_windows, emit_roi, train)
+            args = (tgt, dec_pos, output, v_shape, src_mask, valid_ratios,
+                    dec_ref_windows, emit_roi, train)
+            tgt, roi = (remat(layer, *args, key=dropout_key) if dec_remat
+                        else layer(*args, key=dropout_key))
             if emit_roi == "defer":
                 deferred, roi = roi, None
             inter.append(tgt)

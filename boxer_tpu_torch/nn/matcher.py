@@ -8,7 +8,8 @@ the JAX package's vmapped `lax.while_loop` does). Ties break as there:
 `argmin` takes the first minimum, the pruning top-k the lower index.
 
 Cost (focal labels): w_cls * (pos - neg)[q, label_t] + w_l1 * |b_q - b_t|_1
-+ w_giou * (-GIoU); the 3D matcher takes the L1 and the axis-aligned 3D
++ w_giou * (-GIoU), or with DETR's softmax labels w_cls * (-softmax[q,
+label_t]) in place of the focal term; the 3D matcher takes the L1 and the axis-aligned 3D
 GIoU over (cx, cy, cz, l, w, h) and adds w_rad * |rad_q - rad_t|. Only
 the valid targets' rows are solved (`hungarian`); an invalid target's
 column is 0, masked by every caller. Matching carries no gradient: it runs
@@ -172,31 +173,40 @@ def _focal_class_cost(out_prob, tgt_labels, alpha=0.25, gamma=2.0):
     return pos.gather(2, idx) - neg.gather(2, idx)
 
 
+def _softmax_class_cost(out_logits, tgt_labels):
+    """DETR's class cost: minus the softmax probability of each target's
+    class, (B, NQ, NT)."""
+    prob = torch.softmax(out_logits, dim=-1)
+    labels = tgt_labels.long().clamp(0, prob.shape[-1] - 1)
+    return -prob.gather(2, labels[:, None, :].expand(-1, prob.shape[1], -1))
+
+
 class HungarianMatcher:
-    """2D matcher with the focal class cost.
+    """2D matcher with the focal class cost, or DETR's softmax one
+    (`focal_label=False`).
 
     __call__(outputs, targets) -> (query_idx (B, NT) int64, valid (B, NT)
     bool) where outputs = {"pred_logits" (B,NQ,C), "pred_boxes" (B,NQ,4)}
     and targets = {"labels" (B,NT), "boxes" (B,NT,4) cxcywh, "valid"
-    (B,NT)}. The softmax class cost (DETR) is not ported.
+    (B,NT)}.
     """
 
     def __init__(self, cost_class=1.0, cost_bbox=1.0, cost_giou=1.0,
                  focal_label=True):
-        if not focal_label:
-            raise NotImplementedError("the softmax class cost (DETR) is not "
-                                      "ported; BoxeR matches focal labels")
         self.cost_class = cost_class
         self.cost_bbox = cost_bbox
         self.cost_giou = cost_giou
+        self.focal_label = focal_label
 
     @torch.no_grad()
     def cost_matrix(self, outputs, targets):
         logits = outputs["pred_logits"].float()
         out_bbox = outputs["pred_boxes"].float()
         tgt_bbox = targets["boxes"].float()
-        cost_class = _focal_class_cost(torch.sigmoid(logits),
-                                       targets["labels"])
+        cost_class = (_focal_class_cost(torch.sigmoid(logits),
+                                        targets["labels"])
+                      if self.focal_label
+                      else _softmax_class_cost(logits, targets["labels"]))
         cost_bbox = (out_bbox[:, :, None, :] - tgt_bbox[:, None, :, :]
                      ).abs().sum(-1)
         cost_giou = -generalized_box_iou(box_cxcywh_to_xyxy(out_bbox),
@@ -238,8 +248,8 @@ class HungarianMatcher3d(HungarianMatcher):
 
 
 def build_matcher(config):
-    """The matcher of a loss config's `matcher` entry (`hungarian` with the
-    focal class cost, or `hungarian3d`)."""
+    """The matcher of a loss config's `matcher` entry (`hungarian`, with the
+    focal or the softmax class cost, or `hungarian3d`)."""
     params = config["params"]
     if config["type"] == "hungarian":
         return HungarianMatcher(params["class_weight"], params["bbox_weight"],

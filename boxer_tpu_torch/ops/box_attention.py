@@ -27,10 +27,10 @@ Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
   weights formed in the kernel, P <= 8) or `quad_sample_reduce_w4` (K2,
   precomputed corner weights, P > 8), or `quad_sample_reduce_mmajor` (K8,
   taps in (m, p) order, every P) when `COMBINE_IMPL` is "mmajor";
-- fold=False, the per-tap path at any P: every level goes through
-  `QuadSample`, an autograd Function over K2 whose backward scatters the
-  table cotangent and forms the corner weights' cotangent in one launch of
-  K5 (box attention) or K6 (instance attention);
+- fold=False, the per-tap path at any P: the levels go through
+  `QuadSample`, an autograd Function over K2 whose backward scatters each
+  level's table cotangent and forms its corner weights' cotangent in one
+  launch of K5 (box attention) or K6 (instance attention);
 - fold=None (the default) folds, differentiably, when P >
   `FOLD_TAP_THRESHOLD` and otherwise runs per tap. The folded path gathers
   all P*M quad rows of a level with `TakeRows` (backward K7b), combines the
@@ -42,6 +42,13 @@ The corner weights are formed in torch, so autograd carries their cotangent
 back to the sampling grid and the attention weights. `floor` has zero
 gradient, so d frac / d x = 1, as in JAX.
 
+The sampling outputs, `QuadSample`'s (box attention's per-tap levels
+summed and cast to the value dtype, or one instance-attention level's
+taps), are the JAX package's `checkpoint_name`s (`boxer_tpu/nn/attention.py:
+208,333`): inside `keeping_samples` they are kept in the forward and
+handed back in remat's recompute, which then launches no K2
+(`nn/box_transformer.py:remat`).
+
 Two module constants read the JAX package's environment variables once, at
 import: `FOLD_TAP_THRESHOLD` (`BOXER_FOLD_THRESHOLD`, default 8) and
 `COMBINE_IMPL` (`BOXER_COMBINE`, "pmajor" or "mmajor"; the JAX package's
@@ -49,7 +56,9 @@ import: `FOLD_TAP_THRESHOLD` (`BOXER_FOLD_THRESHOLD`, default 8) and
 on it).
 """
 
+import contextlib
 import os
+import threading
 from typing import Tuple
 
 import torch
@@ -96,15 +105,53 @@ def _build_quad_tables(value, shapes: Shapes):
     return tables
 
 
+_kept = threading.local()
+
+
+@contextlib.contextmanager
+def keeping_samples(outputs: list, replay: bool):
+    """Inside, `QuadSample`'s forward appends its output to `outputs`, or,
+    with replay, hands them back in order instead of launching K2: remat's
+    forward and recompute (`nn/box_transformer.py:remat`)."""
+    prev = getattr(_kept, "state", None)
+    _kept.state = (outputs, replay)
+    try:
+        yield
+    finally:
+        _kept.state = prev
+
+
+def _box_levels(tables, idx, w4, dtype):
+    """Box attention's per-tap levels: sum over the levels of K2(table,
+    idx, w4), in f32, cast to `dtype`. Returns (M, ch)."""
+    out = torch.zeros((idx[0].shape[1], tables[0].shape[1] // 4),
+                      dtype=torch.float32, device=tables[0].device)
+    for table, ix, w in zip(tables, idx, w4):
+        out = out + quad_sample_reduce_w4(table, ix, w)
+    return out.to(dtype)
+
+
+def _instance_level(table, idx, w4):
+    """One instance-attention level's taps, K2 with the P taps unsummed:
+    (P*M, ch) f32 in p-major order."""
+    p, m = idx.shape
+    return quad_sample_reduce_w4(table, idx.reshape(1, p * m),
+                                 w4.transpose(0, 1).reshape(1, 4, p * m))
+
+
 class QuadSample(torch.autograd.Function):
     """`sample(table, idx, w4)`: the corner combine of quad-table rows, the
     port of `_sample_taps_vjp` (`boxer_tpu/ops/box_attention.py:221`).
 
-    table (R, 4*ch), idx (P, M) int32, w4 (P, 4, M) f32. With per_tap=False
-    returns sum_p sum_c w4[p, c, m] * table[idx[p, m], c] -> (M, ch) f32 (box
-    attention); with per_tap=True the P taps are not summed -> (P*M, ch) f32
-    in p-major order (instance attention). The forward is K2; the backward
-    is one launch of K5 (g shared by the P taps) or K6 (g per tap) that
+    `apply(per_tap, dtype, table_0, idx_0, w4_0, table_1, ...)`, for each
+    level table (R, 4*ch), idx (P, M) int32, w4 (P, 4, M) f32. With
+    per_tap=False returns sum_levels sum_p sum_c w4[p, c, m] *
+    table[idx[p, m], c] -> (M, ch) in `dtype`, summed in f32 (box
+    attention); with per_tap=True, of one level, the P taps unsummed ->
+    (P*M, ch) f32 in p-major order (instance attention). Its output is the
+    sampling output that remat keeps (`keeping_samples`), as the JAX
+    package's `checkpoint_name`s. The forward is K2 a level; the backward is one
+    launch a level of K5 (g shared by the P taps) or K6 (g per tap) that
     returns d_table, cast to the table's dtype, and d_w4[p, c, m] =
     <table[idx[p, m], c], g[row]> (the JAX package computes d_w4 in XLA
     beside its scatter), each only when autograd asks for it. The same
@@ -114,27 +161,34 @@ class QuadSample(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, table, idx, w4, per_tap: bool):
-        ctx.save_for_backward(table, idx, w4)
+    def forward(ctx, per_tap: bool, dtype, *levels):
+        ctx.save_for_backward(*levels)
         ctx.per_tap = per_tap
-        if not per_tap:
-            return quad_sample_reduce_w4(table, idx, w4)
-        p, m = idx.shape
-        return quad_sample_reduce_w4(
-            table, idx.reshape(1, p * m),
-            w4.transpose(0, 1).reshape(1, 4, p * m))
+        outputs, replay = getattr(_kept, "state", None) or (None, False)
+        if replay:
+            return outputs.pop(0)
+        out = (_instance_level(*levels) if per_tap else _box_levels(
+            levels[0::3], levels[1::3], levels[2::3], dtype))
+        if outputs is not None:
+            outputs.append(out.detach())
+        return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
-        table, idx, w4 = ctx.saved_tensors
-        d_table, d_w4 = scatter_add_rows_weighted_dw4(
-            idx, g.float().contiguous(), w4, table, ctx.per_tap,
-            want_table=ctx.needs_input_grad[0],
-            want_dw4=ctx.needs_input_grad[2])
-        if d_table is not None:
-            d_table = d_table.to(table.dtype)
-        return d_table, None, d_w4, None
+        levels = ctx.saved_tensors
+        g = g.float().contiguous()
+        grads = [None, None]
+        for li in range(0, len(levels), 3):
+            table, idx, w4 = levels[li:li + 3]
+            d_table, d_w4 = scatter_add_rows_weighted_dw4(
+                idx, g, w4, table, ctx.per_tap,
+                want_table=ctx.needs_input_grad[2 + li],
+                want_dw4=ctx.needs_input_grad[4 + li])
+            if d_table is not None:
+                d_table = d_table.to(table.dtype)
+            grads += [d_table, None, d_w4]
+        return tuple(grads)
 
 
 class TakeRows(torch.autograd.Function):
@@ -265,6 +319,7 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     aw = _pmajor(attn_weight, bh, nl, npt, lq)
 
     out = torch.zeros((m, ch), dtype=torch.float32, device=value.device)
+    per_tap = []
     for li, (hl, wl) in enumerate(shapes):
         idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
         w_tap = torch.where(valid, aw[li], 0.0)
@@ -275,8 +330,9 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
             out = out + _folded_level(tables[li], idx, lx, ly, w_tap,
                                       value.dtype)
         else:
-            out = out + QuadSample.apply(tables[li], idx,
-                                         corner_weights(lx, ly, w_tap), False)
+            per_tap += [tables[li], idx, corner_weights(lx, ly, w_tap)]
+    if per_tap:
+        out = QuadSample.apply(False, value.dtype, *per_tap)
     out = out.to(value.dtype).reshape(b, nh, lq, ch)
     return out if raw else _merge_heads(out)
 
@@ -329,8 +385,8 @@ def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
         bw4 = corner_weights(lx, ly, valid.float()).reshape(npt, 4, m)
         idx = idx.reshape(npt, m)
         if train:
-            taps = QuadSample.apply(tables[li], idx, bw4, True).reshape(
-                npt, m, ch)
+            taps = QuadSample.apply(True, None, tables[li], idx,
+                                    bw4).reshape(npt, m, ch)
         else:
             g = tables[li][idx.reshape(-1).long()].float().reshape(
                 npt, m, 4, ch)

@@ -19,6 +19,13 @@ or a voxel batch (BoxeR-3D), as `apply_model` dispatches. On a CUDA card the for
 f32: the torch idiom for flax's `dtype=bf16` modules. The eval and
 inference steps run the model in `eval()` under `torch.no_grad()` and the
 same autocast.
+
+Dropout: each microbatch's forward gets a `DropoutKey` of (the step's
+`dropout_seed`, the update index, the microbatch, the rank, the world
+size) (`nn/dropout.py`), as JAX splits a key per update and per microbatch
+(`boxer_tpu/parallel/steps.py:112`). The update index is the caller's count
+of update calls, a skipped one included (`state.step` counts only the
+updates taken), so a resume or a rerun draws the same masks.
 """
 
 import contextlib
@@ -30,6 +37,7 @@ import torch
 
 from boxer_tpu_torch.criterion.losses import weighted_total
 from boxer_tpu_torch.criterion.metrics import Metric
+from boxer_tpu_torch.nn.dropout import DropoutKey
 from boxer_tpu_torch.optim import clip_by_global_norm, set_lr
 from boxer_tpu_torch.parallel import distributed
 
@@ -42,7 +50,8 @@ class TrainState:
     step: int = 0                  # completed updates
 
 
-def apply_model(model, batch, train: bool, inference: bool):
+def apply_model(model, batch, train: bool, inference: bool,
+                dropout_key: Optional[DropoutKey] = None):
     """The model on one (micro)batch of either family: image/mask (2D) or
     voxels/coordinates/num_points_per_voxel with the static grid_shape
     (nx, ny) and batch_size (3D)."""
@@ -50,9 +59,9 @@ def apply_model(model, batch, train: bool, inference: bool):
         return model(batch["voxels"], batch["coordinates"],
                      batch["num_points_per_voxel"], tuple(batch["grid_shape"]),
                      int(batch["batch_size"]), train=train,
-                     inference=inference)
+                     inference=inference, dropout_key=dropout_key)
     return model(batch["image"], batch.get("mask"), train=train,
-                 inference=inference)
+                 inference=inference, dropout_key=dropout_key)
 
 
 def microbatch(batch, a: int):
@@ -79,9 +88,11 @@ def _final(out):
 
 def make_train_step(criterion, max_norm: float = 0.0,
                     compute_dtype: torch.dtype = torch.float32,
-                    metrics=None, debug_grads: bool = False) -> Callable:
-    """Returns train_step(state, batch) -> (state, stats), updating `state`
-    in place.
+                    metrics=None, debug_grads: bool = False,
+                    dropout_seed: int = 0) -> Callable:
+    """Returns train_step(state, batch, update=None) -> (state, stats),
+    updating `state` in place; `update` (default `state.step`) is the
+    update index of the dropout key.
 
     batch = {"image": (A, B, H, W, 3), "mask": (A, B, H, W) or None,
              "targets": {labels (A,B,NT), boxes (A,B,NT,4), valid (A,B,NT)
@@ -102,8 +113,9 @@ def make_train_step(criterion, max_norm: float = 0.0,
     """
     weight_dict = criterion.expanded_weight_dict(num_aux=16, num_enc=2)
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch, update: Optional[int] = None):
         model = state.model
+        update = state.step if update is None else update
         params = [p for p in model.parameters() if p.requires_grad]
         targets = batch["targets"]
         grouped = distributed.is_dist_avail_and_initialized()
@@ -122,8 +134,11 @@ def make_train_step(criterion, max_norm: float = 0.0,
         loss_acc, stats_acc, parts = 0.0, {}, {}
         for a in range(targets["valid"].shape[0]):
             mb = microbatch(batch, a)
+            key = DropoutKey(dropout_seed, update, a, distributed.get_rank(),
+                             distributed.get_world_size())
             with _autocast(compute_dtype, targets["valid"].device):
-                out = apply_model(model, mb, train=True, inference=False)
+                out = apply_model(model, mb, train=True, inference=False,
+                                  dropout_key=key)
             losses = criterion(out, mb["targets"], num_boxes=num_boxes)
             total, stats = weighted_total(losses, weight_dict)
             if metrics and "_query_idx" in losses:

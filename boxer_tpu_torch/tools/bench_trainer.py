@@ -50,9 +50,9 @@ def main(updates=12):
         ends, step_ms = [], []
         train_step = trainer._train_step
 
-        def step(state, batch):
+        def step(state, batch, **kw):
             t0 = time.perf_counter()
-            out = train_step(state, batch)
+            out = train_step(state, batch, **kw)
             ends.append(time.perf_counter())
             step_ms.append((ends[-1] - t0) * 1e3)
             return out

@@ -26,8 +26,8 @@ split over the processes:
 - under torchrun (its environment set: `torchrun --nproc-per-node 8 -m
   boxer_tpu_torch.tools.run ...`, across nodes with `--nnodes` and a
   rendezvous) each process joins torchrun's group and trains as its rank.
-The model `detr` and the `mp`/`sp` axes raise NotImplementedError, naming
-their ROADMAP item.
+`--model detr` trains DETR from `config/COCO-Detection/detr_r50.yaml`.
+The `mp`/`sp` axes raise NotImplementedError, naming their ROADMAP item.
 """
 
 import argparse
@@ -42,8 +42,8 @@ def get_parser():
     parser.add_argument("--task", type=str, default="detection",
                         help="detection (COCO) or detection3d (Waymo)")
     parser.add_argument("--model", type=str, default="boxer2d",
-                        help="boxer2d (with detection) or boxer3d (with "
-                        "detection3d)")
+                        help="boxer2d or detr (with detection), boxer3d "
+                        "(with detection3d)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="cuda (the default) or cpu; never a fallback")
     parser.add_argument("opts", nargs=argparse.REMAINDER,

@@ -65,12 +65,8 @@ def resolve_device(device: str) -> torch.device:
 
 
 def check_ported(config):
-    """Raise on a model the port does not run yet, naming its ROADMAP item,
-    and on a parallel layout this run's processes cannot hold
+    """Raise on a parallel layout this run's processes cannot hold
     (`parallel/mesh.py:resolve_dp`)."""
-    if config.get("model") == "detr":
-        raise NotImplementedError(
-            "model detr is not ported: ROADMAP queue 1, item 10 (DETR)")
     dist = config.get("distributed", {}) or {}
     resolve_dp(distributed.get_world_size(), dist.get("dp"),
                dist.get("mp", 1), dist.get("sp", 1))
@@ -169,7 +165,9 @@ class BaseTrainer:
         if distributed.is_dist_avail_and_initialized():
             for t in model.state_dict().values():
                 distributed.broadcast(t)
-        self.criterion = build_loss(model_cfg["loss"], self.num_classes)
+        self.criterion = build_loss(
+            model_cfg["loss"], self.num_classes,
+            int(rc.get("iter_per_update", 1)))
 
         opt_cfg = self.config.get("optimizer", {}).to_dict()
         opt_cfg.setdefault("params", {})
@@ -195,7 +193,10 @@ class BaseTrainer:
         self._train_step = make_train_step(
             self.criterion, max_norm=float(rc.get("max_norm", 0) or 0),
             compute_dtype=self.compute_dtype,
-            metrics=build_metrics(model_cfg.get("metric")))
+            metrics=build_metrics(model_cfg.get("metric")),
+            # the dropout key's seed, as JAX's PRNGKey(seed + 7)
+            # (`boxer_tpu/trainer/base_trainer.py:285`)
+            dropout_seed=self.seed + 7)
         # the engine reads only the outputs of a val batch, so the eval step
         # computes no losses
         self._eval_step = make_eval_step(self.compute_dtype)

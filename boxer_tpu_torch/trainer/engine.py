@@ -47,7 +47,11 @@ def train_epoch(trainer):
         batch.pop("meta", None)
         if profile_dir and trainer.current_update == 5 and profiler is None:
             profiler = _start_profiler(trainer.device)
-        trainer.state, stats = trainer._train_step(trainer.state, batch)
+        # the dropout key's update index: every update call counted, a
+        # skipped one too, from the position a checkpoint records
+        trainer.state, stats = trainer._train_step(
+            trainer.state, batch,
+            update=trainer.current_epoch * len(loader) + batch_idx)
         trainer.epoch_batches_done = batch_idx + 1
         if profiler is not None and trainer.current_update == 8:
             _stop_profiler(profiler, trainer.device, profile_dir)

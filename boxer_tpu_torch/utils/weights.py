@@ -1,5 +1,5 @@
-"""Weight bridge from the JAX package's BoxeR-2D and BoxeR-3D variables to
-the port.
+"""Weight bridge from the JAX package's BoxeR-2D, BoxeR-3D and DETR variables
+to the port.
 
 `load_jax_params(model, variables_np)` takes the JAX model's
 `{"params", "constants"}` as nested dicts of numpy arrays and fills the
@@ -15,7 +15,15 @@ No jax is needed. Layout rules:
 - 3D backbone: `reader/pfn{i}` -> `reader.pfn_layers.{i}`,
   `neck/stage{i}_conv{j}` / `stage{i}_norm{j}` -> `neck.blocks.{i}.{3j}` /
   `.{3j+1}`;
-- `self_attn.{query,key,value}` -> the fused `self_attn.in_proj_weight/bias`;
+- dense attention (`self_attn`, DETR's `cross_attn` -> `multihead_attn`):
+  `{query,key,value}` -> the fused `in_proj_weight/bias`, `out` ->
+  `out_proj`, from the JAX `PallasMultiHeadAttention`'s (C, C) Dense
+  kernels or flax `MultiHeadDotProductAttention`'s (C, H, D) kernels, (H, D)
+  biases and (H, D, C) `out` kernel (a BoxeR decoder at dropout > 0 has
+  the latter);
+- DETR: `input_proj` (one conv), `query_embed` -> `query_embed.weight`,
+  `class_embed`, `bbox_embed`, `transformer/{encoder,decoder}_norm` ->
+  `transformer.{encoder,decoder}.norm`;
 - LayerNorm / GroupNorm `scale` -> `weight`.
 """
 
@@ -103,13 +111,18 @@ def _backbone3d(path, arr):
     return f"backbone.neck.blocks.{i}.{k}.{name}", arr
 
 
-def _encoder_leaf(rest, arr):
-    """Encoder layer sub-path -> (torch suffix, array)."""
-    if rest[0] == "self_attn":
-        key, a = _attn(rest[1:], arr)
-        return "self_attn." + key, a
-    name, a = _leaf(rest[1], arr)
-    return f"{rest[0]}.{name}", a
+def _dense_attn_leaf(mod: str, leaf: str, arr):
+    """A dense attention's `query`/`key`/`value`/`out` leaf, as a (C, C)
+    Dense or flax's DenseGeneral ((C, H, D) or (H, D, C) kernel, (H, D)
+    bias) -> (torch leaf name, array)."""
+    if leaf == "kernel":
+        arr = (arr.reshape(-1, arr.shape[-1]) if mod == "out"
+               else arr.reshape(arr.shape[0], -1))
+        return "weight", arr.T
+    return leaf, arr.reshape(-1)
+
+
+_ATTN_NAMES = {"self_attn": "self_attn", "cross_attn": "multihead_attn"}
 
 
 def jax_to_torch_state(variables_np) -> Tuple[Dict[str, np.ndarray],
@@ -124,6 +137,24 @@ def jax_to_torch_state(variables_np) -> Tuple[Dict[str, np.ndarray],
     def put(key, arr, jax_name):
         out[key] = np.ascontiguousarray(arr)
         src.setdefault(key, []).append(jax_name)
+
+    def put_layer(pre, rest, arr, jax_name):
+        """A transformer layer's sub-path under the torch prefix `pre`."""
+        if rest[0] in _ATTN_NAMES and rest[1] in ("query", "key", "value",
+                                                  "out"):
+            name, a = _dense_attn_leaf(rest[1], rest[2], arr)
+            mod = pre + _ATTN_NAMES[rest[0]]
+            if rest[1] == "out":
+                put(f"{mod}.out_proj.{name}", a, jax_name)
+            else:
+                qkv.setdefault(f"{mod}.in_proj_{name}", {})[rest[1]] = (
+                    a, jax_name)
+        elif rest[0] in _ATTN_NAMES:               # box / instance attention
+            key, a = _attn(rest[1:], arr)
+            put(pre + f"{_ATTN_NAMES[rest[0]]}.{key}", a, jax_name)
+        else:
+            name, a = _leaf(rest[1], arr)
+            put(pre + f"{rest[0]}.{name}", a, jax_name)
 
     for coll in ("params", "constants"):
         tree = variables_np.get(coll, {})
@@ -140,6 +171,13 @@ def jax_to_torch_state(variables_np) -> Tuple[Dict[str, np.ndarray],
                 put(*_backbone3d(path[1:], arr), jax_name)
             elif head == "backbone":
                 put(*_trunk(path[2:], arr), jax_name)
+            elif head == "input_proj":                  # DETR's one conv
+                name, a = _leaf(path[1], arr)
+                put(f"input_proj.{name}", a, jax_name)
+            elif head == "query_embed":
+                put("query_embed.weight", arr, jax_name)
+            elif head in ("class_embed", "bbox_embed"):  # DETR's heads
+                put(*_detector(path, arr, 0), jax_name)
             elif head.startswith("input_proj"):
                 i, kind = re.fullmatch(r"input_proj(\d+)_(conv|gn)", head).groups()
                 name, a = _leaf(path[1], arr)
@@ -158,32 +196,19 @@ def jax_to_torch_state(variables_np) -> Tuple[Dict[str, np.ndarray],
                 name, a = _leaf(path[2], arr)
                 idx = 0 if path[1] == "enc_linear" else 1
                 put(f"transformer.encoder.enc_linear.{idx}.{name}", a, jax_name)
+            elif path[1] in ("encoder_norm", "decoder_norm"):   # DETR
+                name, a = _leaf(path[2], arr)
+                put(f"transformer.{path[1][:7]}.norm.{name}", a, jax_name)
             elif path[1] == "encoder_layers":
                 for i in range(arr.shape[0]):
-                    key, a = _encoder_leaf(path[2:], arr[i])
-                    put(f"transformer.encoder.layers.{i}.{key}", a, jax_name)
-            elif path[1].startswith("encoder_layer"):
-                i = path[1][len("encoder_layer"):]
-                key, a = _encoder_leaf(path[2:], arr)
-                put(f"transformer.encoder.layers.{i}.{key}", a, jax_name)
+                    put_layer(f"transformer.encoder.layers.{i}.", path[2:],
+                              arr[i], jax_name)
+            elif re.fullmatch(r"(encoder|decoder)_layer\d+", path[1]):
+                kind, i = path[1].split("_layer")
+                put_layer(f"transformer.{kind}.layers.{i}.", path[2:], arr,
+                          jax_name)
             else:
-                i = re.fullmatch(r"decoder_layer(\d+)", path[1]).group(1)
-                pre = f"transformer.decoder.layers.{i}."
-                rest = path[2:]
-                if rest[0] == "self_attn" and rest[1] in ("query", "key",
-                                                          "value"):
-                    name, a = _leaf(rest[2], arr)
-                    qkv.setdefault(pre + "self_attn.in_proj_" + name,
-                                   {})[rest[1]] = (a, jax_name)
-                elif rest[0] == "self_attn":            # "out"
-                    name, a = _leaf(rest[2], arr)
-                    put(pre + f"self_attn.out_proj.{name}", a, jax_name)
-                elif rest[0] == "cross_attn":
-                    key, a = _attn(rest[1:], arr)
-                    put(pre + "multihead_attn." + key, a, jax_name)
-                else:
-                    name, a = _leaf(rest[1], arr)
-                    put(pre + f"{rest[0]}.{name}", a, jax_name)
+                src.setdefault(f"unmapped.{jax_name}", []).append(jax_name)
     for key, parts in qkv.items():
         if set(parts) != {"query", "key", "value"}:
             for a, jax_name in parts.values():

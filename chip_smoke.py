@@ -43,8 +43,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    forward under bf16 autocast, on a synthetic batch of 1 at 800x1216 with
    20 targets; 1 warm-up step and 5 timed on the host clock up to a
    synchronize; ms/step, peak memory, the loss terms of the first and last
-   step, the kernels' launches per step (which must match every call site),
-   then one more segm step under torch.profiler; (7c) the detection step
+   step, the kernels' launches per step (which must match every call site;
+   the segm step's remat runs the decoder's K3 again, no K2), then one more
+   segm step under torch.profiler; (7c) the detection step
    folded (`FOLD_TAP_THRESHOLD = 0`: every level through `TakeRows`, K7b in
    the backward), with the same checks, a loss that falls after a step of
    norm 1e-3 against its gradient from the initial weights, and a
@@ -132,7 +133,25 @@ Run from the root of a checkout:  python3 chip_smoke.py
    world 2: the ranks' GT-database draws differ, val and test
    results.pkl hold every frame once (3 frames, one padded), a resume
    restores each rank's cursors. Launches per rank and update as phases
-   10 and 11 count them (one microbatch).
+   10 and 11 count them (one microbatch);
+13. dropout, remat and DETR: (13a) phase 7's segm step at dropout 0.1 with
+   remat on and off from the same weights under one dropout key, in bf16
+   autocast and in f32 (loss terms bitwise equal; the f32 gradients'
+   worst leaf within 1e-4, the bf16 ones within 0.1 beside two eager
+   runs' own spread; launches K2 48, K5 24, K6 24 both ways: the sampling
+   output is saved, not relaunched; every mask drawn from a CUDA
+   generator; non-zero sampling-projection gradients); (13b) the shipped segm config through the trainer at the
+   recipe's per-card microbatch of 4 on the 1344x1344 canvas, 3 updates
+   with remat on and 3 with it off, ms per update and peak memory of each;
+   (13c) the shipped COCO-Detection/detr_r50 config through the trainer at
+   full width (R50, 6+6 layers, FFN 2048, 100 queries, dropout 0.1, AdamW
+   with lr_backbone, max_norm 0.1, bf16 autocast) on phase 10's synthetic
+   COCO directory, cut to batch 2 and 4 updates with a checkpoint at 2:
+   finite losses at the schedule's LR, every transformer layer's gradient
+   non-zero, val AP in [0, 1], a resume from update 2 replaying updates 3-4
+   bitwise, ms per update, peak memory, one inference forward's device
+   time; (13d) DETR inference card against CPU at 256x384 in f32 (max abs
+   1e-3).
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
 of their own, and one JSON line of per-kernel results (one row per kernel
@@ -239,6 +258,23 @@ DP_3D_CUTS = ["training.seed=3", "training.batch_size=2",
     for s in ("val", "test")]
 # 3 val frames: the sampler pads them to 4 over 2 ranks
 WAYMO_DP_FRAMES = {"train": 4, "val": 3}
+# phase 13: dropout, remat and DETR. 13a phase 7's segm step at DROPOUT;
+# 13b the shipped segm config at the recipe's per-card microbatch (a global
+# 32 over 8 cards: 4 images in one microbatch), 3 updates with remat on and
+# off; 13c the shipped DETR config cut only to batch 2 and 4 updates (a
+# checkpoint at 2, resumed to replay 3-4), on phase 10's synthetic COCO
+# directory; 13d DETR inference card against CPU at E2E_CANVAS in f32
+DROPOUT = 0.1
+REMAT_CUTS = ["training.seed=3", "training.batch_size=4",
+              "training.iter_per_update=1", "training.max_update=3",
+              "training.checkpoint_interval=1000", "training.log_interval=1",
+              "training.run_type=train"]
+DETR_CONFIG = "boxer_tpu_torch/config/COCO-Detection/detr_r50.yaml"
+DETR_CUTS = ["training.seed=3", "training.batch_size=2",
+             "training.max_update=4", "training.checkpoint_interval=2",
+             "training.num_checkpoint=2", "training.log_interval=1",
+             "training.evaluation_interval=1000", "training.num_workers=2",
+             "training.run_type=train_val"]
 
 
 def per_run(**counts):
@@ -257,9 +293,11 @@ INFER_LAUNCHES = {("pmajor", True): per_run(K1=24, K2=20, K3=6),
 # launches per train step at every call site: K2 is the forward of every
 # sampling level (6 encoder + 6 decoder layers x 4 levels), K5 the backward
 # of each box-attention level, K6 of each instance-attention level, K3 the 6
-# decoder self-attentions (its backward is plain autograd); folded, every
+# decoder self-attentions (its backward is plain autograd), and under remat
+# (on by default) 6 more in a segm step, the decoder layers' recompute; the
+# sampling outputs are saved, so the recompute launches no K2; folded, every
 # box-attention level gathers with `TakeRows` and scatters with K7b
-TRAIN_LAUNCHES = {True: per_run(K2=48, K3=6, K5=24, K6=24),
+TRAIN_LAUNCHES = {True: per_run(K2=48, K3=12, K5=24, K6=24),
                   False: per_run(K2=48, K3=6, K5=48)}
 FOLDED_TRAIN_LAUNCHES = per_run(K3=6, K7b=48)
 # BoxeR-3D: every sampling level runs per tap (P = 4, `QuadSample`) at
@@ -525,13 +563,14 @@ def box_attention_grads(dev):
         raise AssertionError("box_attention's gradients through K7b disagree")
 
 
-def build_model(use_mask, seed=0, noise_seed=None):
+def build_model(use_mask, seed=0, noise_seed=None, dropout=0.0):
     """BoxeR2D at the bench width with seeded weights; with noise_seed the
     zero-initialised heads get a little seeded noise so sampling offsets,
     attention weights and logits spread."""
     from boxer_tpu_torch.models.boxer2d import BoxeR2D
 
-    model = BoxeR2D(**BENCH, use_mask=use_mask).init_weights(seed).eval()
+    model = BoxeR2D(**BENCH, use_mask=use_mask, dropout=dropout).init_weights(
+        seed).eval()
     if noise_seed is not None:
         rs = np.random.RandomState(noise_seed)
         with torch.no_grad():
@@ -1709,7 +1748,7 @@ def record_steps(trainer, log_update, syncs=None):
     launched = lambda: {k: f.launches for k, f in counters().items()}
     train_step = rec["step"]
 
-    def step(state, batch):
+    def step(state, batch, **kw):
         t0 = time.perf_counter()
         wait = (t0 - rec["end"]) * 1e3 if "end" in rec else None
         if rec["first"] is None:
@@ -1718,7 +1757,7 @@ def record_steps(trainer, log_update, syncs=None):
         before, step_before = launched(), state.step
         synced = syncs["syncs"] if syncs else 0
         t0 = time.perf_counter()
-        state, stats = train_step(state, batch)
+        state, stats = train_step(state, batch, **kw)
         torch.cuda.synchronize()
         rec["end"] = time.perf_counter()
         ms = (rec["end"] - t0) * 1e3
@@ -2731,6 +2770,350 @@ def run_data_parallel(dev, smi, phase10_ms):
                       nccl_err=nccl_err, noise=noise, bitwise=bitwise)
 
 
+@contextlib.contextmanager
+def saved_sample_bytes():
+    """Tally the bytes of the sampling outputs that remat keeps from its
+    forwards for their recomputes (by dtype: bf16 box-attention level sums,
+    f32 instance-attention taps under autocast)."""
+    from boxer_tpu_torch.ops import box_attention as ba
+
+    keeping = ba.keeping_samples
+    tally = {}
+
+    @contextlib.contextmanager
+    def counting(outputs, replay):
+        with keeping(outputs, replay):
+            yield
+        if not replay:
+            for t in outputs:
+                key = str(t.dtype).replace("torch.", "")
+                tally[key] = tally.get(key, 0) + t.numel() * t.element_size()
+
+    ba.keeping_samples = counting
+    try:
+        yield tally
+    finally:
+        ba.keeping_samples = keeping
+
+
+def remat_dropout_step(dev, smi):
+    """Phase 13a: phase 7's full-width segm step (batch 1 at CANVAS) at
+    dropout DROPOUT from the same seeded weights under one dropout key:
+    under bf16 autocast once without remat, once with it and once more
+    without (the eager step's own run-to-run spread), then in f32 with and
+    without remat. The loss terms of each dtype bitwise equal; the f32
+    pre-clip gradients, remat against eager, within a worst-leaf rel err of
+    1e-4 (the recompute replays the forward bitwise; K5/K6's f32 atomics
+    add in another order); the bf16 ones within phase 8's 0.1, beside the
+    two eager runs' own spread (a reordered f32 sum that rounds to another
+    bf16 value moves every leaf upstream of it); every sampling
+    projection's gradient non-zero; the same launches with and without
+    remat (K2 48, K5 24, K6 24; no K3: the decoder's self-attention draws
+    dropout, so it runs the plain math); every mask drawn from a CUDA
+    generator. Returns ({run: launch counts}, results)."""
+    from boxer_tpu_torch.nn import dropout
+
+    label = f"segm train R50 {CANVAS}, dropout {DROPOUT}"
+    batch = train_batch(CANVAS, True, dev)
+    generator = dropout.DropoutKey.generator
+    draws = []
+
+    def recording(key, site, device):
+        g = generator(key, site, device)
+        draws.append(g.device.type)
+        return g
+
+    cases = (("eager bf16", False, torch.bfloat16),
+             ("remat bf16", True, torch.bfloat16),
+             ("eager bf16 again", False, torch.bfloat16),
+             ("remat f32", True, torch.float32),
+             ("eager f32", False, torch.float32))
+    runs, res = {}, {}
+    dropout.DropoutKey.generator = recording
+    try:
+        for name, remat, dtype in cases:
+            model = build_model(True, dropout=DROPOUT).to(dev).train()
+            model.transformer.remat = remat
+            _, state, step = train_setup(model, True, dtype,
+                                         debug_grads=True)
+            draws.clear()
+            torch.cuda.reset_peak_memory_stats(dev)
+            for f in counters().values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            with saved_sample_bytes() as saved:
+                _, stats = step(state, batch, update=0)
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[name] = {k: f.launches for k, f in counters().items()}
+            check_grads(stats["_grads"], f"{label}, {name}")
+            res[name] = dict(stats=stats, ms=ms, draws=list(draws),
+                             peak=torch.cuda.max_memory_allocated(dev)
+                             / 2 ** 30)
+            log(f"{label}, {name} [{smi}]: {ms:.2f} ms, peak "
+                f"{res[name]['peak']:.2f} GiB, {len(draws)} masks drawn, "
+                f"total loss {stats['total_loss']!r}, launches {runs[name]}, "
+                f"sampling outputs kept by remat {saved} bytes")
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        dropout.DropoutKey.generator = generator
+
+    def same_losses(a, b):
+        keys = [k for k in res[b]["stats"] if k.startswith("loss_")]
+        return len(keys) > 20 and all(
+            res[a]["stats"][k] == res[b]["stats"][k]
+            for k in keys + ["total_loss"])
+
+    errs = {pair: leaf_errs(res[pair[0]]["stats"], res[pair[1]]["stats"])
+            for pair in (("remat bf16", "eager bf16"),
+                         ("eager bf16 again", "eager bf16"),
+                         ("remat f32", "eager f32"))}
+    for (a, b), (worst, leaf, median) in errs.items():
+        log(f"  {a} against {b}: gradients' worst leaf {worst:.3e} ({leaf}),"
+            f" median {median:.3e}; loss terms bitwise {same_losses(a, b)}")
+    want = per_run(K2=48, K5=24, K6=24)
+    drawn = [d for r in res.values() for d in r["draws"]]
+    ok = (same_losses("remat bf16", "eager bf16")
+          and same_losses("eager bf16 again", "eager bf16")
+          and same_losses("remat f32", "eager f32")
+          and errs[("remat f32", "eager f32")][0] <= 1e-4
+          and errs[("remat bf16", "eager bf16")][0] <= 0.1
+          and all(r == want for r in runs.values())
+          and set(drawn) == {"cuda"}
+          and len(res["remat bf16"]["draws"]) > len(
+              res["eager bf16"]["draws"]) > 0)
+    if not ok:
+        raise AssertionError(f"{label}: remat against eager failed")
+    eager, remat = res["eager bf16"], res["remat bf16"]
+    return ({f"dropout step, {k}": v for k, v in runs.items()},
+            dict(on_ms=remat["ms"], off_ms=eager["ms"],
+                 on_peak=remat["peak"], off_peak=eager["peak"],
+                 worst=errs[("remat bf16", "eager bf16")][0],
+                 spread=errs[("eager bf16 again", "eager bf16")][0],
+                 worst_f32=errs[("remat f32", "eager f32")][0]))
+
+
+def remat_memory(dev, smi):
+    """Phase 13b: the shipped segm config through the trainer at the
+    recipe's per-card microbatch of 4 on the 1344x1344 canvas, 3 updates
+    with remat on, then 3 with it off (a new trainer from the same seed),
+    in this one process: each update finite, not skipped, with phase 7's
+    segm launches (K3 6 fewer without remat); ms per update and peak
+    memory of each. Returns ({remat: launch counts}, results)."""
+    import tempfile
+
+    runs, res = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_coco(root)
+        for remat in (True, False):
+            label = (f"trainer, segm R50 1344x1344 bf16 autocast, "
+                     f"microbatch 4, remat {'on' if remat else 'off'}")
+            trainer = trainer_on_card(root, REMAT_CUTS + [
+                f"training.save_dir={root}/save_{remat}"])
+            trainer.state.model.transformer.remat = remat
+            rec = record_steps(trainer, lambda i, u: log(
+                f"  update {i}: {u['ms']:.2f} ms, total_loss "
+                f"{u['stats']['total_loss']:.5g}, launches {u['launches']}"))
+            torch.cuda.reset_peak_memory_stats(dev)
+            for f in counters().values():
+                f.launches = 0
+            with saved_sample_bytes() as saved:
+                trainer.train()
+                torch.cuda.synchronize()
+            runs[remat] = {k: f.launches for k, f in counters().items()}
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            updates = rec["updates"]
+            want = dict(TRAIN_LAUNCHES[True], K3=12 if remat else 6)
+            if len(updates) != 3 or any(
+                    u["stats"]["skipped"] != 0.0
+                    or not np.isfinite(u["stats"]["total_loss"])
+                    or u["launches"] != want for u in updates):
+                raise AssertionError(f"{label}: {updates}")
+            times = [u["ms"] for u in updates]
+            res[remat] = dict(ms=float(np.median(times[1:])), times=times,
+                              peak=peak)
+            log(f"{label} [{smi}]: ms per update "
+                f"{', '.join(f'{t:.2f}' for t in times)} (median of updates "
+                f"2-3 {res[remat]['ms']:.2f}); peak {peak:.2f} GiB; sampling "
+                f"outputs kept by remat an update "
+                f"{ {k: v // 3 for k, v in saved.items()} } bytes")
+            del trainer, rec
+            torch.cuda.empty_cache()
+    return runs, res
+
+
+def detr_on_card(root, opts):
+    """The port's trainer on the card from the shipped DETR config, the
+    synthetic COCO under root (train and val, as the config has them) and
+    the dotlist `opts`, loaded."""
+    from boxer_tpu_torch.trainer import build_trainer
+    from boxer_tpu_torch.utils.config import Configuration
+
+    data = [f"dataset_config.detection.imdb_files.{split}.{key}="
+            f"{root}/{name}"
+            for split in ("train", "val")
+            for key, name in (("anno_file", f"{split}.json"),
+                              ("image_folder", "images"))]
+    configuration = Configuration(
+        str(ROOT / DETR_CONFIG), opts=data + opts,
+        extra={"task": "detection", "model": "detr"}, device="cuda")
+    trainer = build_trainer(configuration, device="cuda")
+    trainer.load()
+    return trainer
+
+
+def run_detr(dev, smi):
+    """Phase 13c: the shipped DETR R50 config through the trainer on the
+    card at full width (R50 C5, hidden 256, 8 heads, 6+6 layers, FFN 2048,
+    100 queries, dropout 0.1, AdamW with lr_backbone, max_norm 0.1, bf16
+    autocast, the 1344x1344 canvas and the config's processors), cut only
+    to batch 2 and 4 updates (DETR_CUTS), on phase 10's synthetic COCO:
+    every update finite and not skipped at the schedule's LR, every
+    transformer layer's gradient non-zero, val AP in [0, 1]; a trainer
+    resumed from update 2's checkpoint replays updates 3-4 bitwise (model
+    and optimizer state; cuDNN held to its deterministic algorithms in
+    both runs); ms per update (median of updates 2-4), peak memory and one
+    inference forward's device time. Returns (launch counts, results)."""
+    import shutil
+    import tempfile
+
+    label = "trainer, DETR R50 1344x1344 bf16 autocast, dropout 0.1"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            write_coco(root)
+            log(f"{label} [{smi}]: {DETR_CONFIG} with {' '.join(DETR_CUTS)}")
+            trainer = detr_on_card(root, DETR_CUTS + [
+                f"training.save_dir={root}/save"])
+            rec = record_steps(trainer, lambda i, u: log(
+                f"  update {i}: {u['ms']:.2f} ms, total_loss "
+                f"{u['stats']['total_loss']:.5g}, loss_ce "
+                f"{u['stats']['loss_ce']:.5g}, grad_norm "
+                f"{u['stats']['grad_norm']:.5g}, skipped "
+                f"{u['stats']['skipped']:g}"))
+            evals = {}
+            evaluate = trainer.evaluate
+            trainer.evaluate = lambda split: evals.setdefault(
+                split, evaluate(split))
+            torch.cuda.reset_peak_memory_stats(dev)
+            for f in counters().values():
+                f.launches = 0
+            trainer.train()
+            torch.cuda.synchronize()
+            counts = {k: f.launches for k, f in counters().items()}
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            updates = rec["updates"]
+            for i, u in enumerate(updates):
+                st = u["stats"]
+                if st["skipped"] != 0.0 or not all(
+                        np.isfinite(v) for v in st.values()) or any(
+                        lr != want for lr, want in u["lrs"].values()):
+                    raise AssertionError(f"{label}: update {i + 1}: {u}")
+            model = trainer.state.model
+            layers = {f"{kind}.{i}": layer for kind in ("encoder", "decoder")
+                      for i, layer in enumerate(
+                          getattr(model.transformer, kind).layers)}
+            zero = [n for n, layer in layers.items() if not all(
+                p.grad is not None and bool(p.grad.abs().max() > 0)
+                for p in layer.parameters())]
+            ap = [float(x) for x in evals["val"]["coco_eval_bbox"]]
+            if len(updates) != 4 or trainer.state.step != 4 or zero or len(
+                    layers) != 12 or not 0.0 <= ap[0] <= 1.0:
+                raise AssertionError(f"{label}: {len(updates)} updates, "
+                                     f"zero-gradient layers {zero}, AP {ap}")
+            times = [u["ms"] for u in updates]
+            median = float(np.median(times[1:]))
+            final = {k: v.detach().cpu().clone()
+                     for k, v in model.state_dict().items()}
+            opt = trainer.state.optimizer.state_dict()["state"]
+            batch = rec["first"][0]
+            mb = {k: v[0] for k, v in batch.items() if k in ("image", "mask")}
+
+            def forward():
+                with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+                    return model(mb["image"], mb["mask"], inference=True)
+
+            model.eval()
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            busy = profile(forward, (time.perf_counter() - t0) * 1e3,
+                           "DETR R50 inference forward, a batch of 2")
+            log(f"{label} [{smi}]: ms per update "
+                f"{', '.join(f'{t:.2f}' for t in times)} (median of updates "
+                f"2-4 {median:.2f}); peak {peak:.2f} GiB; val AP bbox "
+                f"{ap[0]:.4g}; every one of the 12 transformer layers has a "
+                f"non-zero gradient; launches {counts}")
+            del trainer, rec, batch, mb, model
+            torch.cuda.empty_cache()
+
+            cut = root / "resume" / "checkpoints"
+            cut.mkdir(parents=True)
+            shutil.copy(root / "save" / "checkpoints" / "model_2.pth", cut)
+            resumed = detr_on_card(root, DETR_CUTS + [
+                f"training.save_dir={root}/resume", "training.resume=true",
+                "training.run_type=train"])
+            position = resumed.current_update
+            resumed.train()
+            torch.cuda.synchronize()
+            model_ok = all(torch.equal(v.cpu(), final[k]) for k, v in
+                           resumed.state.model.state_dict().items())
+            ropt = resumed.state.optimizer.state_dict()["state"]
+            opt_ok = sorted(ropt) == sorted(opt) and all(
+                torch.equal(v.cpu(), opt[i][k].cpu())
+                for i, st in ropt.items() for k, v in st.items())
+            log(f"  resumed at update {position}, took updates 3-4: model "
+                f"bitwise {model_ok}, optimizer state bitwise {opt_ok}")
+            if not (position == 2 and resumed.state.step == 4 and model_ok
+                    and opt_ok):
+                raise AssertionError(f"{label}: the resume did not replay "
+                                     "updates 3-4 bitwise")
+            del resumed
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return counts, dict(ms=median, times=times, peak=peak, busy=busy, ap=ap)
+
+
+def detr_card_vs_cpu(dev):
+    """Phase 13d: DETR R50 at full width with seeded weights, inference at
+    E2E_CANVAS in f32 (no TF32) on the card against the CPU: pred_logits
+    and pred_boxes within max abs 1e-3."""
+    from boxer_tpu_torch.models.detr import DETR
+
+    model = DETR(num_classes=80).init_weights(0).eval()
+    image, mask = make_image(E2E_CANVAS, seed=5)
+    mask[:, :, E2E_CANVAS[1] * 3 // 4:] = True
+    with torch.no_grad():
+        want = model(image, mask)
+        model.to(dev)
+        got = model(image.to(dev), mask.to(dev))
+    errs = {k: float((got[k].cpu() - want[k]).abs().max())
+            for k in ("pred_logits", "pred_boxes")}
+    log(f"DETR R50 inference at {E2E_CANVAS} f32, card against CPU: max abs "
+        f"{errs}")
+    if not all(v <= 1e-3 for v in errs.values()):
+        raise AssertionError(f"DETR card against CPU: {errs}")
+    del model
+    torch.cuda.empty_cache()
+    return errs
+
+
+def run_phase13(dev, smi):
+    """Phase 13 (13a-13d). Returns ({label: launch counts}, results)."""
+    runs, step = remat_dropout_step(dev, smi)
+    memory_runs, memory = remat_memory(dev, smi)
+    runs.update({f"remat trainer, remat {k}": v
+                 for k, v in memory_runs.items()})
+    runs["detr trainer"], detr = run_detr(dev, smi)
+    detr["card_vs_cpu"] = detr_card_vs_cpu(dev)
+    return runs, dict(step=step, memory=memory, detr=detr)
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -2836,6 +3219,13 @@ def main():
     runs.update(dp_runs)
     log(f"phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    # 13. dropout and remat on the segm step and trainer; DETR through the
+    # trainer from its shipped config, and card against CPU
+    t13 = time.perf_counter()
+    p13_runs, p13 = run_phase13(dev, smi)
+    runs.update(p13_runs)
+    log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
+
     # K7a has no caller in the package: its launches are those of its
     # op-level run in phase 3c; the T rows' those of the shootout
     qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
@@ -2925,6 +3315,19 @@ def main():
         f"per update {', '.join(f'{t:.2f}' for t in dp['nccl_ms'])}, "
         f"{nccl} from the no-group run (two no-group runs "
         f"{dp['noise']:.3e})")
+    mem, detr = p13["memory"], p13["detr"]
+    st = p13["step"]
+    log(f"dropout, remat, DETR [{smi}]: segm step at dropout {DROPOUT} "
+        f"remat on {st['on_ms']:.2f} ms, peak {st['on_peak']:.2f} GiB / off "
+        f"{st['off_ms']:.2f} ms, peak {st['off_peak']:.2f} GiB (worst leaf "
+        f"bf16 {st['worst']:.3e}, eager's own spread {st['spread']:.3e}, "
+        f"f32 {st['worst_f32']:.3e}); segm trainer at microbatch 4 remat on "
+        f"{mem[True]['ms']:.2f} ms per update, peak {mem[True]['peak']:.2f} "
+        f"GiB, off {mem[False]['ms']:.2f} ms, peak {mem[False]['peak']:.2f} "
+        f"GiB; DETR R50 {detr['ms']:.2f} ms per update of 2 images, peak "
+        f"{detr['peak']:.2f} GiB, an inference forward's device busy "
+        f"{detr['busy'][0]:.2f} ms, val AP {detr['ap'][0]:.4g}, card vs CPU "
+        f"{detr['card_vs_cpu']}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

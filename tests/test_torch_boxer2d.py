@@ -209,10 +209,13 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     assert "boxer_tpu_torch.models.boxer2d" in res.stdout
     assert "boxer_tpu_torch.models.boxer3d" in res.stdout
+    assert "boxer_tpu_torch.models.detr" in res.stdout
     assert "boxer_tpu_torch.ops._build" in res.stdout
     assert "boxer_tpu_torch.tools.bench_combine" in res.stdout
     for name in ("trainer.base_trainer", "trainer.engine", "tools.run",
                  "dataset.coco", "dataset.helper.loader",
                  "dataset.processor.processors", "evaluate.coco_eval",
-                 "criterion.metrics", "utils.checkpoint", "utils.config"):
+                 "criterion.metrics", "utils.checkpoint", "utils.config",
+                 "nn.dropout", "nn.transformer", "nn.dense_attention",
+                 "tools.trace_batch_split"):
         assert f"boxer_tpu_torch.{name}" in res.stdout, name

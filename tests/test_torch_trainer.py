@@ -14,8 +14,8 @@ masks, non-contiguous category ids), with the tiny model of
 - `training.jax_profile` writes a torch.profiler trace of updates 6-9.
 - The CLI as a subprocess with `--device cpu` (rc 0, files written), and
   the same command without it, on this card-less machine: a non-zero exit
-  with the "no CUDA device" error and nothing built. The model and
-  layouts the port does not run raise NotImplementedError. Two CPU ranks
+  with the "no CUDA device" error and nothing built. The layouts the
+  port does not run raise NotImplementedError. Two CPU ranks
   through the CLI (`distributed.dp=2`), and more ranks than cards
   refused.
 - BoxeR-3D (`--task detection3d`) from the shipped Waymo config, cut by
@@ -360,10 +360,9 @@ def test_run_refuses_more_ranks_than_cards(coco_root, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("opts,extra", [
-    ([], {"model": "detr"}),
     (["distributed.mp=2"], {}),
     (["distributed.sp=2"], {}),
-], ids=["detr", "mp2", "sp2"])
+], ids=["mp2", "sp2"])
 def test_unported_layouts_raise(coco_root, tmp_path, opts, extra):
     from boxer_tpu_torch.trainer import build_trainer
     from boxer_tpu_torch.utils.config import Configuration
