@@ -38,7 +38,7 @@ from boxer_tpu_torch.nn.dense_attention import PallasMultiHeadAttention
 from boxer_tpu_torch.nn.dropout import Dropout
 from boxer_tpu_torch.nn.position_encoding import box_windows
 from boxer_tpu_torch.nn.predictor import NEG_INF
-from boxer_tpu_torch.ops import box_attention
+from boxer_tpu_torch.ops.box_attention import keeping_samples
 from boxer_tpu_torch.utils.general import (flatten_with_shape,
                                            get_proposal_pos_embed,
                                            inverse_sigmoid, top_k)
@@ -53,8 +53,8 @@ def remat(fn, *args, **kwargs):
     kept = []
     return checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (box_attention.keeping_samples(kept, False),
-                            box_attention.keeping_samples(kept, True)),
+        context_fn=lambda: (keeping_samples(kept, False),
+                            keeping_samples(kept, True)),
         **kwargs)
 
 

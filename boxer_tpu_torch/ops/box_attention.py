@@ -49,6 +49,16 @@ taps), are the JAX package's `checkpoint_name`s (`boxer_tpu/nn/attention.py:
 handed back in remat's recompute, which then launches no K2
 (`nn/box_transformer.py:remat`).
 
+`set_box_attention_impl("analytic_vjp")` (JAX's switch, module state;
+"xla", the default, is the autograd path above) sends every
+`box_attention_qminor` call, `fold=True` included, through
+`AnalyticBoxAttention`, the port of `_box_attention_vjp`
+(`boxer_tpu/ops/box_attention.py:792`): its forward is K2 a level up to
+`FOLD_TAP_THRESHOLD` taps and the folded gather above, its hand-written
+backward one launch of K5 a level, which gives the table's cotangent (kept
+in f32 through the quad-table transpose) and the four corner dots that the
+sampling grid's and the attention weights' cotangents are formed from.
+
 Two module constants read the JAX package's environment variables once, at
 import: `FOLD_TAP_THRESHOLD` (`BOXER_FOLD_THRESHOLD`, default 8) and
 `COMBINE_IMPL` (`BOXER_COMBINE`, "pmajor" or "mmajor"; the JAX package's
@@ -121,6 +131,18 @@ def keeping_samples(outputs: list, replay: bool):
         _kept.state = prev
 
 
+def _kept_or_run(run):
+    """A sampling output: run() and, inside `keeping_samples`, keep it, or
+    hand back the kept one in the recompute instead of running."""
+    outputs, replay = getattr(_kept, "state", None) or (None, False)
+    if replay:
+        return outputs.pop(0)
+    out = run()
+    if outputs is not None:
+        outputs.append(out.detach())
+    return out
+
+
 def _box_levels(tables, idx, w4, dtype):
     """Box attention's per-tap levels: sum over the levels of K2(table,
     idx, w4), in f32, cast to `dtype`. Returns (M, ch)."""
@@ -164,14 +186,9 @@ class QuadSample(torch.autograd.Function):
     def forward(ctx, per_tap: bool, dtype, *levels):
         ctx.save_for_backward(*levels)
         ctx.per_tap = per_tap
-        outputs, replay = getattr(_kept, "state", None) or (None, False)
-        if replay:
-            return outputs.pop(0)
-        out = (_instance_level(*levels) if per_tap else _box_levels(
-            levels[0::3], levels[1::3], levels[2::3], dtype))
-        if outputs is not None:
-            outputs.append(out.detach())
-        return out
+        return _kept_or_run(lambda: _instance_level(*levels) if per_tap
+                            else _box_levels(levels[0::3], levels[1::3],
+                                             levels[2::3], dtype))
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
@@ -284,6 +301,138 @@ def _pmajor(t, bh: int, nl: int, npt: int, lq: int):
     return t.reshape(bh, nl, npt, lq).permute(1, 2, 0, 3).float().contiguous()
 
 
+def _level_taps(shapes: Shapes, gx, gy, attn_weight, bh: int):
+    """Per level of `shapes`, the taps of (B, H, L, P, LQ) inputs as (P, M)
+    tensors: quad-table rows idx, fractions lx, ly, validity (f32) and the
+    tap weight w_tap = valid * attn_weight."""
+    _, _, nl, npt, lq = gx.shape
+    gx, gy, aw = (_pmajor(t, bh, nl, npt, lq) for t in (gx, gy, attn_weight))
+    for li, (hl, wl) in enumerate(shapes):
+        idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
+        w_tap = torch.where(valid, aw[li], 0.0)
+        yield tuple(t.reshape(npt, bh * lq)
+                    for t in (idx, lx, ly, valid.float(), w_tap))
+
+
+_BOX_ATTN_IMPL = {"default": "xla"}
+
+
+def set_box_attention_impl(name: str):
+    """Select the box-attention backward: "xla" (the default: autograd
+    through `QuadSample` or `TakeRows`, the JAX package's name for XLA AD)
+    or "analytic_vjp" (`AnalyticBoxAttention`'s hand-written backward, kept
+    for pinning numerics). Module state, as in the JAX package."""
+    if name not in ("xla", "analytic_vjp"):
+        raise ValueError(f"box attention impl {name!r}: 'xla' or "
+                         "'analytic_vjp'")
+    _BOX_ATTN_IMPL["default"] = name
+
+
+def get_box_attention_impl() -> str:
+    return _BOX_ATTN_IMPL["default"]
+
+
+def box_attention_dispatch(value, shapes: Shapes, sampling_loc, attn_weight):
+    """Reference-layout entry point (the modules call the qminor op)."""
+    return box_attention(value, shapes, sampling_loc, attn_weight)
+
+
+class AnalyticBoxAttention(torch.autograd.Function):
+    """Box attention with the JAX package's analytic backward
+    (`_box_attention_vjp`, `boxer_tpu/ops/box_attention.py:792-914`).
+
+    `apply(shapes, value (B,S,H,Ch), gx, gy, attn_weight (B,H,L,P,LQ))` ->
+    (B, H, LQ, Ch) in value.dtype. The forward is JAX's `f`: K2 a level,
+    summed in f32 (`_box_levels`), up to `FOLD_TAP_THRESHOLD` taps, and the
+    folded gather and P-reduce in the value dtype (`_folded_level`) above;
+    its output is a sampling output that remat keeps (`keeping_samples`).
+    The backward, for each level, launches K5 once on the raw-layout
+    cotangent g (M, Ch) shared by the P taps: d_table[idx] += [w_c * g]_c
+    and the corner dots s_c = <table[idx]_c, g>; from the dots it forms
+
+      d_aw  = valid * sum_c cw_c(lx, ly) * s_c
+      d_gx  = w_tap * (-(1-ly) s0 + (1-ly) s1 - ly s2 + ly s3) * W
+      d_gy  = w_tap * (-(1-lx) s0 - lx s1 + (1-lx) s2 + lx s3) * H
+
+    (floor's straight-through derivative), and d_value from the dense
+    transpose of the quad-table build, in f32 until one cast to the value's
+    dtype at the end.
+    """
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, shapes, value, gx, gy, attn_weight):
+        ctx.shapes = shapes
+        ctx.save_for_backward(value, gx, gy, attn_weight)
+        return _kept_or_run(lambda: _analytic_forward(shapes, value, gx, gy,
+                                                      attn_weight))
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        value, gx, gy, attn_weight = ctx.saved_tensors
+        shapes = ctx.shapes
+        b, s, nh, ch = value.shape
+        bh, (nl, npt, lq) = b * nh, gx.shape[2:]
+        g = g.float().reshape(bh * lq, ch).contiguous()
+        d_levels, d_gx, d_gy, d_aw = [], [], [], []
+        for table, (hl, wl), (idx, lx, ly, valid, w_tap) in zip(
+                _build_quad_tables(value, shapes), shapes,
+                _level_taps(shapes, gx, gy, attn_weight, bh)):
+            d_table, dots = scatter_add_rows_weighted_dw4(
+                idx, g, corner_weights(lx, ly, w_tap), table, per_tap=False,
+                want_table=ctx.needs_input_grad[1])
+            s0, s1, s2, s3 = dots.unbind(1)                    # (P, M) each
+            d_aw.append(valid * ((1 - lx) * (1 - ly) * s0 + lx * (1 - ly) * s1
+                                 + (1 - lx) * ly * s2 + lx * ly * s3))
+            d_gx.append(w_tap * (-(1 - ly) * s0 + (1 - ly) * s1 - ly * s2
+                                 + ly * s3) * wl)
+            d_gy.append(w_tap * (-(1 - lx) * s0 - lx * s1 + (1 - lx) * s2
+                                 + lx * s3) * hl)
+            if d_table is not None:
+                d_levels.append(_quad_table_transpose(d_table, bh, hl, wl))
+
+        def raw(levels, like):
+            """L x (P, BH*LQ) -> like's (B, H, L, P, LQ) and dtype."""
+            return (torch.stack(levels).reshape(nl, npt, bh, lq)
+                    .permute(2, 0, 1, 3).reshape(like.shape).to(like.dtype))
+
+        d_value = None
+        if d_levels:
+            d_value = (torch.cat(d_levels, dim=1).reshape(b, nh, s, ch)
+                       .permute(0, 2, 1, 3).to(value.dtype))
+        return (None, d_value, raw(d_gx, gx), raw(d_gy, gy),
+                raw(d_aw, attn_weight))
+
+
+def _analytic_forward(shapes: Shapes, value, gx, gy, attn_weight):
+    """`AnalyticBoxAttention`'s forward: (B, H, LQ, Ch) in value.dtype."""
+    b, s, nh, ch = value.shape
+    npt, lq = gx.shape[3:]
+    tables = _build_quad_tables(value, shapes)
+    levels = list(_level_taps(shapes, gx, gy, attn_weight, b * nh))
+    if npt > FOLD_TAP_THRESHOLD:
+        out = sum(_folded_level(table, idx, lx, ly, w_tap, value.dtype)
+                  for table, (idx, lx, ly, _, w_tap) in zip(tables, levels))
+    else:
+        out = _box_levels(tables, [lv[0] for lv in levels],
+                          [corner_weights(*lv[1:3], lv[4]) for lv in levels],
+                          value.dtype)
+    return out.to(value.dtype).reshape(b, nh, lq, ch)
+
+
+def _quad_table_transpose(d_table, bh: int, hl: int, wl: int):
+    """The transpose of one level's quad-table build: (BH*(hl+1)*(wl+1),
+    4*Ch) table cotangent -> (BH, hl*wl, Ch) value cotangent, in its
+    dtype."""
+    ch = d_table.shape[1] // 4
+    dq = d_table.reshape(bh, hl + 1, wl + 1, 4 * ch)
+    d_pad = d_table.new_zeros((bh, hl + 2, wl + 2, ch))
+    for c, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        d_pad[:, dy:dy + hl + 1, dx:dx + wl + 1] += dq[..., c * ch:(c + 1) * ch]
+    return d_pad[:, 1:hl + 1, 1:wl + 1].reshape(bh, hl * wl, ch)
+
+
 def _merge_heads(raw):
     """(B, H, LQ, C) -> (B, LQ, H*C)."""
     b, nh, lq, ch = raw.shape
@@ -304,33 +453,29 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     K5); fold=None the differentiable folded path (`TakeRows`: K7b) when P >
     FOLD_TAP_THRESHOLD, else the per-tap one, as in the JAX package.
     """
+    assert gx.shape[2] == len(shapes)
+    if _BOX_ATTN_IMPL["default"] == "analytic_vjp":
+        out = AnalyticBoxAttention.apply(tuple(map(tuple, shapes)), value, gx,
+                                         gy, attn_weight)
+        return out if raw else _merge_heads(out)
     b, s, nh, ch = value.shape
-    _, _, nl, npt, lq = gx.shape
-    assert nl == len(shapes)
-    bh = b * nh
-    m = bh * lq
+    npt, lq = gx.shape[3:]
     fused = fold is True
     if fold is None:
         fold = npt > FOLD_TAP_THRESHOLD
 
     tables = _build_quad_tables(value, shapes)
-    gx = _pmajor(gx, bh, nl, npt, lq)
-    gy = _pmajor(gy, bh, nl, npt, lq)
-    aw = _pmajor(attn_weight, bh, nl, npt, lq)
-
-    out = torch.zeros((m, ch), dtype=torch.float32, device=value.device)
+    out = torch.zeros((b * nh * lq, ch), dtype=torch.float32,
+                      device=value.device)
     per_tap = []
-    for li, (hl, wl) in enumerate(shapes):
-        idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
-        w_tap = torch.where(valid, aw[li], 0.0)
-        idx, lx, ly, w_tap = (t.reshape(npt, m) for t in (idx, lx, ly, w_tap))
+    for table, (idx, lx, ly, _, w_tap) in zip(
+            tables, _level_taps(shapes, gx, gy, attn_weight, b * nh)):
         if fused:
-            out = out + _fused_level(tables[li], idx, lx, ly, w_tap)
+            out = out + _fused_level(table, idx, lx, ly, w_tap)
         elif fold:
-            out = out + _folded_level(tables[li], idx, lx, ly, w_tap,
-                                      value.dtype)
+            out = out + _folded_level(table, idx, lx, ly, w_tap, value.dtype)
         else:
-            per_tap += [tables[li], idx, corner_weights(lx, ly, w_tap)]
+            per_tap += [table, idx, corner_weights(lx, ly, w_tap)]
     if per_tap:
         out = QuadSample.apply(False, value.dtype, *per_tap)
     out = out.to(value.dtype).reshape(b, nh, lq, ch)

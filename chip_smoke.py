@@ -151,7 +151,26 @@ Run from the root of a checkout:  python3 chip_smoke.py
    non-zero, val AP in [0, 1], a resume from update 2 replaying updates 3-4
    bitwise, ms per update, peak memory, one inference forward's device
    time; (13d) DETR inference card against CPU at 256x384 in f32 (max abs
-   1e-3).
+   1e-3);
+14. the last single-device modules: (14a) the analytic box-attention
+   backward (`set_box_attention_impl("analytic_vjp")`: K2 forward, one K5 a
+   level in the backward) at op level, f32 gradients of value, gx, gy and
+   the attention weights against the default backward (rel 1e-4) and
+   against itself with K2/K5 swapped for their plain versions (rel 1e-5),
+   K5 launches and each backward's CUDA-event ms, at P=4, M=161,576 a
+   level and P=196, M=2,400; at model level phase 7's segm step with the
+   switch on and off from the same weights, in turns: f32 (the train
+   forward's outputs and the loss terms bitwise, the worst leaf 1e-5) and
+   bf16 autocast (the worst leaf within 0.1 beside two default runs'
+   spread), K2 48, K3 12, K5 24, K6 24 each way, ms/step, device ms and
+   peak; one BoxeR-3D step (phase 9c's batch) with the switch on (K2 8, K5
+   8, K3 2, finite gradients); (14b) the native runtime built with g++:
+   the voxelizer on phase 9's served cloud at the shipped Waymo train
+   voxelize (469x469, 32,000 voxels), the BEV collision test on 250 x 250
+   boxes and the RLE counts of an 800x1216 mask, each bitwise equal to the
+   numpy version, host ms of both; (14c) `tools.analyze` with every task at
+   full width (the parameter count equal to the model's), `tools.visualize`
+   and the segmentation demo each writing a PNG of the image's size.
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
 of their own, and one JSON line of per-kernel results (one row per kernel
@@ -161,6 +180,7 @@ phase raises: the exit code is not 0 and no ok line is printed.
 
 import contextlib
 import functools
+import importlib
 import json
 import os
 import subprocess
@@ -523,7 +543,7 @@ def box_attention_grads(dev):
     default fold) at P=16, the folded path through `TakeRows` and K7b, at the
     JAX package's chip-test shape, against the same op with K7b swapped for
     its plain version. The output must carry a grad_fn."""
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     shapes, nh, ch, lq, p = ((80, 120), (40, 60)), 2, 32, 600, 16
@@ -604,7 +624,7 @@ def counters():
 def sampling(**constants):
     """Set module constants of the sampling op (`COMBINE_IMPL`,
     `FOLD_TAP_THRESHOLD`) for a phase and restore them after it."""
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     saved = {k: getattr(ba, k) for k in constants}
     for k, v in constants.items():
@@ -918,7 +938,7 @@ def k5_in_model(dev):
     fused kernel and the d_table kernel alone on them and on the same
     inputs with random rows: time, error against the plain version, and the
     distinct rows in a block's tile of 32 outputs x P taps."""
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     from boxer_tpu_torch.ops import scatter_accum as sa
     from boxer_tpu_torch.tools import bench_combine as bc
     from boxer_tpu_torch.tools import bench_kernels as bk
@@ -976,7 +996,7 @@ def k7b_model_inputs(dev):
     first call of `TakeRows`' backward on each level's table with the
     encoder's M = 8 x 20,197 queries. Returns [(idx (P, M), payload
     (P*M, 128), rows)] from level 0 to 3."""
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     from boxer_tpu_torch.tools import bench_kernels as bk
 
     m_enc = bk.K1_SHAPES[0][1]
@@ -1092,7 +1112,7 @@ def train_card_vs_cpu(dev):
     versions), on the card (kernels), and on the card with the fused K5/K6
     swapped for their plain version, plain d_table and plain d_w4 (the same
     forward, so the same ReLU branches)."""
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     model = build_model(True, seed=1, noise_seed=2).train()
@@ -1157,7 +1177,7 @@ def train_folded_vs_pertap(dev):
     level through `TakeRows`, K7b in the backward) against per-tap
     (`QuadSample`: K2, K5), then folded with K7b swapped for its plain
     version (the same forward, so the same ReLU branches)."""
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     model = build_model(False, seed=1, noise_seed=2).train()
@@ -1614,7 +1634,7 @@ def train_card_vs_cpu_3d(dev):
     (`RecordingMatcher`); nearer, the devices' rounding may pick either
     query, as it does on frames 5 and 6 of this cloud."""
     from boxer_tpu_torch.dataset.waymo import grid_shape
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     grid = grid_shape(E2E_PC_3D, VOXEL_3D)
@@ -2775,7 +2795,7 @@ def saved_sample_bytes():
     """Tally the bytes of the sampling outputs that remat keeps from its
     forwards for their recomputes (by dtype: bf16 box-attention level sums,
     f32 instance-attention taps under autocast)."""
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     keeping = ba.keeping_samples
     tally = {}
@@ -3114,6 +3134,350 @@ def run_phase13(dev, smi):
     return runs, dict(step=step, memory=memory, detr=detr)
 
 
+@contextlib.contextmanager
+def analytic_vjp(on=True):
+    """Inside, the sampling op's backward is the analytic one
+    (`set_box_attention_impl("analytic_vjp")`) or, with on=False, the
+    default; restored after."""
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    saved = ba.get_box_attention_impl()
+    ba.set_box_attention_impl("analytic_vjp" if on else "xla")
+    try:
+        yield
+    finally:
+        ba.set_box_attention_impl(saved)
+
+
+def analytic_op(dev, smi):
+    """Phase 14a at op level: `box_attention_qminor`'s gradients (value, gx,
+    gy, attention weights; f32) under the analytic backward against the
+    default backward and against the analytic one with K2 and K5 swapped
+    for their plain versions, at the encoder's P=4, M=161,576 a level (4
+    levels at 800x1216, 8 heads) and at P=196, M=2,400 (300 queries; folded
+    in the forward). K5 launches each way; CUDA-event ms of each backward
+    (the median of 3). Returns {case: results}."""
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    from boxer_tpu_torch.ops import combine_reduce as cr
+    from boxer_tpu_torch.ops import scatter_accum as sa
+
+    shapes = ((100, 152), (50, 76), (25, 38), (13, 19))
+    s, nh, ch = sum(h * w for h, w in shapes), 8, 32
+    results = {}
+    for p, lq in ((4, s), (196, 300)):
+        rs = np.random.RandomState(p)
+        shape = (1, nh, len(shapes), p, lq)
+        arrays = (rs.randn(1, s, nh, ch).astype(np.float32),
+                  *rs.uniform(-0.02, 1.02, (2, *shape)).astype(np.float32),
+                  rs.rand(*shape).astype(np.float32) / (4 * p))
+        cot = torch.from_numpy(rs.randn(1, nh, lq, ch).astype(
+            np.float32)).to(dev)
+
+        def grads(analytic):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in arrays]
+            with analytic_vjp(analytic):
+                out = ba.box_attention_qminor(ts[0], shapes, *ts[1:],
+                                              raw=True)
+            before = {k: f.launches for k, f in counters().items()}
+            times = []
+            for i in range(3):
+                for t in ts:
+                    t.grad = None
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                out.backward(cot, retain_graph=i < 2)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            launches = {k: (f.launches - before[k]) // 3
+                        for k, f in counters().items()}
+            return [t.grad for t in ts], float(np.median(times)), launches
+
+        got, ms, launches = grads(True)
+        want, ms_default, launches_default = grads(False)
+        kernels = (ba.quad_sample_reduce_w4, ba.scatter_add_rows_weighted_dw4)
+        ba.quad_sample_reduce_w4 = (
+            lambda table, idx, w4: cr.quad_sample_reduce_plain(table, idx,
+                                                               w4=w4))
+        ba.scatter_add_rows_weighted_dw4 = sa.scatter_accum_dw4_plain
+        try:
+            plain, ms_plain, launches_plain = grads(True)
+        finally:
+            ba.quad_sample_reduce_w4, ba.scatter_add_rows_weighted_dw4 = \
+                kernels
+        names = ("d_value", "d_gx", "d_gy", "d_aw")
+        errs = {n: rel_err(g, w) for n, g, w in zip(names, got, want)}
+        errs_plain = {n: rel_err(g, w) for n, g, w in zip(names, got, plain)}
+        label = f"P={p} M={nh * lq}"
+        log(f"analytic backward, {label} f32 [{smi}]: against the default "
+            f"backward {', '.join(f'{n} {e:.3e}' for n, e in errs.items())};"
+            f" against its plain K2/K5 "
+            f"{', '.join(f'{n} {e:.3e}' for n, e in errs_plain.items())}; "
+            f"backward {ms:.4f} ms (default {ms_default:.4f}, plain "
+            f"{ms_plain:.4f}); K5 launches a backward {launches['K5']} "
+            f"(default {launches_default['K5']}, K7b "
+            f"{launches_default['K7b']})")
+        if not (max(errs.values()) <= 1e-4 and max(errs_plain.values())
+                <= 1e-5 and launches["K5"] == len(shapes)
+                and not launches_plain["K5"]):
+            raise AssertionError(f"analytic backward {label}: disagrees or "
+                                 "launches no K5 a level")
+        results[label] = dict(errs=errs, errs_plain=errs_plain, ms=ms,
+                              ms_default=ms_default, ms_plain=ms_plain,
+                              k5=launches["K5"],
+                              k5_default=launches_default["K5"])
+    return results
+
+
+def analytic_step(dev, smi):
+    """Phase 14a at model level: phase 7's full-width segm step (batch 1 at
+    CANVAS, remat on, the default) from the same seeded weights with the
+    analytic backward on and off, in turns in this call: in f32 (the
+    train-mode forward's outputs and the loss terms bitwise equal, the
+    pre-clip gradients' worst leaf within 1e-5) and under bf16 autocast
+    (the worst leaf within 0.1 beside two default runs' own spread); each
+    way K2 48, K3 12, K5 24, K6 24 a step, 3 more timed steps (ms/step, the
+    median), peak memory and one profiled step's device ms. Then one
+    BoxeR-3D step at phase 9c's batch with the switch on: K2 8, K5 8, K3 2
+    and finite gradients. Returns ({run: launch counts}, results)."""
+    label = f"segm train R50 {CANVAS}"
+    batch = train_batch(CANVAS, True, dev)
+    mask = batch["mask"][0]
+    cases = (("default f32", False, torch.float32),
+             ("analytic f32", True, torch.float32),
+             ("default bf16", False, torch.bfloat16),
+             ("analytic bf16", True, torch.bfloat16),
+             ("default bf16 again", False, torch.bfloat16))
+    runs, res = {}, {}
+    for name, on, dtype in cases:
+        model = build_model(True).to(dev).train()
+        _, state, step = train_setup(model, True, dtype, debug_grads=True)
+        with analytic_vjp(on):
+            outputs = None
+            if dtype == torch.float32:
+                with torch.no_grad():
+                    out = model(batch["image"][0], mask, train=True,
+                                inference=False)
+                outputs = {k: v for k, v in out.items()
+                           if k.startswith("pred_")}
+            torch.cuda.reset_peak_memory_stats(dev)
+            for f in counters().values():
+                f.launches = 0
+            _, stats = step(state, batch)
+            torch.cuda.synchronize()
+            runs[name] = {k: f.launches for k, f in counters().items()}
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            check_grads(stats["_grads"], f"{label}, {name}")
+            times, _, _ = timed(lambda: step(state, batch), 3, dev)
+            ms = float(np.median(times))
+            busy = profile(lambda: step(state, batch), ms,
+                           f"{label}, {name}, one step")
+        res[name] = dict(stats=stats, outputs=outputs, ms=ms, peak=peak,
+                         busy=busy[0])
+        log(f"{label}, {name} [{smi}]: {ms:.2f} ms/step (median of 3: "
+            f"{', '.join(f'{t:.2f}' for t in times)}), device busy "
+            f"{busy[0]:.2f} ms, peak {peak:.2f} GiB, total loss "
+            f"{stats['total_loss']!r}, launches {runs[name]}")
+        del model, state, step
+        torch.cuda.empty_cache()
+
+    def same_losses(a, b):
+        keys = [k for k in res[b]["stats"] if k.startswith("loss_")]
+        return len(keys) > 20 and all(
+            res[a]["stats"][k] == res[b]["stats"][k]
+            for k in keys + ["total_loss"])
+
+    fa, fd = res["analytic f32"]["outputs"], res["default f32"]["outputs"]
+    same_forward = sorted(fa) == sorted(fd) and all(
+        torch.equal(fa[k], fd[k]) for k in fd)
+    errs = {pair: leaf_errs(res[pair[0]]["stats"], res[pair[1]]["stats"])
+            for pair in (("analytic f32", "default f32"),
+                         ("analytic bf16", "default bf16"),
+                         ("default bf16 again", "default bf16"))}
+    log(f"  f32: the forward's {len(fd)} outputs bitwise {same_forward}")
+    for (a, b), (worst, leaf, median) in errs.items():
+        log(f"  {a} against {b}: gradients' worst leaf {worst:.3e} ({leaf}),"
+            f" median {median:.3e}; loss terms bitwise {same_losses(a, b)}")
+    want = TRAIN_LAUNCHES[True]
+    if not (same_forward and same_losses("analytic f32", "default f32")
+            and errs[("analytic f32", "default f32")][0] <= 1e-5
+            and errs[("analytic bf16", "default bf16")][0] <= 0.1
+            and all(r == want for r in runs.values())):
+        raise AssertionError(f"{label}: the analytic backward against the "
+                             "default failed")
+
+    # BoxeR-3D: phase 9c's step with the switch on
+    model = build_model_3d(PC_RANGE_3D).to(dev).train()
+    _, state, step = train_setup_3d(model, torch.bfloat16, debug_grads=True)
+    for f in counters().values():
+        f.launches = 0
+    with analytic_vjp():
+        _, stats = step(state, train_batch_3d(dev))
+        torch.cuda.synchronize()
+    runs["3d step, analytic"] = {k: f.launches for k, f in counters().items()}
+    log(f"BoxeR-3D train step, analytic backward [{smi}]: total loss "
+        f"{stats['total_loss']:.6g}, launches {runs['3d step, analytic']}")
+    check_grads_3d(stats.pop("_grads"), "BoxeR-3D step, analytic backward")
+    if runs["3d step, analytic"] != TRAIN_3D_LAUNCHES or not all(
+            np.isfinite(v) for v in stats.values()):
+        raise AssertionError("BoxeR-3D step under the analytic backward")
+    del model, state, step
+    torch.cuda.empty_cache()
+    out = {name: {k: v for k, v in r.items() if k in ("ms", "peak", "busy")}
+           for name, r in res.items()}
+    out.update(worst_f32=errs[("analytic f32", "default f32")][0],
+               worst_bf16=errs[("analytic bf16", "default bf16")][0],
+               spread=errs[("default bf16 again", "default bf16")][0])
+    return ({f"analytic step, {k}": v for k, v in runs.items()}, out)
+
+
+def host_ms(fn, reps=5):
+    """fn() `reps` times after one warm-up: (the median host ms, the last
+    result)."""
+    out, times = fn(), []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), out
+
+
+def run_native(smi):
+    """Phase 14b: the native runtime (`boxer_tpu_torch/native`, built here
+    with g++) against the port's numpy versions, host ms of each (median of
+    5): phase 9's served cloud through the shipped Waymo train processor's
+    voxelize (voxel 0.32 x 0.32 x 12 m over PC_RANGE_3D: the 469 x 469
+    grid, 20 points and 32,000 voxels, `config/base_boxer3d_detection.yaml:
+    30-55`), outputs bitwise; `box_collision_test` on 250 boxes against 250
+    and `mask_to_rle_counts` on one 800x1216 mask, equal."""
+    from boxer_tpu_torch import native
+    from boxer_tpu_torch.dataset.helper.database_sampler import \
+        box_collision_test
+    from boxer_tpu_torch.dataset.processor.voxelizer import points_to_voxel
+    from boxer_tpu_torch.utils.rle import mask_to_rle_counts
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.library()
+    log(f"native: {lib.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    cloud = lidar_cloud(PC_RANGE_3D, SERVE_POINTS, seed=3)
+    args = (cloud, (0.32, 0.32, 12.0), PC_RANGE_3D)
+    kw = dict(max_points=POINTS_3D, max_voxels=VOXELS_3D)
+    rs = np.random.RandomState(14)
+
+    def boxes(n):
+        return np.concatenate([
+            rs.uniform(-40, 40, (n, 2)), rs.uniform(-1, 1, (n, 1)),
+            rs.uniform(1, 5, (n, 2)), rs.uniform(1, 2, (n, 1)),
+            rs.uniform(-np.pi, np.pi, (n, 1))], 1).astype(np.float32)
+
+    b1, b2 = boxes(250), boxes(250)
+    yy, xx = np.mgrid[:800, :1216]
+    mask = np.zeros((800, 1216), bool)
+    for _ in range(6):
+        cy, cx, ry, rx = rs.uniform(0, 800), rs.uniform(0, 1216), \
+            *rs.uniform(20, 200, 2)
+        mask |= ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+    cases = (("voxelize 180,000 points", lambda: points_to_voxel(*args, **kw),
+              lambda: native.points_to_voxel_native(*args, **kw)),
+             ("box_collision_test 250 x 250",
+              lambda: box_collision_test(b1, b2),
+              lambda: native.box_collision_test_native(b1, b2)),
+             ("mask_to_rle_counts 800x1216", lambda: mask_to_rle_counts(mask),
+              lambda: native.mask_to_rle_counts_native(mask)))
+    results = {}
+    for name, numpy_fn, native_fn in cases:
+        ms_numpy, want = host_ms(numpy_fn)
+        ms_native, got = host_ms(native_fn)
+        if isinstance(want, tuple):
+            equal = all(a.dtype == b.dtype and a.shape == b.shape
+                        and a.tobytes() == b.tobytes()
+                        for a, b in zip(got, want))
+            detail = f"{len(want[0])} voxels"
+        elif isinstance(want, list):
+            equal, detail = got == want, f"{len(want)} counts"
+        else:
+            equal = got.dtype == want.dtype and np.array_equal(got, want)
+            detail = f"{int(want.sum())} overlapping pairs"
+        log(f"native {name} [{smi}; host]: {ms_native:.3f} ms, numpy "
+            f"{ms_numpy:.3f} ms ({detail}), equal {equal}")
+        if not equal:
+            raise AssertionError(f"native {name} differs from numpy")
+        results[name] = dict(native_ms=ms_native, numpy_ms=ms_numpy)
+    return results
+
+
+def run_tools(dev, smi):
+    """Phase 14c: the user tools on the card. `tools.analyze` with every
+    task at full width (BoxeR-2D R50 from the shipped detection config,
+    800x1216, bf16; 10 timed forwards): its parameter count equal to the
+    model's `parameters()` sum, FLOPs > 0, a structure line a parameter;
+    then `tools.visualize` (the shipped segm config, a generated 480x640
+    image resized to 800x1066) and the segmentation demo (512x512), each
+    with seeded weights, must write a PNG of the image's size."""
+    import io
+    import tempfile
+
+    from PIL import Image
+
+    from boxer_tpu_torch.models import build_model as build
+    from boxer_tpu_torch.tools import analyze, visualize
+    from boxer_tpu_torch.tools.examples import boxer2d_segmentation_demo
+    from boxer_tpu_torch.utils.config import Configuration
+
+    config = str(ROOT / "boxer_tpu_torch/config/COCO-Detection/"
+                 "boxer2d_r50_3x.yaml")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        got = analyze.main(["--tasks", "parameter", "flop", "speed",
+                            "structure", "--config", config, "--iters", "10"])
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("parameters:", "flops:", "speed:")):
+            log(f"analyze [{smi}]: {line}")
+    cfg = Configuration(config_path=config, extra={
+        "task": "detection", "model": "boxer2d"}).get_config()
+    n_params = sum(p.numel() for p in build(cfg.model_config["boxer2d"],
+                                            91).parameters())
+    log(f"analyze: structure {got['structure']} lines; parameters() "
+        f"{n_params}")
+    if not (got["parameter"][0] == n_params and got["flop"] > 0
+            and got["structure"] == len(lines) - 3 > 0 and got["speed"] > 0):
+        raise AssertionError("tools.analyze at full width")
+
+    segm = str(ROOT / "boxer_tpu_torch/config/COCO-InstanceSegmentation/"
+               "boxer2d_r50_3x.yaml")
+    with tempfile.TemporaryDirectory() as tmp:
+        photo = os.path.join(tmp, "photo.png")
+        Image.fromarray((np.random.RandomState(15).rand(480, 640, 3) * 255)
+                        .astype(np.uint8)).save(photo)
+        t0 = time.perf_counter()
+        out, n = visualize.main(["--config", segm, "--image", photo, "--out",
+                                 os.path.join(tmp, "viz.png")])
+        viz = Image.open(out).size
+        t1 = time.perf_counter()
+        out, n_demo = boxer2d_segmentation_demo.main(
+            ["--out", os.path.join(tmp, "demo.png")])
+        demo = Image.open(out).size
+        t2 = time.perf_counter()
+    log(f"visualize [{smi}]: a {viz[0]}x{viz[1]} PNG, {n} detections, "
+        f"{t1 - t0:.1f} s; demo: a {demo[0]}x{demo[1]} PNG, {n_demo} "
+        f"instances, {t2 - t1:.1f} s")
+    if viz != (1066, 800) or demo != (512, 512):
+        raise AssertionError(f"tools: PNG sizes {viz}, {demo}")
+    return dict(analyze=got, viz=viz, demo=demo)
+
+
+def run_phase14(dev, smi):
+    """Phase 14 (14a-14c). Returns ({label: launch counts}, results)."""
+    op = analytic_op(dev, smi)
+    runs, step = analytic_step(dev, smi)
+    return runs, dict(op=op, step=step, native=run_native(smi),
+                      tools=run_tools(dev, smi))
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3226,6 +3590,13 @@ def main():
     runs.update(p13_runs)
     log(f"phase 13 took {time.perf_counter() - t13:.1f} s")
 
+    # 14. the analytic box-attention backward (K2, K5) against the default
+    # one, op and model level; the native runtime against numpy; the tools
+    t14 = time.perf_counter()
+    p14_runs, p14 = run_phase14(dev, smi)
+    runs.update(p14_runs)
+    log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
+
     # K7a has no caller in the package: its launches are those of its
     # op-level run in phase 3c; the T rows' those of the shootout
     qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
@@ -3328,6 +3699,20 @@ def main():
         f"{detr['peak']:.2f} GiB, an inference forward's device busy "
         f"{detr['busy'][0]:.2f} ms, val AP {detr['ap'][0]:.4g}, card vs CPU "
         f"{detr['card_vs_cpu']}")
+    op, st14, nat = p14["op"], p14["step"], p14["native"]
+    log(f"analytic backward, native, tools [{smi}]: op backward ms analytic "
+        f"/ default " + "; ".join(
+            f"{k} {v['ms']:.4f} / {v['ms_default']:.4f}"
+            for k, v in op.items())
+        + f"; segm step ms analytic / default f32 "
+        f"{st14['analytic f32']['ms']:.2f} / {st14['default f32']['ms']:.2f},"
+        f" bf16 {st14['analytic bf16']['ms']:.2f} / "
+        f"{st14['default bf16']['ms']:.2f} (worst leaf f32 "
+        f"{st14['worst_f32']:.3e}, bf16 {st14['worst_bf16']:.3e} beside "
+        f"{st14['spread']:.3e}); native / numpy host ms " + "; ".join(
+            f"{k} {v['native_ms']:.3f} / {v['numpy_ms']:.3f}"
+            for k, v in nat.items())
+        + f"; analyze {p14['tools']['analyze']['speed']:.3f} img/s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,7 +138,7 @@ def test_boxer2d_mmajor_combine_matches_jax(monkeypatch, use_mask):
     """Every fused sampling level through K8 (its plain version): the 4
     levels of the encoder layer and of each decoder layer but a segm
     model's last (its dual-output instance attention has no combine)."""
-    from boxer_tpu_torch.ops import box_attention as tb
+    tb = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     monkeypatch.setattr(importlib.import_module("boxer_tpu.ops.box_attention"),
                         "_COMBINE_IMPL", "mmajor")
@@ -217,5 +217,8 @@ def test_port_imports_no_jax():
                  "dataset.processor.processors", "evaluate.coco_eval",
                  "criterion.metrics", "utils.checkpoint", "utils.config",
                  "nn.dropout", "nn.transformer", "nn.dense_attention",
-                 "tools.trace_batch_split"):
+                 "tools.trace_batch_split", "native", "utils.geometry",
+                 "utils.visualization", "dataset.helper.image_dataset",
+                 "tools.analyze", "tools.visualize",
+                 "tools.examples.boxer2d_segmentation_demo"):
         assert f"boxer_tpu_torch.{name}" in res.stdout, name

@@ -19,6 +19,8 @@ cases, so on a card without jax they run with
 tests/test_torch_kernels.py`.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -783,7 +785,7 @@ def test_box3d_attention_cuda_grads_match_plain_k5(cuda, monkeypatch,
     windows, whose gradient runs through the grid's rotation by each
     window's angle (rel 1e-4: f32 atomics add in another order)."""
     from boxer_tpu_torch.nn.attention import Box3dAttention
-    from boxer_tpu_torch.ops import box_attention as ba
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     shapes, nh, d, lq = ((40, 48), (20, 24)), 8, 256, 500
     rs = np.random.RandomState(52)

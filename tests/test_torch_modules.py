@@ -10,6 +10,7 @@ kernels take their plain versions here. Tolerance: rel err <= 1e-4 (f32
 sums taken in another order, through a few layers).
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -158,7 +159,7 @@ def test_sampling_ops_on_edge_taps():
 
     # `boxer_tpu.ops` re-exports a function of the module's name
     jb = importlib.import_module("boxer_tpu.ops.box_attention")
-    from boxer_tpu_torch.ops import box_attention as tb
+    tb = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     rs = np.random.RandomState(1)
     nh, ch, lq, k = 1, 32, 40, 2

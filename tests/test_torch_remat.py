@@ -12,6 +12,8 @@ as many times as without remat: its output is saved, not recomputed; the
 backward scatters (K5/K6's plain version) run as many times too.
 """
 
+import importlib
+
 import pytest
 import torch
 
@@ -19,7 +21,8 @@ from test_torch_train import TINY, _batch, _port_setup, _to_torch
 
 from boxer_tpu_torch.nn import box_transformer as bt
 from boxer_tpu_torch.nn.dropout import Dropout
-from boxer_tpu_torch.ops import box_attention as ba
+
+ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
 
 def _counted(monkeypatch, module, name, counts):

@@ -132,7 +132,7 @@ def test_box_attention_p16_folded_grads_match_jax():
 def test_box_sampling_folded_above_threshold_matches_jax(monkeypatch):
     """fold=None folds the P=4 taps once both thresholds are below 4."""
     jb = importlib.import_module("boxer_tpu.ops.box_attention")
-    from boxer_tpu_torch.ops import box_attention as tb
+    tb = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     monkeypatch.setattr(jb, "_FOLD_TAP_THRESHOLD", 3)
     monkeypatch.setattr(tb, "FOLD_TAP_THRESHOLD", 3)
@@ -307,7 +307,7 @@ def test_folded_train_step_matches_jax(monkeypatch):
     """Detection with every box-attention level folded on both sides: the
     port's backward scatters through K7b's plain version at each of the 4
     levels of the 1 encoder and 2 decoder layers."""
-    from boxer_tpu_torch.ops import box_attention as tb
+    tb = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     monkeypatch.setattr(importlib.import_module("boxer_tpu.ops.box_attention"),
                         "_FOLD_TAP_THRESHOLD", 3)
