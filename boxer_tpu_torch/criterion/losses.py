@@ -76,12 +76,13 @@ def focal_label_loss(outputs, targets, query_idx, valid, num_boxes,
 
 
 def label_loss_ce(outputs, targets, query_idx, valid, num_boxes,
-                  num_classes: int, eos_coef: float, iter_per_update: int = 1):
+                  num_classes: int, eos_coef: float, iter_per_update: int = 1,
+                  *, dp):
     """DETR's softmax CE over num_classes + 1 columns, the no-object
     column weighted by `eos_coef`, normalised by the summed class weights
-    (over every rank's share of the microbatch) and divided by
-    `iter_per_update`, not by `num_boxes` (`boxer_tpu/criterion/losses.py:
-    94-110`)."""
+    (over every data shard's share of the microbatch: the ranks of the dp
+    axis `dp`, a `parallel.mesh.Axis`) and divided by `iter_per_update`,
+    not by `num_boxes` (`boxer_tpu/criterion/losses.py:94-110`)."""
     logits = outputs["pred_logits"].float()                # (B, NQ, C+1)
     b, nq, _ = logits.shape
     labels = torch.where(valid, targets["labels"].long(), num_classes)
@@ -92,7 +93,9 @@ def label_loss_ce(outputs, targets, query_idx, valid, num_boxes,
     nll = -torch.log_softmax(logits, dim=-1).gather(
         2, target_classes[..., None])[..., 0]
     weights = torch.where(target_classes == num_classes, eos_coef, 1.0)
-    total = distributed.all_reduce_sum(weights.sum())
+    total = weights.sum()
+    if dp.size > 1:
+        total = distributed.all_reduce_sum(total, dp.group)
     return {"loss_ce": (nll * weights).sum() / total / iter_per_update}
 
 
@@ -260,10 +263,11 @@ class DETRCriterion(Boxer2DCriterion):
     layer and each aux layer; no encoder head."""
 
     def __init__(self, num_classes, matcher, weight_dict, losses, eos_coef,
-                 iter_per_update: int = 1):
+                 iter_per_update: int = 1, *, dp):
         super().__init__(num_classes, matcher, weight_dict, losses)
         self.eos_coef = eos_coef
         self.iter_per_update = iter_per_update
+        self.dp = dp                    # the run's dp axis (`parallel/mesh.py`)
 
     def _eval_losses(self, outputs, targets, query_idx, valid, num_boxes,
                      n_classes, with_masks):
@@ -275,16 +279,18 @@ class DETRCriterion(Boxer2DCriterion):
             elif loss == "labels":
                 out.update(label_loss_ce(outputs, targets, query_idx, valid,
                                          num_boxes, n_classes, self.eos_coef,
-                                         self.iter_per_update))
+                                         self.iter_per_update, dp=self.dp))
             else:
                 raise ValueError(f"Unsupported detr loss: {loss}")
         return out
 
 
-def build_loss(loss_config, num_classes: int, iter_per_update: int = 1):
+def build_loss(loss_config, num_classes: int, iter_per_update: int = 1,
+               *, dp):
     """The criterion of a model config's `loss` node (reference `build_loss`,
     `losses.py:17-74`), with its weight dict; `iter_per_update` divides
-    DETR's label loss."""
+    DETR's label loss, normalised over the dp axis `dp` (the trainer's
+    layout's; `Layout().dp` at world 1)."""
     loss_type = loss_config["type"]
     params = loss_config["params"]
     weight_dict = {
@@ -296,7 +302,7 @@ def build_loss(loss_config, num_classes: int, iter_per_update: int = 1):
     if loss_type == "detr":
         return DETRCriterion(num_classes, matcher, weight_dict,
                              ["boxes", "labels"], eos_coef=params["eos_coef"],
-                             iter_per_update=iter_per_update)
+                             iter_per_update=iter_per_update, dp=dp)
     if loss_type == "boxer2d":
         losses = ["boxes", "focal_labels"]
         if params.get("use_mask"):

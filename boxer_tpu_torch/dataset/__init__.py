@@ -40,19 +40,23 @@ def build_dataset(task_name: str, dataset_config, dataset_type: str):
 
 def build_dataloader(dataset, dataset_type: str, batch_size: int,
                      num_workers: int = 2, iter_per_update: int = 1,
-                     seed: int = 0, device=None):
+                     seed: int = 0, device=None, replicas=None, rank=None):
     """The split's loader; its batches are tensors on `device` (CPU by
-    default). The sampler's replicas are the torch.distributed group's
-    processes (1 without a group)."""
+    default). The sampler's replicas are the data shards (`replicas`, this
+    one `rank`: the trainer's dp axis; by default the torch.distributed
+    group's processes, 1 without a group)."""
     from boxer_tpu_torch.dataset.helper.loader import DataLoader
     from boxer_tpu_torch.dataset.helper.sampler import DistributedSampler
 
     dist = torch.distributed
     grouped = dist.is_available() and dist.is_initialized()
+    if replicas is None:
+        replicas = dist.get_world_size() if grouped else 1
+        rank = dist.get_rank() if grouped else 0
     sampler = DistributedSampler(
         len(dataset),
-        num_replicas=dist.get_world_size() if grouped else 1,
-        rank=dist.get_rank() if grouped else 0,
+        num_replicas=replicas,
+        rank=rank,
         shuffle=(dataset_type == "train"),
         seed=seed,
     )

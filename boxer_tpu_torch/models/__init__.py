@@ -6,6 +6,8 @@ constructors' `from_config` reads the JAX package's config keys); its
 weights are filled by the caller.
 """
 
+import inspect
+
 from boxer_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
@@ -13,10 +15,23 @@ def register_model(name):
     return MODEL_REGISTRY.register(name)
 
 
-def build_model(config, num_classes: int):
-    """config: the per-model config node (e.g. config.model_config.boxer2d)."""
-    return MODEL_REGISTRY.get(config.get("type")).from_config(config,
-                                                             num_classes)
+def check_seq_shard(config):
+    """Raise ValueError unless the model of `config` takes `seq_shard`
+    (sequence parallelism): only BoxeR-2D does, as in the JAX package,
+    where BoxeR-3D's and DETR's `from_config` reject it."""
+    cls = MODEL_REGISTRY.get(config.get("type"))
+    if "seq_shard" not in inspect.signature(cls.from_config).parameters:
+        raise ValueError(f"{config.get('type')} has no sequence "
+                         "parallelism (distributed.sp > 1): only boxer2d "
+                         "shards its encoder tokens")
+
+
+def build_model(config, num_classes: int, seq_shard: bool = False):
+    """config: the per-model config node (e.g. config.model_config.boxer2d).
+    `seq_shard` goes only to a model that takes it (`check_seq_shard`)."""
+    kwargs = {"seq_shard": True} if seq_shard else {}
+    return MODEL_REGISTRY.get(config.get("type")).from_config(
+        config, num_classes, **kwargs)
 
 
 # populate registry

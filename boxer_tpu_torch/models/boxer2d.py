@@ -35,7 +35,10 @@ class BoxeR2D(nn.Module):
                  aux_loss: bool = True, use_mask: bool = False,
                  ref_size: int = 4, residual_mode: str = "v1",
                  backbone_arch: str = "resnet50",
-                 position_encoding: str = "fixed_box"):
+                 position_encoding: str = "fixed_box",
+                 seq_shard: bool = False):
+        """seq_shard: the encoder's tokens split over sp (the sp axis set
+        by `parallel/sharding.py:shard_model`)."""
         super().__init__()
         self.dropout = dropout
         self.hidden_dim, self.num_level = hidden_dim, num_level
@@ -59,17 +62,18 @@ class BoxeR2D(nn.Module):
             num_encoder_layers=enc_layers, num_decoder_layers=dec_layers,
             dim_feedforward=dim_feedforward, num_queries=num_queries,
             use_mask=use_mask, ref_size=ref_size, residual_mode=residual_mode,
-            dropout=dropout)
+            dropout=dropout, seq_shard=seq_shard)
         self.enc_detector = Detector(hidden_dim, 1, aux_loss=False)
         self.detector = Detector(hidden_dim, num_classes, aux_loss,
                                  mask_mode="mask_v1" if use_mask else "none")
         name_sites(self)
 
     @classmethod
-    def from_config(cls, config, num_classes: int):
+    def from_config(cls, config, num_classes: int, seq_shard: bool = False):
         t = config["transformer"]["params"]
         bb = config["backbone"]
         return cls(
+            seq_shard=seq_shard,
             num_classes=num_classes,
             hidden_dim=config["hidden_dim"],
             nhead=t["nhead"],

@@ -4,6 +4,17 @@
 Parameter names are the reference e2edet ones: `linear_box_weight`,
 `linear_box_bias`, `linear_attn_weight`, `linear_attn_bias` as raw
 parameters, `value_proj` and `out_proj` as Linears.
+
+Tensor parallel (`tp`, the mp axis, set by `parallel/sharding.py:
+shard_model`): a rank holds `num_head` = H / mp heads: its rows of
+`value_proj`, `linear_box_*` and `linear_attn_*` (head-major, as the
+reshapes below read them) and its columns of `out_proj`, a `RowLinear`
+that sums the heads' products over mp, and its heads' reference windows
+where they are given per head. The query and the value enter through
+`copy_to_mp`. Sequence parallel: with `tokens` (`parallel/
+collectives.py:Tokens`) the value holds this rank's tokens and is
+gathered over sp after `value_proj`, so this rank's queries sample the
+whole quad tables.
 """
 
 import math
@@ -17,6 +28,8 @@ from torch import nn
 from boxer_tpu_torch.nn.init import uniform_, xavier_uniform_
 from boxer_tpu_torch.ops.box_attention import (box_attention_qminor,
                                                instance_attention_qminor)
+from boxer_tpu_torch.parallel.collectives import (RowLinear, column_input,
+                                                  gather_tokens)
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -36,7 +49,7 @@ def make_kernel_indices(kernel_size: int, divisor: Optional[float] = None):
     return torch.from_numpy(k.astype(np.float32))
 
 
-class HeadMergeDense(nn.Linear):
+class HeadMergeDense(RowLinear):
     """Output projection that also takes the sampling op's raw
     (B, H, LQ, C) layout (`raw`)."""
 
@@ -92,6 +105,7 @@ def _where_to_attend(module, query, v_valid_ratios, ref_windows):
 
 class _SamplingAttention(nn.Module):
     """Parameters shared by box and instance attention."""
+    tp = None
 
     def __init__(self, d_model: int, num_level: int, num_head: int,
                  kernel_size: int, n_attn: int, num_variable: int = 4):
@@ -118,11 +132,25 @@ class _SamplingAttention(nn.Module):
         self.linear_attn_weight.data.zero_()
         self.linear_attn_bias.data.zero_()
 
-    def _project_value(self, value, v_mask):
-        b, l2 = value.shape[:2]
+    def _enter(self, query, value):
+        """query and value as the column-parallel projections take them."""
+        return column_input(query, self.tp), column_input(value, self.tp)
+
+    def _own_heads(self, ref_windows):
+        """Reference windows given per head, (B, LQ, H, D): this rank's."""
+        if self.tp is None or ref_windows.dim() == 3:
+            return ref_windows
+        return ref_windows.narrow(2, self.tp.index * self.num_head,
+                                  self.num_head)
+
+    def _project_value(self, value, v_mask, tokens=None):
+        """(B, S, heads, Ch); with `tokens` gathered over sp."""
         value = self.value_proj(value)
         if v_mask is not None:
             value = value.masked_fill(v_mask[..., None], 0.0)
+        if tokens is not None:
+            value = gather_tokens(value, tokens)
+        b, l2 = value.shape[:2]
         return value.reshape(b, l2, self.num_head, self.head_dim)
 
 
@@ -136,17 +164,20 @@ class BoxAttention(_SamplingAttention):
         self.num_point = kernel_size ** 2
 
     def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
-                ref_windows, fold=None):
+                ref_windows, fold=None, tokens=None):
         """fold=True: the inference sampling path; fold=None (or False):
-        the differentiable training path (see `box_attention_qminor`)."""
+        the differentiable training path (see `box_attention_qminor`).
+        tokens: the value's token axis split over sp (the encoder's)."""
         b, l1 = query.shape[:2]
-        value = self._project_value(value, v_mask)
+        query, value = self._enter(query, value)
+        value = self._project_value(value, v_mask, tokens)
         attn = F.linear(query, self.linear_attn_weight, self.linear_attn_bias)
         attn = torch.softmax(attn.reshape(b, l1, self.num_head, -1).float(),
                              dim=-1)
         attn_q = torch.movedim(attn, 1, -1).reshape(
             b, self.num_head, self.num_level, self.num_point, l1)
-        gx, gy = _where_to_attend(self, query, v_valid_ratios, ref_windows)
+        gx, gy = _where_to_attend(self, query, v_valid_ratios,
+                                  self._own_heads(ref_windows))
         out = box_attention_qminor(value, v_shape, gx, gy, attn_q, raw=True,
                                    fold=fold)
         attn = attn.reshape(b, l1, self.num_head, self.num_level,
@@ -185,6 +216,7 @@ class InstanceAttention(_SamplingAttention):
         b, l1 = query.shape[:2]
         k = self.kernel_size
         nh, nl = self.num_head, self.num_level
+        query, value = self._enter(query, value)
         value = self._project_value(value, v_mask)
 
         attn = F.linear(query, self.linear_attn_weight, self.linear_attn_bias)
@@ -198,7 +230,8 @@ class InstanceAttention(_SamplingAttention):
         spatial_c = (e / (e.sum(dim=2, keepdim=True) * mult)).reshape(
             b, nh, nl, 2, 2, l1)
         spatial = self._expand_quadrant_weights(spatial_c)
-        gx, gy = _where_to_attend(self, query, v_valid_ratios, ref_windows)
+        gx, gy = _where_to_attend(self, query, v_valid_ratios,
+                                  self._own_heads(ref_windows))
 
         if emit_roi:
             # level softmax over L per quadrant (multiplicity cancels)
@@ -262,13 +295,15 @@ class Box3dAttention(_SamplingAttention):
     def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
                 ref_windows):
         b, l1 = query.shape[:2]
+        query, value = self._enter(query, value)
         value = self._project_value(value, v_mask)
         attn = F.linear(query, self.linear_attn_weight, self.linear_attn_bias)
         attn = torch.softmax(attn.reshape(b, l1, self.num_head, -1).float(),
                              dim=-1)
         attn_q = torch.movedim(attn, 1, -1).reshape(
             b, self.num_head, self.num_level, self.num_point, l1)
-        gx, gy = self._where_to_attend(query, v_valid_ratios, ref_windows)
+        gx, gy = self._where_to_attend(query, v_valid_ratios,
+                                       self._own_heads(ref_windows))
         out = box_attention_qminor(value, v_shape, gx, gy, attn_q, raw=True)
         attn = attn.reshape(b, l1, self.num_head, self.num_level,
                             self.num_point)

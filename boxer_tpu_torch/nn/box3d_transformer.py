@@ -10,7 +10,9 @@ port's: `transformer.encoder.layers.{i}`, `transformer.encoder.enc_linear.
 {i}.{self_attn,multihead_attn}`; the encoder head (`enc_detector`) sits at
 the top of the model and is passed in. Dropout at the JAX package's sites
 (`boxer_tpu/nn/box3d_transformer.py:72`, `:96-108`), drawn from the train
-step's key (`nn/dropout.py`); no remat, as in JAX.
+step's key (`nn/dropout.py`); no remat, as in JAX. Tensor parallel as
+the 2D transformer (`nn/box_transformer.py`); no sequence parallel (JAX's
+BoxeR-3D takes no `seq_shard`).
 """
 
 import functools
@@ -18,13 +20,13 @@ import math
 from typing import Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from boxer_tpu_torch.nn.attention import Box3dAttention
 from boxer_tpu_torch.nn.dense_attention import PallasMultiHeadAttention
 from boxer_tpu_torch.nn.dropout import Dropout
 from boxer_tpu_torch.nn.predictor import NEG_INF
+from boxer_tpu_torch.parallel.collectives import RowLinear, feed_forward
 from boxer_tpu_torch.utils.general import (flatten_with_shape,
                                            get_proposal_pos_embed,
                                            inverse_sigmoid, top_k)
@@ -59,6 +61,8 @@ def create_ref_windows_3d(tensor_list, ref_size: int):
 
 
 class Box3dEncoderLayer(nn.Module):
+    tp = None
+
     def __init__(self, d_model: int, nhead: int, nlevel: int,
                  dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
@@ -66,7 +70,7 @@ class Box3dEncoderLayer(nn.Module):
                                         with_rotation=False)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = RowLinear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout)
 
@@ -75,12 +79,13 @@ class Box3dEncoderLayer(nn.Module):
         src2, _ = self.self_attn(src + pos, src, v_shape, None, None,
                                  ref_windows)
         src = self.norm1(src + drop(src2, index=0))
-        src2 = self.linear2(drop(F.relu(self.linear1(src)), index=1))
+        src2 = feed_forward(self, src, key, 1)
         return self.norm2(src + drop(src2, index=2))
 
 
 class Box3dDecoderLayer(nn.Module):
     """Dense self-attention (K3), then rotated box cross-attention."""
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, nlevel: int,
                  dim_feedforward: int, dropout: float = 0.0):
@@ -92,7 +97,7 @@ class Box3dDecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = RowLinear(dim_feedforward, d_model)
         self.dropout = Dropout(dropout)
 
     def forward(self, tgt, query_pos, memory, v_shape: Shapes, ref_windows,
@@ -104,7 +109,7 @@ class Box3dDecoderLayer(nn.Module):
         tgt2, _ = self.multihead_attn(tgt + query_pos, memory, v_shape, None,
                                       None, ref_windows)
         tgt = self.norm2(tgt + drop(tgt2, index=1))
-        tgt2 = self.linear2(drop(F.relu(self.linear1(tgt)), index=2))
+        tgt2 = feed_forward(self, tgt, key, 2)
         return self.norm3(tgt + drop(tgt2, index=3))
 
 

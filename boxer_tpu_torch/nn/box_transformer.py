@@ -22,13 +22,23 @@ keeping_samples`, JAX's `save_only_these_names("box_attn_sample"[,
 recomputed in the backward. The recompute replays the layer's dropout
 masks (they are a function of the key) and does not launch K2 again; the
 decoder's K3 runs again, as JAX's flash attention does under its remat.
+
+Tensor parallel (`parallel/sharding.py:shard_model`): each layer's
+attention runs this rank's heads and its FFN this rank's hidden features
+(`linear1` column-, `linear2` row-parallel). Sequence parallel (`seq_shard`,
+JAX's `:386-392`, `:421-422`): with the sp axis set (`sp`), the encoder
+runs this rank's slice of the flattened tokens (padded to a multiple of
+sp; the pad never reaches a value table, a proposal or a loss), each box
+attention gathering its projected value over sp, and its output is
+gathered at the exit; proposals, the decoder and the heads run on the
+whole sequence on every sp rank. Under remat the recompute gathers the
+value again.
 """
 
 import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -39,6 +49,9 @@ from boxer_tpu_torch.nn.dropout import Dropout
 from boxer_tpu_torch.nn.position_encoding import box_windows
 from boxer_tpu_torch.nn.predictor import NEG_INF
 from boxer_tpu_torch.ops.box_attention import keeping_samples
+from boxer_tpu_torch.parallel.collectives import (RowLinear, Tokens,
+                                                  feed_forward, gather_tokens,
+                                                  slice_tokens)
 from boxer_tpu_torch.utils.general import (flatten_with_shape,
                                            get_proposal_pos_embed,
                                            inverse_sigmoid, top_k)
@@ -81,24 +94,29 @@ def create_valid_ratios(mask_list):
 
 
 class EncoderLayer(nn.Module):
+    tp = None
+
     def __init__(self, d_model: int, nhead: int, nlevel: int,
                  dim_feedforward: int, dropout: float = 0.0):
         super().__init__()
         self.self_attn = BoxAttention(d_model, nlevel, nhead)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = RowLinear(dim_feedforward, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout)
 
     def forward(self, src, pos, v_shape: Shapes, src_mask, valid_ratios,
-                ref_windows, fold=None, key=None):
-        drop = functools.partial(self.dropout, key=key)
+                ref_windows, fold=None, key=None, tokens=None):
+        """tokens: src, pos, src_mask and ref_windows hold this rank's
+        slice of the token axis (sequence parallel)."""
+        parts = () if tokens is None else ((1, tokens.start, tokens.n),)
+        drop = functools.partial(self.dropout, key=key, parts=parts)
         q = src if pos is None else src + pos
         src2, _ = self.self_attn(q, src, v_shape, src_mask, valid_ratios,
-                                 ref_windows, fold=fold)
+                                 ref_windows, fold=fold, tokens=tokens)
         src = self.norm1(src + drop(src2, index=0))
-        src2 = self.linear2(drop(F.relu(self.linear1(src)), index=1))
+        src2 = feed_forward(self, src, key, 1, parts)
         return self.norm2(src + drop(src2, index=2))
 
 
@@ -107,6 +125,7 @@ class DecoderLayer(nn.Module):
     (the raw RoI and the residual carriers are returned, and `decode_roi`
     runs the RoI tail on a selected-query subset). train=True takes the
     differentiable sampling paths."""
+    tp = None
 
     def __init__(self, d_model: int, nhead: int, nlevel: int,
                  dim_feedforward: int, use_mask: bool,
@@ -122,13 +141,12 @@ class DecoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = RowLinear(dim_feedforward, d_model)
         self.dropout = Dropout(dropout)
 
     def _ffn(self, x, key=None, index: int = 0):
         """linear2(drop(relu(linear1(x)))), draw `index` inside."""
-        return self.linear2(self.dropout(F.relu(self.linear1(x)), key,
-                                         index))
+        return feed_forward(self, x, key, index)
 
     def forward(self, tgt, query_pos, memory, v_shape: Shapes, memory_mask,
                 valid_ratios, ref_windows, emit_roi=False, train: bool = False,
@@ -205,11 +223,14 @@ class BoxTransformer(nn.Module):
                  dim_feedforward: int = 1024, num_queries: int = 300,
                  use_mask: bool = False, ref_size: int = 4,
                  residual_mode: str = "v1", dropout: float = 0.0,
-                 remat: bool = True):
+                 remat: bool = True, seq_shard: bool = False):
         super().__init__()
         self.d_model, self.num_queries = d_model, num_queries
         self.use_mask, self.ref_size = use_mask, ref_size
         self.remat = remat
+        # the sp axis (`parallel/sharding.py:shard_model`); a model built
+        # with seq_shard refuses to run without one
+        self.seq_shard, self.sp = seq_shard, None
         self.encoder = _Encoder(d_model, nhead, nlevel, dim_feedforward,
                                 num_encoder_layers, dropout)
         self.decoder = _Decoder(d_model, nhead, nlevel, dim_feedforward,
@@ -319,13 +340,29 @@ class BoxTransformer(nn.Module):
         # use_mask (`boxer_tpu/nn/box_transformer.py:394-412`, `:439-453`)
         enc_remat = self.remat and train and torch.is_grad_enabled()
         dec_remat = enc_remat and self.use_mask
-        output = src
+        tokens = None
+        enc_in = (src, src_pos, src_mask, src_ref_windows)
+        if self.seq_shard:
+            if self.sp is None:
+                raise RuntimeError(
+                    "a model built with seq_shard runs only on a layout "
+                    "with sp > 1: shard it first (parallel/sharding.py:"
+                    "shard_model); it does not run unsharded")
+            tokens = Tokens(self.sp, src.shape[1])
+            # pad tokens: masked, mid-canvas windows; dropped at the gathers
+            enc_in = tuple(None if t is None else slice_tokens(
+                t, tokens, pad_value=pad) for t, pad in zip(
+                    enc_in, (0.0, 0.0, True, 0.5)))
+        output, enc_pos, enc_mask, enc_ref = enc_in
         for layer in self.encoder.layers:
-            args = (output, src_pos, v_shape, src_mask, valid_ratios,
-                    src_ref_windows)
-            kw = dict(fold=True if inference else None, key=dropout_key)
+            args = (output, enc_pos, v_shape, enc_mask, valid_ratios,
+                    enc_ref)
+            kw = dict(fold=True if inference else None, key=dropout_key,
+                      tokens=tokens)
             output = remat(layer, *args, **kw) if enc_remat else layer(
                 *args, **kw)
+        if tokens is not None:
+            output = gather_tokens(output, tokens)
 
         tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
             enc_detector, output, src_mask, src_ref_windows)

@@ -1,13 +1,19 @@
 """Keyed dropout: the port's counterpart of flax's `nn.Dropout`, with a key
 in place of an RNG stream.
 
-A `DropoutKey` holds (seed, update, microbatch, rank, world size): the train
-step makes one a microbatch (`parallel/steps.py`). Every dropout site
-draws its mask from a generator seeded from (the key, the site's module
-path, the draw's index at that site), so a recompute under remat, a resume
-and a rerun all give the same mask, whatever generator state came before,
-and ranks, microbatches and updates draw different masks. On a CUDA tensor
-the generator is a CUDA `torch.Generator`: the mask is drawn on the card.
+A `DropoutKey` holds (seed, update, microbatch, rank, world size), the rank
+and size on the data-parallel axis: the train step makes one a microbatch
+(`parallel/steps.py`). Every dropout site draws its mask from a generator
+seeded from (the key, the site's module path, the draw's index at that
+site), so a recompute under remat, a resume and a rerun all give the same
+mask, whatever generator state came before, and data shards, microbatches
+and updates draw different masks. On a CUDA tensor the generator is a CUDA
+`torch.Generator`: the mask is drawn on the card.
+
+A site on an activation that a rank holds only a part of (the FFN hidden
+features under mp, the encoder's tokens under sp) draws the whole
+activation's mask and takes its part (`parts`), so a run at (dp, sp, mp)
+draws the masks of a run at (dp, 1, 1).
 
 The arithmetic is flax's: `where(keep, x / keep_prob, 0)` with `keep =
 uniform < keep_prob` (`flax/linen/stochastic.py`). A site draws nothing
@@ -77,21 +83,38 @@ class Dropout(nn.Module):
     def active(self, key: Optional[DropoutKey]) -> bool:
         return key is not None and self.rate > 0
 
-    def keep(self, key: DropoutKey, shape, device, index: int = 0):
-        """The bool keep mask of draw `index` at this site."""
+    def keep(self, key: DropoutKey, shape, device, index: int = 0,
+             parts=()):
+        """The bool keep mask of draw `index` at this site. parts: ((dim,
+        start, whole), ...): `shape` is the part from `start` of an
+        activation `whole` long on `dim`, which may run past its end (pad
+        tokens, kept)."""
+        whole = list(shape)
+        for dim, _, n in parts:
+            whole[dim] = n
         site = f"{self.site}:{index}"
         if _supplied is not None:
-            return _supplied(site, tuple(shape)).to(device)
-        if self.site is None:
+            mask = _supplied(site, tuple(whole)).to(device)
+        elif self.site is None:
             raise ValueError("a dropout site without a name: call "
                              "name_sites on the model that holds it")
-        g = key.generator(site, device)
-        return torch.rand(tuple(shape), generator=g, device=device) < (
-            1.0 - self.rate)
+        else:
+            g = key.generator(site, device)
+            mask = torch.rand(tuple(whole), generator=g, device=device) < (
+                1.0 - self.rate)
+        for dim, start, _ in parts:
+            stop = start + shape[dim]
+            if stop > mask.shape[dim]:
+                pad = list(mask.shape)
+                pad[dim] = stop - mask.shape[dim]
+                mask = torch.cat([mask, mask.new_ones(pad)], dim=dim)
+            mask = mask.narrow(dim, start, shape[dim])
+        return mask
 
-    def forward(self, x, key: Optional[DropoutKey], index: int = 0):
+    def forward(self, x, key: Optional[DropoutKey], index: int = 0,
+                parts=()):
         if not self.active(key):
             return x
-        keep = self.keep(key, x.shape, x.device, index)
+        keep = self.keep(key, x.shape, x.device, index, parts)
         return torch.where(keep, x / (1.0 - self.rate),
                            torch.zeros((), dtype=x.dtype, device=x.device))

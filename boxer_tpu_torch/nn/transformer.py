@@ -15,29 +15,35 @@ excluded. The JAX package turns it round twice (`key_mask = ~mask` at
 hands flax's attention, which attends where its mask is True, the padded
 keys alone: with no padding it attends to no key. The port follows the
 reference (`ROADMAP.md` section 3, "Known divergences").
+
+Tensor parallel as the BoxeR transformers (`nn/box_transformer.py`): each
+attention runs this rank's heads, each FFN its hidden features. No
+sequence parallel (JAX's DETR takes no `seq_shard`).
 """
 
 import functools
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from boxer_tpu_torch.nn.dense_attention import MultiHeadAttention
 from boxer_tpu_torch.nn.dropout import Dropout
+from boxer_tpu_torch.parallel.collectives import RowLinear, feed_forward
 
 LN_EPS = 1e-6       # flax LayerNorm's epsilon
 
 
 class TransformerEncoderLayer(nn.Module):
+    tp = None
+
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float, normalize_before: bool = False):
         super().__init__()
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = RowLinear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout)
@@ -50,7 +56,7 @@ class TransformerEncoderLayer(nn.Module):
             return self.self_attn(q, q, x, key_padding_mask, dropout_key=key)
 
         def ffn(x):
-            return self.linear2(drop(F.relu(self.linear1(x)), index=1))
+            return feed_forward(self, x, key, 1)
 
         if self.normalize_before:
             src = src + drop(attn(self.norm1(src)), index=0)
@@ -60,6 +66,8 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class TransformerDecoderLayer(nn.Module):
+    tp = None
+
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  dropout: float, normalize_before: bool = False):
         super().__init__()
@@ -67,7 +75,7 @@ class TransformerDecoderLayer(nn.Module):
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.multihead_attn = MultiHeadAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear2 = RowLinear(dim_feedforward, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
@@ -88,7 +96,7 @@ class TransformerDecoderLayer(nn.Module):
                                        dropout_key=key)
 
         def ffn(x):
-            return self.linear2(drop(F.relu(self.linear1(x)), index=2))
+            return feed_forward(self, x, key, 2)
 
         if self.normalize_before:
             tgt = tgt + drop(self_block(self.norm1(tgt)), index=0)

@@ -160,11 +160,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(tensors, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(tensors, max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scale the tensors in place by min(1, max_norm / (norm + 1e-6));
-    max_norm <= 0 leaves them. Returns the norm before clipping."""
+    max_norm <= 0 leaves them. `norm` (default: the tensors' global norm)
+    is the norm of the whole gradient, where a rank holds only a part.
+    Returns the norm before clipping."""
     tensors = list(tensors)
-    norm = global_norm(tensors)
+    if norm is None:
+        norm = global_norm(tensors)
     if max_norm is not None and max_norm > 0:
         scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
         for t in tensors:

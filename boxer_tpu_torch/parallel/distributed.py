@@ -11,7 +11,8 @@ world of one process and communicates nothing.
   (a process group exists, whatever its size);
 - `synchronize` (a barrier), `all_gather` / `gather` of picklables,
   `broadcast_scalar`, `reduce_dict`, `shared_random_seed`; `broadcast`
-  and `all_reduce_sum` of a tensor, in place;
+  and `all_reduce_sum` of a tensor, in place (`all_reduce_sum` over a
+  group of the layout, `parallel/mesh.py`, too);
 - `initialize_if_needed`: joins the group that torchrun's environment
   describes (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR`,
   `MASTER_PORT`);
@@ -99,11 +100,11 @@ def broadcast(tensor: torch.Tensor, src: int = 0) -> torch.Tensor:
     return tensor
 
 
-def all_reduce_sum(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum `tensor` over the ranks in place and return it (as it is
-    without a group)."""
+def all_reduce_sum(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum `tensor` over the ranks (of `group`, by default the world's) in
+    place and return it (as it is without a process group)."""
     if is_dist_avail_and_initialized():
-        dist.all_reduce(tensor, op=dist.ReduceOp.SUM)
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM, group=group)
     return tensor
 
 

@@ -14,20 +14,24 @@ lidar pkl, the GT database of `tools/preprocess/create_gt_database.py`).
 files exist), val, or test. Without a card `--device cuda` (the default)
 raises before it builds anything; `--device cpu` runs on the CPU.
 
-Data parallel, one process a card, the config's global `batch_size`
-split over the processes:
-- the processes are `distributed.dp`, or `distributed.world_size` when dp
-  is null (the shipped default: `${device_count:}`, every visible card on
-  cuda, 1 on cpu);
+Parallel, one process a card, on the layout of `distributed.{dp,sp,mp}`
+(`parallel/mesh.py`): the config's global `batch_size` split over dp,
+BoxeR-2D's encoder tokens over sp, attention heads and FFN features over
+mp:
+- the processes are dp * sp * mp, or `distributed.world_size` when dp is
+  null (the shipped default: `${device_count:}`, every visible card on
+  cuda, 1 on cpu), dp then the world over sp * mp;
 - at one process it trains in this process, with no process group;
 - at more, it spawns one process a card (NCCL on cuda; a number above the
   visible cards raises) or, with `--device cpu`, one process a rank over
-  gloo (`--device cpu distributed.dp=2`);
+  gloo (`--device cpu distributed.dp=2`, `--device cpu distributed.dp=1
+  distributed.sp=2 distributed.mp=2`);
 - under torchrun (its environment set: `torchrun --nproc-per-node 8 -m
   boxer_tpu_torch.tools.run ...`, across nodes with `--nnodes` and a
   rendezvous) each process joins torchrun's group and trains as its rank.
 `--model detr` trains DETR from `config/COCO-Detection/detr_r50.yaml`.
-The `mp`/`sp` axes raise NotImplementedError, naming their ROADMAP item.
+BoxeR-3D and DETR take mp but not sp (ValueError, as the JAX package
+rejects `seq_shard` for them).
 """
 
 import argparse

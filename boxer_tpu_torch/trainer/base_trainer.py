@@ -5,13 +5,17 @@ device/logger/datasets/model/optimizer, train loop until max_update,
 interval-driven checkpoint/eval, resume, inference), as the JAX package
 restructures it around one train step. One process drives one device:
 `cuda` (the default: the process's current card) or `cpu`, chosen by the
-caller and never by fallback. Data parallel: in a `torch.distributed`
-process group (`parallel/distributed.py:launch` or torchrun) every process
-is one rank, with the config's global `batch_size` split evenly over the
-ranks, one seed drawn on rank 0, rank 0's weights, and, with
-`distributed.zero1` (the default) at more than one rank, the optimizer
-state sharded over the ranks (`parallel/sharding.py`). Without a group
-the trainer runs alone, as it always has.
+caller and never by fallback. In a `torch.distributed` process group
+(`parallel/distributed.py:launch` or torchrun) every process is one rank
+of the layout `distributed.{dp,sp,mp}` gives (`parallel/mesh.py`, as the
+JAX trainer builds its mesh from them): the config's global `batch_size`
+split evenly over dp, one seed drawn on rank 0, rank 0's weights cut to
+this rank's part (`parallel/sharding.py:shard_model`, after the model is
+built, where the JAX trainer declares sp), and, with `distributed.zero1`
+(the default) at dp above 1, the optimizer state sharded over dp. Train,
+eval and inference all run on the layout. Checkpoints hold the whole
+model and optimizer state, so a run resumes at any layout. Without a
+group the trainer runs alone, as it always has.
 """
 
 import os
@@ -22,11 +26,11 @@ import torch
 from boxer_tpu_torch.criterion.losses import build_loss
 from boxer_tpu_torch.criterion.metrics import build_metrics
 from boxer_tpu_torch.dataset import build_dataloader, build_dataset
-from boxer_tpu_torch.models import build_model
+from boxer_tpu_torch.models import build_model, check_seq_shard
 from boxer_tpu_torch.optim import build_optimizer, build_schedule
 from boxer_tpu_torch.parallel import distributed
-from boxer_tpu_torch.parallel.mesh import resolve_dp
-from boxer_tpu_torch.parallel.sharding import zero1
+from boxer_tpu_torch.parallel.mesh import create_layout
+from boxer_tpu_torch.parallel.sharding import shard_model, zero1
 from boxer_tpu_torch.parallel.steps import (TrainState, make_eval_step,
                                             make_inference_step,
                                             make_train_step)
@@ -64,12 +68,16 @@ def resolve_device(device: str) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def check_ported(config):
-    """Raise on a parallel layout this run's processes cannot hold
-    (`parallel/mesh.py:resolve_dp`)."""
+def check_layout(config):
+    """The run's layout (`parallel/mesh.py:create_layout`, its groups made
+    here); ValueError when the model cannot take it (sp > 1 on a model
+    without sequence parallelism) or this run's processes cannot hold
+    it."""
     dist = config.get("distributed", {}) or {}
-    resolve_dp(distributed.get_world_size(), dist.get("dp"),
-               dist.get("mp", 1), dist.get("sp", 1))
+    if int(dist.get("sp", 1) or 1) > 1:
+        check_seq_shard(config.model_config[config.get("model")])
+    return create_layout(dist.get("dp"), dist.get("mp", 1),
+                         dist.get("sp", 1))
 
 
 @register_trainer("base_trainer")
@@ -78,7 +86,7 @@ class BaseTrainer:
         self.configuration = configuration
         self.config = configuration.get_config()
         self.running_config = self.config.training
-        check_ported(self.config)
+        self.layout = check_layout(self.config)
         self.device = resolve_device(device)
         self.rank = distributed.get_rank()
         self.world_size = distributed.get_world_size()
@@ -104,8 +112,10 @@ class BaseTrainer:
             # the same sampler order
             seed = distributed.shared_random_seed(1, 100000)
         self.seed = int(seed)
+        lay = self.layout
         self.logger.info(f"device: {self.device} seed={self.seed} ranks="
-                         f"{self.world_size}")
+                         f"{self.world_size} (dp={lay.dp.size} "
+                         f"sp={lay.sp.size} mp={lay.mp.size})")
 
         self.load_task()
         self.load_model_and_optimizer()
@@ -122,15 +132,16 @@ class BaseTrainer:
         bs = int(self.running_config.get("batch_size", 16))
         ipu = int(self.running_config.get("iter_per_update", 1))
         workers = int(self.running_config.get("num_workers", 2))
-        if bs % (self.world_size * ipu):
+        dp = self.layout.dp
+        if bs % (dp.size * ipu):
             raise ValueError(
                 f"training.batch_size {bs} (the global batch) does not "
-                f"split into {self.world_size} ranks x iter_per_update "
+                f"split into {dp.size} data shards x iter_per_update "
                 f"{ipu} microbatches")
-        # each rank loads its share of the global batch (of a BoxeR-3D
-        # update, bs // world // ipu frames a microbatch: the JAX trainer's
-        # static batch)
-        bs //= self.world_size
+        # each data shard loads its share of the global batch (of a
+        # BoxeR-3D update, bs // dp // ipu frames a microbatch: the JAX
+        # trainer's static batch)
+        bs //= dp.size
         for split in ("train", "val", "test"):
             if split not in run_type:
                 continue
@@ -141,7 +152,8 @@ class BaseTrainer:
             self.loaders[split] = build_dataloader(
                 ds, split, batch_size=bs, num_workers=workers,
                 iter_per_update=ipu if split == "train" else 1,
-                seed=self.seed, device=self.device)
+                seed=self.seed, device=self.device, replicas=dp.size,
+                rank=dp.index)
         if not self.datasets:
             raise RuntimeError("No datasets loaded")
         self.num_classes = self.datasets.get(
@@ -154,7 +166,9 @@ class BaseTrainer:
         mixed = rc.get("mixed_precision", "bfloat16")
         self.compute_dtype = (torch.bfloat16 if mixed == "bfloat16"
                               else torch.float32)
-        model = build_model(model_cfg, self.num_classes).init_weights(
+        layout = self.layout
+        model = build_model(model_cfg, self.num_classes,
+                            seq_shard=layout.sp.size > 1).init_weights(
             self.seed)
         bb_cfg = model_cfg.get("backbone")
         ppath = bb_cfg["params"].get("pretrained_path") if bb_cfg else None
@@ -165,9 +179,10 @@ class BaseTrainer:
         if distributed.is_dist_avail_and_initialized():
             for t in model.state_dict().values():
                 distributed.broadcast(t)
+        shard_model(model, layout)
         self.criterion = build_loss(
             model_cfg["loss"], self.num_classes,
-            int(rc.get("iter_per_update", 1)))
+            int(rc.get("iter_per_update", 1)), dp=layout.dp)
 
         opt_cfg = self.config.get("optimizer", {}).to_dict()
         opt_cfg.setdefault("params", {})
@@ -186,8 +201,8 @@ class BaseTrainer:
             schedule = build_schedule(sched_cfg, base_lr)
         optimizer = build_optimizer(opt_cfg, model)
         dist_cfg = self.config.get("distributed", {}) or {}
-        if dist_cfg.get("zero1", True) and self.world_size > 1:
-            optimizer = zero1(optimizer)
+        if dist_cfg.get("zero1", True) and layout.dp.size > 1:
+            optimizer = zero1(optimizer, layout.dp.group)
         self.state = TrainState(model, optimizer, schedule)
 
         self._train_step = make_train_step(
@@ -196,14 +211,15 @@ class BaseTrainer:
             metrics=build_metrics(model_cfg.get("metric")),
             # the dropout key's seed, as JAX's PRNGKey(seed + 7)
             # (`boxer_tpu/trainer/base_trainer.py:285`)
-            dropout_seed=self.seed + 7)
+            dropout_seed=self.seed + 7, layout=layout)
         # the engine reads only the outputs of a val batch, so the eval step
         # computes no losses
         self._eval_step = make_eval_step(self.compute_dtype)
         self._inference_step = make_inference_step(self.compute_dtype)
 
         n_params = sum(p.numel() for p in model.parameters())
-        self.logger.info(f"Model parameters: {n_params / 1e6:.1f}M")
+        self.logger.info(f"Model parameters: {n_params / 1e6:.1f}M on "
+                         "this rank")
 
     # ------------------------------------------------------------------
     def _init_intervals_and_checkpoint(self):
@@ -229,7 +245,7 @@ class BaseTrainer:
 
         self.checkpoint = Checkpoint(
             self.save_dir, num_checkpoint=int(rc.get("num_checkpoint", 1)),
-            device=self.device)
+            device=self.device, layout=self.layout)
         self.checkpoint.save_config(self.config)
 
         if rc.get("resume") or rc.get("resume_file"):
@@ -239,16 +255,16 @@ class BaseTrainer:
                 self.current_epoch = int(extra["epoch"])
                 self.epoch_batches_done = int(extra["epoch_batches"])
                 draws = extra.get("draw_states")
+                dp = self.layout.dp
                 if "train" in self.loaders and draws is not None:
-                    if len(draws) != self.world_size:
+                    if len(draws) != dp.size:
                         raise ValueError(
                             f"the checkpoint holds the GT-database draws of "
-                            f"{len(draws)} ranks; this run has "
-                            f"{self.world_size}: resume it at "
-                            f"{len(draws)} processes")
+                            f"{len(draws)} data shards; this run has "
+                            f"{dp.size}: resume it at dp={len(draws)}")
                     self.loaders["train"].draw_state = {
                         name: (order.cpu(), idx)
-                        for name, (order, idx) in draws[self.rank].items()}
+                        for name, (order, idx) in draws[dp.index].items()}
                 if ("train" in self.loaders and self.epoch_batches_done
                         >= len(self.loaders["train"])):
                     # saved on an epoch's last batch: resume at the next
@@ -265,14 +281,17 @@ class BaseTrainer:
         update skipped on a non-finite gradient or a save on an epoch's
         last batch replays exactly (the global batch is fixed, so the
         position in updates holds at any world size); and, where the train
-        loader draws from a GT database, every rank's draws' state after
-        the last batch taken, in rank order. Every rank calls it."""
+        loader draws from a GT database, each data shard's draws' state
+        after the last batch taken, in dp order (from the shard's lead
+        rank: its sp and mp ranks load the same batches). Every rank calls
+        it."""
         extra = {"epoch": self.current_epoch, "update": self.current_update,
                  "epoch_batches": self.epoch_batches_done,
                  "world_size": self.world_size}
         train = self.loaders.get("train")
-        draws = distributed.all_gather(None if train is None
-                                       else train.draw_state)
+        draws = [d for lead, d in distributed.all_gather(
+            (self.layout.leads_shard,
+             None if train is None else train.draw_state)) if lead]
         if any(d is not None for d in draws):
             extra["draw_states"] = draws
         return extra

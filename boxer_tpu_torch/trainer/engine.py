@@ -7,11 +7,14 @@ accumulation + dump, :20-123), per-interval meters/ups/ETA reporting
 (:246-299). The train step hands back its stats
 as host floats, read from the device in one copy a step (it needs the
 gradient norm on the host for the NaN skip); the loop adds no sync.
-Data parallel: every rank runs the loop and each eval on its shard of the
-split; the records are gathered over the ranks (an image or frame the
-sampler's padding gives twice keeps its first record), rank 0 writes the
-result files, and every rank returns the same metrics. The log, the
-scalars and the trace are rank 0's.
+In a process group every rank runs the loop and each eval on its data
+shard of the split (the ranks of a shard, which differ in sp and mp, run
+the sharded step together and hold the same outputs: only the shard's
+first, `Layout.leads_shard`, formats and keeps its records); the records
+are gathered over the ranks (an image or frame the sampler's padding gives
+twice keeps its first record), rank 0 writes the result files, and every
+rank returns the same metrics. The log, the scalars and the trace are
+rank 0's.
 """
 
 import json
@@ -139,6 +142,7 @@ def evaluate(split: str, trainer):
         iou_types.append("segm")
     evaluator = None if is_test else CocoEvaluator(dataset.coco, iou_types)
     accumulated = {}
+    lead = trainer.layout.leads_shard
 
     t0 = time.perf_counter()
     n_batches = 0
@@ -149,6 +153,9 @@ def evaluate(split: str, trainer):
             out = trainer._inference_step(trainer.state, squeezed)
         else:
             out = trainer._eval_step(trainer.state, squeezed)
+        n_batches += 1
+        if not lead:
+            continue
         # numpy has no bf16: cast on the device, then one copy per output
         out_np = {k: v.float().cpu().numpy()
                   for k, v in _strip_aux(out).items()}
@@ -156,7 +163,6 @@ def evaluate(split: str, trainer):
         # just drop the rles (the mask paste is the expensive part)
         preds = dataset.format_for_evalai(
             out_np, meta, return_rles=("segm" in iou_types))
-        n_batches += 1
 
         if is_test:
             accumulated.update(preds)
@@ -202,7 +208,8 @@ def _evaluate_3d(split, trainer, loader, dataset, is_test):
         meta = batch.pop("meta")
         out = trainer._inference_step(trainer.state,
                                       _squeeze_microbatch(batch))
-        accumulated.update(dataset.format_for_evalai(out, meta))
+        if trainer.layout.leads_shard:
+            accumulated.update(dataset.format_for_evalai(out, meta))
     accumulated = _merge_first(distributed.all_gather(accumulated))
     path = distributed.broadcast_scalar(
         dataset.prepare_for_evaluation(accumulated, trainer.save_dir)

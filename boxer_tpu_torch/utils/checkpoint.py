@@ -9,12 +9,13 @@ optimizer, update, epoch} (:160-192), latest-checkpoint resume (:112-140),
 Files under `save_dir`: `checkpoints/model_<update>.pth` holding {"model":
 state_dict, "optimizer": state_dict, "step": completed updates, "extra":
 the trainer's metadata}, the newest `num_checkpoint` kept; `model_final`,
-the model's state_dict alone; `config.yaml`. Data parallel: every rank
-calls `save` and `finalize` (a ZeRO-1 optimizer's state is gathered to rank
-0), rank 0 writes, and the ranks meet at a barrier after; every rank
-restores. The files do not depend on the world size: the model's own
-keys and a plain optimizer's state_dict, so a checkpoint resumes at any
-number of ranks.
+the model's state_dict alone; `config.yaml`. In a process group every
+rank calls `save` and `finalize` (a ZeRO-1 optimizer's state is gathered
+over dp, the mp parts of the model and its moments over mp:
+`parallel/sharding.py`), rank 0 writes, and the ranks meet at a barrier
+after; every rank restores, cutting the whole state to its part. The
+files do not depend on the layout: the whole model's own keys and a plain
+optimizer's state_dict, so a checkpoint resumes at any (dp, sp, mp).
 """
 
 import os
@@ -25,14 +26,20 @@ import torch
 import yaml
 
 from boxer_tpu_torch.parallel.distributed import is_master, synchronize
-from boxer_tpu_torch.parallel.sharding import optimizer_state_dict
+from boxer_tpu_torch.parallel.mesh import Layout
+from boxer_tpu_torch.parallel.sharding import (gather_state,
+                                               load_optimizer_state,
+                                               optimizer_state_dict,
+                                               param_names, shard_state)
 
 _CKPT_RE = re.compile(r"^model_(\d+)\.pth$")
 
 
 class Checkpoint:
     def __init__(self, save_dir: str, num_checkpoint: int = 5,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 layout: Optional[Layout] = None):
+        self.layout = layout or Layout()
         self.save_dir = os.path.abspath(save_dir)
         self.ckpt_dir = os.path.join(self.save_dir, "checkpoints")
         self.num_checkpoint = max(1, num_checkpoint)
@@ -50,10 +57,13 @@ class Checkpoint:
     def save(self, state, update: int, extra: Optional[Dict[str, Any]] = None):
         """state: parallel.steps.TrainState; extra: plain metadata (epoch,
         position in the epoch...). Every rank calls it."""
-        optimizer = optimizer_state_dict(state.optimizer)
+        optimizer = optimizer_state_dict(
+            state.optimizer, self.layout,
+            param_names(state.model, state.optimizer))
+        model = gather_state(state.model.state_dict(), self.layout)
         if is_master():
             _save(self.path(update), {
-                "model": state.model.state_dict(), "optimizer": optimizer,
+                "model": model, "optimizer": optimizer,
                 "step": int(state.step), "extra": extra})
             for old in self.steps()[:-self.num_checkpoint]:
                 os.remove(self.path(old))
@@ -72,8 +82,9 @@ class Checkpoint:
             return None, None
         ckpt = torch.load(self.path(step), map_location=self.device,
                           weights_only=True)
-        state.model.load_state_dict(ckpt["model"])
-        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.model.load_state_dict(shard_state(ckpt["model"], self.layout))
+        load_optimizer_state(state.optimizer, ckpt["optimizer"], self.layout,
+                             param_names(state.model, state.optimizer))
         state.step = int(ckpt["step"])
         return state, ckpt.get("extra")
 
@@ -81,8 +92,9 @@ class Checkpoint:
         """Weights-only export (reference `checkpoint.py:194-196`); every
         rank calls it."""
         path = os.path.join(self.save_dir, name)
+        whole = gather_state(model.state_dict(), self.layout)
         if is_master():
-            _save(path, model.state_dict())
+            _save(path, whole)
         synchronize()
         return path
 

@@ -170,7 +170,31 @@ Run from the root of a checkout:  python3 chip_smoke.py
    boxes and the RLE counts of an 800x1216 mask, each bitwise equal to the
    numpy version, host ms of both; (14c) `tools.analyze` with every task at
    full width (the parameter count equal to the model's), `tools.visualize`
-   and the segmentation demo each writing a PNG of the image's size.
+   and the segmentation demo each writing a PNG of the image's size;
+15. tensor (mp) and sequence (sp) parallelism through the trainer at full
+   width, every rank of a layout on the one card over gloo: (15a) one f32
+   update of the shipped segm config at 256x384 (SGD, no autocast) on two
+   images at mp2, sp2 and sp2 x mp2 against a world-1 update of the same
+   images and weights by phase 12a's rule (stats within 1e-4, the worst
+   leaf within 0.1, every rank's gathered parameters bitwise equal), each
+   rank's launches (world 1's) and its kernels' BH and M, each of K2, K3,
+   K5 and K6 against its plain version on the inputs the update gave it
+   (1e-5, every rank and shape, world 1 too); at sp2 x mp2 the same step
+   with K5/K6 swapped for their plain version (loss terms and leaves
+   within 1e-4) and with K2, K3, K5 and K6 swapped (loss terms 1e-4, the
+   median leaf 1e-4, the worst 0.1), and the inference forward (fold=True:
+   K1, K2, K3) against world 1 and against K1, K2 and K3 swapped (every
+   output within 1e-4, the ranks' outputs bitwise equal); (15b) two bf16
+   updates from the loader at sp2 x mp2 with a checkpoint at update 2
+   equal to the ranks' gathered state, resumed at world 1 bitwise for one
+   more update; (15c) each rank's peak memory at one image a data shard
+   at world 1, mp2, sp2 and sp2 x mp2, every collective's calls, bytes and
+   host ms a rank and update, ms per update (gloo stages the tensors
+   through the host: no scaling number); (15d) one f32 update of BoxeR-3D
+   (phase 9c's batch) and of DETR (phase 13c's config) at mp2 against
+   world 1 by 12a's rule, each kernel against its plain version on its
+   inputs (1e-5), and `distributed.sp=2` on either refused before
+   anything is built.
 
 Prints the slices' img/s and ms/step, the per-shape kernel rows on lines
 of their own, and one JSON line of per-kernel results (one row per kernel
@@ -178,6 +202,7 @@ at its row's shape), then last {"ok": true, "device": {...}}. Any failed
 phase raises: the exit code is not 0 and no ok line is printed.
 """
 
+import collections
 import contextlib
 import functools
 import importlib
@@ -295,6 +320,27 @@ DETR_CUTS = ["training.seed=3", "training.batch_size=2",
              "training.num_checkpoint=2", "training.log_interval=1",
              "training.evaluation_interval=1000", "training.num_workers=2",
              "training.run_type=train_val"]
+
+
+# phase 15: tensor (mp) and sequence (sp) parallelism through the trainer,
+# the shipped configs at full width, every rank of a layout on the one card
+# over gloo; dp 1, so each rank of a layout holds the whole batch: 15a's
+# two images (DP_F32_CUTS), 15b/15c's one image from the loader (MP_CUTS)
+MP_LAYOUTS = {"mp2": (1, 1, 2), "sp2": (1, 2, 1), "sp2mp2": (1, 2, 2)}
+MP_CUTS = ["training.seed=3", "training.batch_size=1",
+           "training.iter_per_update=1", "training.log_interval=1",
+           "training.run_type=train", "training.checkpoint_interval=2",
+           "training.num_checkpoint=2", "training.max_update=2"]
+MP_SGD = {"type": "sgd", "params": {"lr": 10.0, "lr_backbone": 1.0}}
+# DETR's update unclipped: under the config's clip at 0.1 the queries'
+# update is about 2e-6, 20 f32 spacings of their N(0, 1) entries, and one
+# spacing's flip moves that leaf by 0.2 (f32 against float64 on the CPU:
+# 0.10 at world 1 alone)
+MP_DETR_CUTS = ["training.seed=3", "training.batch_size=2",
+                "training.mixed_precision=none", "training.run_type=train",
+                "training.max_update=1", "training.max_norm=0",
+                "optimizer.type=sgd", "optimizer.params.lr=10.0",
+                "optimizer.params.lr_backbone=1.0"]
 
 
 def per_run(**counts):
@@ -3478,6 +3524,649 @@ def run_phase14(dev, smi):
                       tools=run_tools(dev, smi))
 
 
+
+# ---------------------------------------------------------------------------
+# phase 15: tensor (mp) and sequence (sp) parallelism
+
+@contextlib.contextmanager
+def sampling_shapes():
+    """Record, a rank, each sampling call's (BH, S): its heads by batch and
+    the tokens of its value table; each K2, K5 and K6 launch's index shape
+    (P, M): M its output (or scattered) rows; each K3 launch's (BH, Lq,
+    Lk); and under "inputs" a copy of the inputs of each kernel's first
+    call at each of these shapes, {(kernel, shape): (args, kwargs)}."""
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    da = importlib.import_module("boxer_tpu_torch.nn.dense_attention")
+    seen = {k: set() for k in ("tables", "K2", "K5", "K6", "K3")}
+    inputs = seen["inputs"] = {}
+    names = ("_build_quad_tables", "quad_sample_reduce_w4",
+             "scatter_add_rows_weighted_dw4")
+    saved = {n: getattr(ba, n) for n in names}
+    saved_attention = da.attention
+
+    def record(kernel, shape, args, kw=None):
+        seen[kernel].add(shape)
+        if (kernel, shape) not in inputs:
+            inputs[kernel, shape] = (
+                [a.detach().clone() if torch.is_tensor(a) else a
+                 for a in args], dict(kw or {}))
+
+    def tables(value, shapes):
+        seen["tables"].add((value.shape[0] * value.shape[2], value.shape[1]))
+        return saved["_build_quad_tables"](value, shapes)
+
+    def w4(table, idx, w):
+        record("K2", tuple(idx.shape), (table, idx, w))
+        return saved["quad_sample_reduce_w4"](table, idx, w)
+
+    def dw4(idx, g, w, table, per_tap, **kw):
+        record("K6" if per_tap else "K5", tuple(idx.shape),
+               (idx, g, w, table, per_tap), kw)
+        return saved["scatter_add_rows_weighted_dw4"](idx, g, w, table,
+                                                      per_tap, **kw)
+
+    def attention(q, k, v, mask=None, *args, **kw):
+        record("K3", (q.shape[0], q.shape[1], k.shape[1]), (q, k, v, mask))
+        return saved_attention(q, k, v, mask, *args, **kw)
+
+    for n, fn in zip(names, (tables, w4, dw4)):
+        setattr(ba, n, fn)
+    da.attention = attention
+    try:
+        yield seen
+    finally:
+        for n, fn in saved.items():
+            setattr(ba, n, fn)
+        da.attention = saved_attention
+
+
+@contextlib.contextmanager
+def collective_ms():
+    """Inside, each collective of `parallel/collectives.py` is timed on the
+    host clock between two synchronizes. Yields {name: ms}, summed."""
+    from boxer_tpu_torch.parallel import collectives
+
+    ms = collections.defaultdict(float)
+    saved = collectives._all_reduce, collectives._all_gather
+
+    def timed(fn):
+        def run(t, axis, name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(t, axis, name)
+            torch.cuda.synchronize()
+            ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    collectives._all_reduce, collectives._all_gather = map(timed, saved)
+    try:
+        yield ms
+    finally:
+        collectives._all_reduce, collectives._all_gather = saved
+
+
+@contextlib.contextmanager
+def plain_kernels(*names):
+    """Inside, the model's call sites of the named kernels (K1, K2, K3 and
+    K56, the fused K5/K6 scatter) run their plain versions."""
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    from boxer_tpu_torch.ops import combine_reduce as cr
+    from boxer_tpu_torch.ops import flash_attention as fa
+    from boxer_tpu_torch.ops import scatter_accum as sa
+
+    swaps = {
+        "K1": (ba, "quad_sample_reduce_raw",
+               lambda table, idx, lx, ly, wt: cr.quad_sample_reduce_plain(
+                   table, idx, lx=lx, ly=ly, wt=wt)),
+        "K2": (ba, "quad_sample_reduce_w4",
+               lambda table, idx, w4: cr.quad_sample_reduce_plain(
+                   table, idx, w4=w4)),
+        "K3": (fa, "flash_attention", fa.flash_attention_plain),
+        "K56": (ba, "scatter_add_rows_weighted_dw4",
+                sa.scatter_accum_dw4_plain)}
+    saved = [(mod, attr, getattr(mod, attr))
+             for mod, attr, _ in (swaps[n] for n in names)]
+    for n in names:
+        mod, attr, plain = swaps[n]
+        setattr(mod, attr, plain)
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def held_against_plain(inputs):
+    """Each kernel on the inputs a model step gave it (`sampling_shapes`)
+    against its plain version: {"kernel (shape)": max rel err} (of both
+    outputs of the fused K5/K6 scatter)."""
+    from boxer_tpu_torch.ops import combine_reduce as cr
+    from boxer_tpu_torch.ops import flash_attention as fa
+    from boxer_tpu_torch.ops import scatter_accum as sa
+
+    errs = {}
+    for (kernel, shape), (args, kw) in sorted(inputs.items()):
+        if kernel == "K2":
+            table, idx, w = args
+            got = [cr.quad_sample_reduce_w4(table, idx, w)]
+            want = [cr.quad_sample_reduce_plain(table, idx, w4=w)]
+        elif kernel == "K3":
+            got = [fa.flash_attention(*args)]
+            want = [fa.flash_attention_plain(*args)]
+        else:
+            got = sa.scatter_add_rows_weighted_dw4(*args, **kw)
+            want = sa.scatter_accum_dw4_plain(*args, **kw)
+        errs[f"{kernel} {shape}"] = max(
+            rel_err(a, b) for a, b in zip(got, want) if b is not None)
+    return errs
+
+
+def layout_opts(layout):
+    dp, sp, mp = layout
+    return [f"distributed.dp={dp}", f"distributed.sp={sp}",
+            f"distributed.mp={mp}"]
+
+
+def whole_params(model, layout):
+    """A copy of every parameter of the whole model on the host (the mp
+    parts gathered)."""
+    from boxer_tpu_torch.parallel.sharding import gather_state
+
+    return {n: p.detach().cpu().clone() for n, p in gather_state(
+        dict(model.named_parameters()), layout).items()}
+
+
+def f32_update(step_fn, state, batch, layout):
+    """One update with the launch counters zeroed just before and read just
+    after: (stats, whole parameters after, launches, shapes, whole
+    parameters before); after the counts are read, each kernel against its
+    plain version on the inputs the update gave it, under the shapes'
+    "plain" (`held_against_plain`)."""
+    before = whole_params(state.model, layout)
+    for f in counters().values():
+        f.launches = 0
+    with sampling_shapes() as seen:
+        _, stats = step_fn(state, batch)
+        torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in counters().items()}
+    seen["plain"] = held_against_plain(seen.pop("inputs"))
+    torch.cuda.empty_cache()
+    return stats, whole_params(state.model, layout), counts, seen, before
+
+
+def update_3d_f32(dev, layout):
+    """15d: one f32 update of the bench-width BoxeR-3D (seeded weights, the
+    heads perturbed as 9b's) on phase 9c's batch, SGD at LR 10 (lr_backbone
+    1), clip 1.0, cut to `layout`."""
+    from boxer_tpu_torch.criterion.losses import Boxer3DCriterion
+    from boxer_tpu_torch.nn.matcher import HungarianMatcher3d
+    from boxer_tpu_torch.optim import build_optimizer
+    from boxer_tpu_torch.parallel.sharding import shard_model
+    from boxer_tpu_torch.parallel.steps import TrainState, make_train_step
+
+    model = build_model_3d(PC_RANGE_3D, seed=0, noise_seed=1).to(dev)
+    shard_model(model, layout)
+    criterion = Boxer3DCriterion(BENCH_3D["num_classes"],
+                                 HungarianMatcher3d(2, 5, 2, 4),
+                                 TRAIN_WEIGHTS_3D, ["boxes", "focal_labels"])
+    state = TrainState(model, build_optimizer(MP_SGD, model))
+    step = make_train_step(criterion, max_norm=1.0, layout=layout)
+    return f32_update(step, state, train_batch_3d(dev, seed=0), layout)
+
+
+def detr_update_f32(root, batch, layout):
+    """15d: one f32 update of the shipped DETR config (phase 13c's) through
+    its trainer, SGD at LR 10, on `batch`, at `layout`."""
+    trainer = detr_on_card(root, MP_DETR_CUTS + layout_opts(layout) + [
+        f"training.save_dir={root}/detr_{'x'.join(map(str, layout))}"])
+    dev = trainer.device
+    return f32_update(trainer._train_step, trainer.state,
+                      tree_map(batch, lambda t: t.to(dev)), trainer.layout)
+
+
+def mp_ranks(task_path, name):
+    """Phase 15 in one rank of the layout `name` (`run_model_parallel`
+    launches them, every rank on the one card over gloo): 15a's f32 update,
+    15b/15c's bf16 updates from the loader (sp2 x mp2: a checkpoint at
+    update 2), at mp2 also 15d's BoxeR-3D and DETR updates. Writes what the
+    parent checks to <root>/<name>_rank<r>.pt."""
+    import torch.distributed as dist
+
+    from boxer_tpu_torch.parallel import collectives
+    from boxer_tpu_torch.parallel.sharding import (gather_state,
+                                                   optimizer_state_dict,
+                                                   param_names)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    task = torch.load(task_path, weights_only=False)
+    root, rank = Path(task["root"]), dist.get_rank()
+    layout = MP_LAYOUTS[name]
+    out = {}
+
+    # 15a: one f32 update of both images (one data shard)
+    trainer = trainer_on_card(root, DP_F32_CUTS + layout_opts(layout) + [
+        f"training.save_dir={root}/{name}_f32"])
+    lay = trainer.layout
+    out["coord"] = (lay.dp.index, lay.sp.index, lay.mp.index)
+    out["init_equal"] = all(
+        torch.equal(v.cpu(), task["weights"][k]) for k, v in
+        gather_state(trainer.state.model.state_dict(), lay).items())
+    dev = trainer.device
+    batch = tree_map(task["batch"], lambda t: t.to(dev))
+    if name == "sp2mp2":
+        out["infer"] = inference_outputs(trainer, batch)
+    out["f32_stats"], out["f32_params"], out["f32_counts"], seen, _ = \
+        f32_update(trainer._train_step, trainer.state, batch, lay)
+    out["f32_plain"] = seen.pop("plain")
+    out["f32_shapes"] = {k: sorted(v) for k, v in seen.items()}
+    if name == "sp2mp2":
+        out["swapped"] = swapped_steps(trainer, batch, task["weights"])
+    del trainer, batch, seen
+    torch.cuda.empty_cache()
+
+    # 15b, 15c: 2 bf16 updates from the loader, one image, the collectives
+    # timed (a synchronize on each side of each)
+    collectives.reset_counts()
+    with collective_ms() as ms:
+        trainer, rec, out["counts"], out["peak"], _ = dp_train(
+            lambda: trainer_on_card(root, MP_CUTS + layout_opts(layout) + [
+                f"training.save_dir={root}/{name}"]),
+            f"segm bf16 {name}, rank 0", TRAIN_LAUNCHES[True], rank == 0)
+    out["collectives"] = {k: (*v, ms[k]) for k, v in
+                          collectives.COUNTS.items()}
+    out["ms"] = [u["ms"] for u in rec["updates"]]
+    if name == "sp2mp2":
+        # the checkpoint of update 2 against this rank's gathered state
+        st = trainer.state
+        model = gather_state(st.model.state_dict(), trainer.layout)
+        opt = optimizer_state_dict(st.optimizer, trainer.layout,
+                                   param_names(st.model, st.optimizer))
+        saved = torch.load(root / f"{name}/checkpoints/model_2.pth",
+                           map_location="cpu", weights_only=True)
+        out["ckpt_model"] = all(torch.equal(v.cpu(), saved["model"][k])
+                                for k, v in model.items())
+        out["ckpt_opt"] = rank != 0 or all(
+            torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
+            for i, s in opt["state"].items() for k, v in s.items()
+            if torch.is_tensor(v))
+    del trainer, rec
+    torch.cuda.empty_cache()
+
+    if name == "mp2":
+        # 15d, each kernel also against its plain version on its inputs
+        for key, update in (
+                ("3d", lambda: update_3d_f32(dev, lay)),
+                ("detr", lambda: detr_update_f32(root, task["detr_batch"],
+                                                 layout))):
+            stats, params, counts, seen, _ = update()
+            out[key] = (stats, params, counts, seen["plain"])
+            torch.cuda.empty_cache()
+    torch.save(out, root / f"{name}_rank{rank}.pt")
+
+
+def inference_outputs(trainer, batch):
+    """15a: the trainer's inference step (fold=True: K1 in the encoder, K2
+    in the instance attention) in f32 on the batch's first microbatch,
+    with the kernels and then with K1, K2 and K3 swapped for their plain
+    versions: [({output: host f32}, launches)] in that order."""
+    image = {"image": batch["image"][0], "mask": batch["mask"][0]}
+    runs = []
+    for names in ((), ("K1", "K2", "K3")):
+        for f in counters().values():
+            f.launches = 0
+        with plain_kernels(*names):
+            out = trainer._inference_step(trainer.state, image)
+            torch.cuda.synchronize()
+        runs.append(({k: v.float().cpu() for k, v in out.items()
+                      if torch.is_tensor(v) and v.is_floating_point()},
+                     {k: f.launches for k, f in counters().items()}))
+        del out
+        torch.cuda.empty_cache()
+    return runs
+
+
+def swapped_steps(trainer, batch, weights):
+    """15a at sp2 x mp2: the sharded f32 step (debug gradients, whole)
+    from the task's weights with the kernels, then with the fused K5/K6
+    swapped for their plain version (the same forward), then with K2, K3,
+    K5 and K6 all swapped (the gradients held on the host between runs;
+    the four ranks share the card). Returns {swap: (the loss terms' worst
+    rel err, the pre-clip gradients' worst leaf rel err, that leaf, the
+    median leaf's, launches, peak GiB)} against the kernels' step, and the
+    kernels' (launches, peak GiB) under "kernels"."""
+    from boxer_tpu_torch.parallel.sharding import shard_state
+    from boxer_tpu_torch.parallel.steps import make_train_step
+
+    step = make_train_step(trainer.criterion, compute_dtype=torch.float32,
+                           debug_grads=True, layout=trainer.layout)
+    out, kernels = {}, None
+    for label, names in (("kernels", ()), ("K5/K6 plain", ("K56",)),
+                         ("K2/K3/K5/K6 plain", ("K2", "K3", "K56"))):
+        trainer.state.model.load_state_dict(
+            shard_state(weights, trainer.layout))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for f in counters().values():
+            f.launches = 0
+        with plain_kernels(*names):
+            _, stats = step(trainer.state, batch, update=0)
+            torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in counters().items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats["_grads"] = {n: g.cpu() for n, g in stats["_grads"].items()}
+        if kernels is None:
+            kernels, out[label] = stats, (counts, peak)
+            keys = [k for k in stats if k.startswith("loss_")] + [
+                "total_loss"]
+            continue
+        worst, leaf, median = leaf_errs(kernels, stats)
+        out[label] = (max(rel_err(kernels[k], stats[k]) for k in keys),
+                      worst, leaf, median, counts, peak)
+        del stats
+    torch.cuda.empty_cache()
+    return out
+
+
+def held_by_12a(got, want, want_params, weights, ranks):
+    """Phase 12a's rule: (stats worst rel err, worst leaf, its name, every
+    rank's whole parameters bitwise equal)."""
+    keys = [k for k in want if k.startswith("loss_")] + [
+        "total_loss", "num_boxes", "grad_norm"]
+    stat_err = max(rel_err(got[k], want[k]) for k in keys)
+    upd = {n: rel_err(p - weights[n], want_params[n] - weights[n])
+           for n, p in ranks[0].items()}
+    worst = max(upd, key=upd.get)
+    equal = all(torch.equal(p, r[n]) for r in ranks[1:]
+                for n, p in ranks[0].items())
+    return stat_err, upd[worst], worst, equal
+
+
+def run_model_parallel(dev, smi):
+    """Phase 15: tensor (mp) and sequence (sp) parallelism through the
+    port's trainer at full width on the one card, every rank of a layout
+    on it over gloo (NCCL refuses two ranks on one card), at mp2, sp2 and
+    sp2 x mp2 (4 ranks). 15a: one f32 update of the shipped segm config at
+    256x384 (SGD, no autocast) on 2 images against a world-1 update of the
+    same images and weights (phase 12a's rule), each kernel's launches and
+    shapes a rank, each kernel against its plain version on its inputs;
+    at sp2 x mp2 the step with the kernels swapped for their plain
+    versions and the inference forward (K1) against world 1 and its plain
+    kernels. 15b: 2 bf16 updates from the loader at sp2 x mp2 with a
+    checkpoint at update 2, resumed at world 1 (model and optimizer state
+    bitwise equal to the ranks' gathered state) for one more update. 15c:
+    each rank's peak memory (one image a data shard) at world 1, mp2, sp2
+    and sp2 x mp2, each collective's calls, bytes and ms a rank and update
+    (gloo stages through the host), ms per update. 15d: one f32 update of
+    BoxeR-3D (phase 9c's batch) and of DETR (phase 13c's config) at mp2
+    against world 1; sp2 on either raises before anything is built.
+    Returns (launch counts of the layouts' bf16 runs, results)."""
+    import shutil
+    import tempfile
+
+    from boxer_tpu_torch.dataset.synthetic import synthetic_batch
+    from boxer_tpu_torch.parallel.distributed import launch
+    from boxer_tpu_torch.parallel.mesh import Layout
+    from boxer_tpu_torch.trainer import build_trainer
+    from boxer_tpu_torch.utils.config import Configuration
+
+    label = "model parallel"
+    world1 = Layout()
+    as_torch = lambda x: ({k: as_torch(v) for k, v in x.items()}
+                          if isinstance(x, dict) else torch.from_numpy(x))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_coco(root)
+
+        # sp2 on BoxeR-3D and DETR: refused before anything is built
+        refused = {}
+        for model, cfg, task in (("boxer3d", TRAINER_3D_CONFIG, "detection3d"),
+                                 ("detr", DETR_CONFIG, "detection")):
+            try:
+                build_trainer(Configuration(
+                    str(ROOT / cfg), opts=["distributed.sp=2"],
+                    extra={"task": task, "model": model}, device="cuda"),
+                    device="cuda")
+                refused[model] = None
+            except ValueError as e:
+                refused[model] = str(e)
+        if not all(refused.values()):
+            raise AssertionError(f"15d: sp=2 not refused: {refused}")
+
+        # world 1: 15a's update, 15d's updates
+        trainer = trainer_on_card(root, DP_F32_CUTS + [
+            f"training.save_dir={root}/w1_f32"])
+        batch = as_torch(synthetic_batch(
+            2, *E2E_CANVAS, num_targets=20, num_classes=trainer.num_classes,
+            with_masks=True, seed=1, iter_per_update=1))
+        weights = {k: v.detach().cpu().clone() for k, v in
+                   trainer.state.model.state_dict().items()}
+        on_card = tree_map(batch, lambda t: t.to(dev))
+        w1_infer = inference_outputs(trainer, on_card)[0]
+        want, want_params, want_counts, seen, _ = f32_update(
+            trainer._train_step, trainer.state, on_card, world1)
+        w1_plain = seen.pop("plain")
+        w1_shapes = {k: sorted(v) for k, v in seen.items()}
+        del on_card
+        n_classes = trainer.num_classes
+        del trainer
+        torch.cuda.empty_cache()
+        *want_3d, _, w3 = update_3d_f32(dev, world1)
+        torch.cuda.empty_cache()
+        detr_batch = as_torch(synthetic_batch(
+            2, *E2E_CANVAS, num_targets=20, num_classes=n_classes, seed=2,
+            iter_per_update=1))
+        *want_detr, _, wd = detr_update_f32(root, detr_batch, (1, 1, 1))
+        torch.cuda.empty_cache()
+        task = root / "task.pt"
+        torch.save(dict(root=str(root), batch=batch, weights=weights,
+                        detr_batch=detr_batch), task)
+
+        ranks, t_ranks = {}, {}
+        for name, layout in MP_LAYOUTS.items():
+            n = int(np.prod(layout))
+            t0 = time.perf_counter()
+            launch(mp_ranks, n, "gloo", args=(str(task), name),
+                   devices=[0] * n, timeout=900)
+            t_ranks[name] = time.perf_counter() - t0
+            ranks[name] = [torch.load(root / f"{name}_rank{r}.pt",
+                                      weights_only=False) for r in range(n)]
+
+        # 15a
+        keys_ok = True
+        for name, rs in ranks.items():
+            stat_err, leaf, worst, equal = held_by_12a(
+                rs[0]["f32_stats"], want, want_params,
+                {k: weights[k] for k in want_params},
+                [r["f32_params"] for r in rs])
+            shapes = rs[0]["f32_shapes"]
+            log(f"15a [{smi}]: {name} {MP_LAYOUTS[name]} (dp, sp, mp), f32 "
+                f"update at {E2E_CANVAS} on 2 images vs world 1: stats worst "
+                f"rel err {stat_err:.3e}, updated parameters worst leaf "
+                f"{leaf:.3e} ({worst}); every rank's whole parameters "
+                f"bitwise equal {equal}; initial weights equal world 1's "
+                f"{[r['init_equal'] for r in rs]}; launches a rank "
+                f"{[{k: v for k, v in r['f32_counts'].items() if v} for r in rs]}"
+                f" (world 1: { {k: v for k, v in want_counts.items() if v} });"
+                f" rank 0's (BH, S) of the sampled tables {shapes['tables']} "
+                f"(world 1: {w1_shapes['tables']}), K2 (P, M) "
+                f"{shapes['K2']}, K5 {shapes['K5']}, K6 {shapes['K6']}, K3 "
+                f"(BH, Lq, Lk) {shapes['K3']} (world 1 K3 {w1_shapes['K3']})")
+            plain = {k: max(r["f32_plain"][k] for r in rs)
+                     for k in rs[0]["f32_plain"]}
+            log(f"15a [{smi}]: {name}, each kernel against its plain version "
+                f"on the inputs the update gave it (every rank's worst rel "
+                f"err at each shape): " + ", ".join(
+                    f"{k} {e:.3e}" for k, e in plain.items()))
+            keys_ok &= (stat_err <= 1e-4 and leaf <= 0.1 and equal
+                        and all(r["init_equal"] for r in rs)
+                        and all(r["f32_counts"] == want_counts for r in rs)
+                        and {k.split()[0] for k in plain} == {
+                            "K2", "K3", "K5", "K6"}
+                        and max(plain.values()) <= 1e-5)
+        log(f"15a [{smi}]: world 1, each kernel against its plain version: "
+            + ", ".join(f"{k} {e:.3e}" for k, e in w1_plain.items()))
+        keys_ok &= max(w1_plain.values()) <= 1e-5
+
+        # 15a at sp2 x mp2: the kernels swapped for their plain versions in
+        # the same sharded step; the sharded inference forward
+        rs = ranks["sp2mp2"]
+        swap_ok = True
+        for r, got in enumerate(rs):
+            sw = got["swapped"]
+            k_counts, k_peak = sw["kernels"]
+            for what, (loss, leaf, worst, median, counts, peak) in (
+                    (k, v) for k, v in sw.items() if k != "kernels"):
+                if r == 0:
+                    log(f"15a [{smi}]: sp2 x mp2 f32 step, {what} against "
+                        f"the kernels (rank 0): loss terms worst rel err "
+                        f"{loss:.3e}, pre-clip gradients worst leaf "
+                        f"{leaf:.3e} ({worst}), median leaf {median:.3e}; "
+                        f"launches "
+                        f"{ {k: v for k, v in counts.items() if v} }, peak "
+                        f"{peak:.3f} GiB (the kernels' "
+                        f"{ {k: v for k, v in k_counts.items() if v} }, "
+                        f"{k_peak:.3f} GiB)")
+                # K5/K6 swapped: the same forward, the leaves held at
+                # phase 8's 1e-4. K2 and K3 swapped too: the forward moves
+                # by their rounding (held above at 1e-5 on these inputs),
+                # which can flip a ReLU input within rounding of 0 and move
+                # every leaf upstream of it, so the worst leaf goes by
+                # phase 8's card-vs-CPU 0.1 and the median leaf by 1e-4: a
+                # forward moved at rounding moves it about 1e-5 (12a's
+                # median), an error of a kernel on many rows far more
+                same_forward = what == "K5/K6 plain"
+                off = ("K5", "K6") if same_forward else (
+                    "K2", "K3", "K5", "K6")
+                swap_ok &= (loss <= 1e-4
+                            and leaf <= (1e-4 if same_forward else 0.1)
+                            and median <= 1e-4
+                            and not any(counts[k] for k in off)
+                            and all(k_counts[k] for k in off))
+        (outs, counts), (plain_outs, plain_counts) = rs[0]["infer"]
+        w1_outs, w1_counts = w1_infer
+        vs_w1 = {k: rel_err(v, w1_outs[k]) for k, v in outs.items()}
+        vs_plain = {k: rel_err(v, plain_outs[k]) for k, v in outs.items()}
+        same = all(torch.equal(v, r["infer"][0][0][k]) for r in rs[1:]
+                   for k, v in outs.items())
+        log(f"15a [{smi}]: sp2 x mp2 f32 inference (fold=True) at "
+            f"{E2E_CANVAS}: against world 1 " + ", ".join(
+                f"{k} {e:.3e}" for k, e in vs_w1.items())
+            + "; against K1, K2 and K3 swapped for their plain versions "
+            + ", ".join(f"{k} {e:.3e}" for k, e in vs_plain.items())
+            + f"; every rank's outputs bitwise equal {same}; launches a "
+            f"rank { {k: v for k, v in counts.items() if v} } (world 1 "
+            f"{ {k: v for k, v in w1_counts.items() if v} }, plain "
+            f"{ {k: v for k, v in plain_counts.items() if v} })")
+        infer_ok = (sorted(outs) == sorted(w1_outs) and len(outs) > 0
+                    and max(vs_w1.values()) <= 1e-4
+                    and max(vs_plain.values()) <= 1e-4 and same
+                    and counts["K1"] > 0 and counts == w1_counts
+                    and not any(plain_counts[k] for k in ("K1", "K2", "K3")))
+        if not (keys_ok and swap_ok and infer_ok):
+            raise AssertionError(
+                f"15a: a sharded update departs from world 1 ({keys_ok}) or "
+                f"from its plain kernels ({swap_ok}), or the sharded "
+                f"inference from world 1 or its plain kernels ({infer_ok})")
+
+        # 15d
+        ok_15d = True
+        for what, w_params, (w_stats, w_whole, w_counts) in (
+                ("BoxeR-3D", w3, want_3d), ("DETR", wd, want_detr)):
+            rs = [r["3d" if what == "BoxeR-3D" else "detr"]
+                  for r in ranks["mp2"]]
+            stat_err, leaf, worst, equal = held_by_12a(
+                rs[0][0], w_stats, w_whole, w_params, [r[1] for r in rs])
+            plain = {k: max(r[3][k] for r in rs) for k in rs[0][3]}
+            log(f"15d [{smi}]: {what} f32 update at mp2 vs world 1: stats "
+                f"worst rel err {stat_err:.3e}, worst leaf {leaf:.3e} "
+                f"({worst}), ranks bitwise {equal}, launches a rank "
+                f"{[{k: v for k, v in r[2].items() if v} for r in rs]} "
+                f"(world 1 { {k: v for k, v in w_counts.items() if v} }); "
+                f"each kernel against its plain version on its inputs: "
+                + ", ".join(f"{k} {e:.3e}" for k, e in plain.items()))
+            ok_15d &= (stat_err <= 1e-4 and leaf <= 0.1 and equal
+                       and all(r[2] == w_counts for r in rs)
+                       and {k.split()[0] for k in plain} == {
+                           k for k, v in w_counts.items() if v}
+                       and max(plain.values(), default=0.0) <= 1e-5)
+        log(f"15d [{smi}]: distributed.sp=2 refused: "
+            + "; ".join(f"{k}: {v}" for k, v in refused.items()))
+        if not ok_15d:
+            raise AssertionError("15d: BoxeR-3D or DETR at mp2 departs from "
+                                 "world 1")
+
+        # 15c: world 1, one image, 2 bf16 updates from the loader
+        trainer, rec, w1_run, w1_peak, _ = dp_train(
+            lambda: trainer_on_card(root, MP_CUTS + [
+                f"training.save_dir={root}/w1"]),
+            "segm bf16 world 1", TRAIN_LAUNCHES[True], False)
+        w1_ms = [u["ms"] for u in rec["updates"]]
+        del trainer, rec
+        torch.cuda.empty_cache()
+        peaks = {"world 1": [w1_peak[0]]}
+        for name, rs in ranks.items():
+            peaks[name] = [r["peak"][0] for r in rs]
+            coll = rs[0]["collectives"]
+            log(f"15c [{smi}]: {name} bf16 at 1344x1344, one image: ms per "
+                f"update (rank 0) {', '.join(f'{t:.2f}' for t in rs[0]['ms'])}"
+                f" (world 1 {', '.join(f'{t:.2f}' for t in w1_ms)}); peak GiB "
+                f"a rank {[round(p, 3) for p in peaks[name]]} (world 1 "
+                f"{w1_peak[0]:.3f}); rank 0's collectives an update (calls, "
+                f"MiB, ms; gloo stages CUDA tensors through the host: no "
+                f"NVLink number): " + "; ".join(
+                    f"{k} {c[0] / 2:g}, {c[1] / 2 ** 21:.2f}, {c[2] / 2:.1f}"
+                    for k, c in sorted(coll.items()))
+                + f"; launches a rank {[r['counts'] for r in rs][:1]}; "
+                f"ranks {t_ranks[name]:.1f} s")
+
+        # 15b: the sp2 x mp2 checkpoint of update 2 resumed at world 1
+        rs = ranks["sp2mp2"]
+        os.makedirs(root / "w1_resume/checkpoints")
+        shutil.copy(root / "sp2mp2/checkpoints/model_2.pth",
+                    root / "w1_resume/checkpoints")
+        saved = torch.load(root / "w1_resume/checkpoints/model_2.pth",
+                           map_location="cpu", weights_only=True)
+        one = trainer_on_card(root, MP_CUTS + [
+            "training.max_update=3", "training.resume=true",
+            f"training.save_dir={root}/w1_resume"])
+        model_ok = all(torch.equal(v.cpu(), saved["model"][k]) for k, v in
+                       one.state.model.state_dict().items())
+        opt = one.state.optimizer.state_dict()
+        opt_ok = sorted(opt["state"]) == sorted(saved["optimizer"]["state"]) \
+            and all(torch.equal(v.cpu(), saved["optimizer"]["state"][i][k])
+                    for i, s in opt["state"].items() for k, v in s.items()
+                    if torch.is_tensor(v))
+        step = one.state.step
+        rec = record_steps(one, lambda i, u: None)
+        one.train()
+        after = rec["updates"][0]["stats"]
+        log(f"15b [{smi}]: sp2 x mp2, 2 bf16 updates from the loader with a "
+            f"checkpoint at update 2: each rank's gathered model equal to "
+            f"the checkpoint's {[r['ckpt_model'] for r in rs]}, rank 0's "
+            f"gathered optimizer state {rs[0]['ckpt_opt']}; resumed at world "
+            f"1 at step {step}: model bitwise {model_ok},"
+            f" optimizer state bitwise {opt_ok}; one more update: "
+            f"{rec['updates'][0]['ms']:.2f} ms, total_loss "
+            f"{after['total_loss']:.5g}, step after {one.state.step}")
+        if not (model_ok and opt_ok and step == 2 and one.state.step == 3
+                and all(r["ckpt_model"] and r["ckpt_opt"] for r in rs)
+                and after["skipped"] == 0.0
+                and np.isfinite(after["total_loss"])):
+            raise AssertionError("15b: the sp2 x mp2 checkpoint at world 1")
+        del one, rec, saved
+        torch.cuda.empty_cache()
+        runs = {f"{name} segm rank {r}": ranks[name][r]["counts"]
+                for name in ranks for r in range(len(ranks[name]))}
+        runs.update({f"mp2 3d rank {r}": ranks["mp2"][r]["3d"][2]
+                     for r in range(2)})
+    return runs, dict(peaks=peaks, w1_ms=w1_ms, t_ranks=t_ranks,
+                      ms={n: rs[0]["ms"] for n, rs in ranks.items()},
+                      collectives={n: rs[0]["collectives"]
+                                   for n, rs in ranks.items()})
+
+
 def main():
     # 1. device
     if not torch.cuda.is_available():
@@ -3597,6 +4286,14 @@ def main():
     runs.update(p14_runs)
     log(f"phase 14 took {time.perf_counter() - t14:.1f} s")
 
+    # 15. tensor and sequence parallelism: mp2, sp2 and sp2 x mp2 through
+    # the trainer against world 1 (ranks sharing the card over gloo),
+    # checkpoints across layouts, memory and collectives a rank
+    t15 = time.perf_counter()
+    p15_runs, p15 = run_model_parallel(dev, smi)
+    runs.update(p15_runs)
+    log(f"phase 15 took {time.perf_counter() - t15:.1f} s")
+
     # K7a has no caller in the package: its launches are those of its
     # op-level run in phase 3c; the T rows' those of the shootout
     qsr, sacc = "quad_sample_reduce.cu", "scatter_accum.cu"
@@ -3713,6 +4410,12 @@ def main():
             f"{k} {v['native_ms']:.3f} / {v['numpy_ms']:.3f}"
             for k, v in nat.items())
         + f"; analyze {p14['tools']['analyze']['speed']:.3f} img/s")
+    log(f"model parallel [{smi}] (ranks sharing the card over gloo; no "
+        f"scaling number): peak GiB a rank at one image " + "; ".join(
+            f"{k} {[round(v, 3) for v in p]}" for k, p in p15["peaks"].items())
+        + "; ms per update (rank 0) " + "; ".join(
+            f"{k} {', '.join(f'{t:.2f}' for t in v)}"
+            for k, v in dict(p15["ms"], **{"world 1": p15["w1_ms"]}).items()))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

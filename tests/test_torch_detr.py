@@ -50,6 +50,7 @@ from test_torch_matcher_losses import _tree
 from test_torch_modules import _j, _rel_err, _t, random_variables
 from test_torch_trainer import tiny_config
 
+from boxer_tpu_torch.parallel.mesh import Axis
 from boxer_tpu_torch.utils.weights import jax_to_torch_state, load_jax_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -168,7 +169,7 @@ def test_detr_criterion_and_matcher_match_jax(ipu):
     jc = JCrit(ncls, jm, wd, ["boxes", "labels"], eos_coef=0.1,
                iter_per_update=ipu)
     tc = DETRCriterion(ncls, tm, wd, ["boxes", "labels"], eos_coef=0.1,
-                       iter_per_update=ipu)
+                       iter_per_update=ipu, dp=Axis())
     want = jc(_tree(out, _j), _tree(tgt, _j))
     got = tc(_tree(out, _t), _tree(tgt, _t))
     assert sorted(got) == sorted(want)
@@ -220,7 +221,7 @@ def test_detr_train_step_matches_jax():
                        build_schedule(SCHEDULE, base_lr=2e-4))
     step = t_make_train_step(
         DETRCriterion(n, HungarianMatcher(1, 5, 2, focal_label=False), wd,
-                      ["boxes", "labels"], eos_coef=0.1),
+                      ["boxes", "labels"], eos_coef=0.1, dp=Axis()),
         max_norm=0.1, debug_grads=True)
     _, got = step(state, {k: ({kk: torch.from_numpy(vv)
                                for kk, vv in val.items()}

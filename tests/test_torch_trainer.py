@@ -359,19 +359,24 @@ def test_run_refuses_more_ranks_than_cards(coco_root, tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "save")
 
 
-@pytest.mark.parametrize("opts,extra", [
-    (["distributed.mp=2"], {}),
-    (["distributed.sp=2"], {}),
-], ids=["mp2", "sp2"])
-def test_unported_layouts_raise(coco_root, tmp_path, opts, extra):
+@pytest.mark.parametrize("model", ["boxer3d", "detr"],
+                         ids=["boxer3d_sp2", "detr_sp2"])
+def test_unported_layouts_raise(coco_root, tmp_path, model):
+    """distributed.sp=2 on BoxeR-3D and on DETR raises before anything is
+    built, as the JAX package rejects `seq_shard` for them (its BoxeR-3D's
+    and DETR's `from_config` take none)."""
     from boxer_tpu_torch.trainer import build_trainer
     from boxer_tpu_torch.utils.config import Configuration
 
+    cfg = (REPO / "boxer_tpu_torch/config/Waymo-Detection/"
+           "boxer3d_pointpillar.yaml" if model == "boxer3d" else
+           REPO / "boxer_tpu_torch/config/COCO-Detection/detr_r50.yaml")
     configuration = Configuration(
-        _config_path(coco_root, tmp_path), opts=opts,
-        extra=dict({"task": "detection", "model": "boxer2d"}, **extra),
-        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        str(cfg), opts=["distributed.sp=2"],
+        extra={"task": "detection3d" if model == "boxer3d" else "detection",
+               "model": model}, device="cpu")
+    with pytest.raises(ValueError, match=f"{model} has no sequence "
+                       "parallelism"):
         build_trainer(configuration, device="cpu")
 
 
