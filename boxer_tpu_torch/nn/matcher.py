@@ -1,11 +1,12 @@
 """Hungarian matching on the step's device; port of `boxer_tpu/nn/matcher.py`.
 
 An exact shortest-augmenting-path (Jonker-Volgenant style) solver with dual
-potentials, run in lockstep over every problem of a step: all problems take
-the same outer row loop, and the inner Dijkstra and augmenting loops run
-until the last problem is done, a finished problem keeping its state (what
-the JAX package's vmapped `lax.while_loop` does). Ties break as there:
-`argmin` takes the first minimum, the pruning top-k the lower index.
+potentials, `ops/hungarian.py:solve_assignment` (H1): on a CUDA tensor one
+kernel launch solves every problem of the call, one thread block a
+problem, with no host round trip, as the JAX package's vmapped
+`lax.while_loop`s run inside the one XLA program of its train step; on a
+CPU tensor its plain version. Ties break as there: `argmin` takes the first
+minimum, the pruning top-k the lower index.
 
 Cost (focal labels): w_cls * (pos - neg)[q, label_t] + w_l1 * |b_q - b_t|_1
 + w_giou * (-GIoU), or with DETR's softmax labels w_cls * (-softmax[q,
@@ -20,116 +21,20 @@ from typing import Tuple
 
 import torch
 
+from boxer_tpu_torch.ops.hungarian import BIG, solve_assignment
 from boxer_tpu_torch.utils.box3d_ops import (box_cxcyczlwh_to_xyxyxy,
                                              generalized_box3d_iou)
 from boxer_tpu_torch.utils.box_ops import (box_cxcywh_to_xyxy,
                                            generalized_box_iou)
 from boxer_tpu_torch.utils.general import top_k
 
-BIG = 1e9
 
-
-def _hungarian_batched(cost):
-    """Min-cost assignment of each (n, m) problem of cost (N, n, m), n <= m.
-    Returns col4row (N, n) int64: the column assigned to each row."""
-    nb, n, m = cost.shape
-    dev = cost.device
-    cost = cost.float()
-    ar = torch.arange(nb, device=dev)
-    # 1-indexed over columns; column 0 is the virtual start column.
-    # p[:, j] = row assigned to column j (-1 = free); u, v duals.
-    u = torch.zeros(nb, n, device=dev)
-    v = torch.zeros(nb, m + 1, device=dev)
-    p = torch.full((nb, m + 1), -1, dtype=torch.long, device=dev)
-
-    for i in range(n):
-        p[:, 0] = i
-        minv = torch.full((nb, m + 1), BIG, device=dev)
-        minv[:, 0] = -BIG
-        way = torch.zeros(nb, m + 1, dtype=torch.long, device=dev)
-        used = torch.zeros(nb, m + 1, dtype=torch.bool, device=dev)
-        j0 = torch.zeros(nb, dtype=torch.long, device=dev)
-
-        while True:
-            i0 = p[ar, j0]
-            active = i0 != -1
-            if not bool(active.any()):
-                break
-            i0 = i0.clamp(min=0)
-            used_n = used.clone()
-            used_n[ar, j0] = True
-            cur = cost[ar, i0] - u[ar, i0][:, None] - v[:, 1:]
-            cur = torch.where(used_n[:, 1:], BIG, cur)
-            better = cur < minv[:, 1:]
-            minv_n = minv.clone()
-            minv_n[:, 1:] = torch.where(better, cur, minv[:, 1:])
-            way_n = way.clone()
-            way_n[:, 1:] = torch.where(better, j0[:, None], way[:, 1:])
-
-            masked = torch.where(used_n[:, 1:], BIG, minv_n[:, 1:])
-            j1 = masked.argmin(dim=1) + 1
-            delta = masked[ar, j1 - 1][:, None]
-            # dual update: rows of used columns += delta, their v -= delta;
-            # unused columns' reduced costs shrink by delta
-            # (a finished problem's last column is free: its p is -1)
-            rows = torch.where(used_n & (p >= 0), p, n)
-            row_mask = torch.zeros(nb, n + 1, dtype=torch.bool, device=dev)
-            row_mask = row_mask.scatter_(1, rows, True)[:, :n]
-            u_n = torch.where(row_mask, u + delta, u)
-            v_n = torch.where(used_n, v - delta, v)
-            minv_n = torch.where(used_n, minv_n, minv_n - delta)
-
-            act = active[:, None]
-            used = torch.where(act, used_n, used)
-            minv = torch.where(act, minv_n, minv)
-            way = torch.where(act, way_n, way)
-            u = torch.where(act, u_n, u)
-            v = torch.where(act, v_n, v)
-            j0 = torch.where(active, j1, j0)
-
-        # augment: walk back along `way`, shifting assignments
-        while True:
-            act = j0 != 0
-            if not bool(act.any()):
-                break
-            j1 = way[ar, j0]
-            p_n = p.clone()
-            p_n[ar, j0] = p[ar, j1]
-            p = torch.where(act[:, None], p_n, p)
-            j0 = torch.where(act, j1, j0)
-
-    # invert: col4row[r] = j such that p[j+1] == r (0-indexed real columns)
-    rows = torch.where(p[:, 1:] >= 0, p[:, 1:], n)
-    cols = torch.arange(m, device=dev).expand(nb, m)
-    col4row = torch.zeros(nb, n + 1, dtype=torch.long, device=dev)
-    return col4row.scatter_(1, rows, cols)[:, :n]
-
-
-@torch.no_grad()
-def hungarian(cost, row_valid):
-    """Batched assignment. cost: (..., NT, NQ); row_valid: (..., NT) bool.
-    Returns col4row (..., NT) int64; entries of invalid rows are arbitrary
-    columns, to be masked by the caller.
-
-    Only the valid rows are solved. The JAX package keeps a padding row in
-    the problem as a row of constant zeros, which can take any column the
-    valid rows leave without changing their optimum; but the solver spends
-    tens of iterations on each such row, each iteration a host sync here:
-    at the shipped configs' 100 padded targets, an image's 2-3 objects
-    cost about 5,000 syncs a matcher call. So the valid rows are moved
-    first (in their order) and the problem cut to the largest valid count
-    (one host sync). The valid rows' matches are the full problem's
-    unless two assignments tie exactly.
-
-    Column pruning (exact) when NQ > 4*K for K rows: each problem is
-    restricted to the union of every row's K cheapest columns. An optimal
-    assignment that used a column outside row i's K best could swap to one
-    of those K cheaper columns, at most K-1 of which are taken, without
-    raising the total. Duplicate candidates get a BIG cost, so no column is
-    assigned twice. The encoder-output match (K=20, NQ~20k) becomes a
-    (20, 400) solve.
-    """
-    batch_shape = cost.shape[:-2]
+def assignment_problem(cost, row_valid):
+    """The problems `hungarian` solves: (sub (N, NT, M) f32, n_rows (N,)
+    int32, rows (N, NT), cand (N, M) or None). sub holds each problem's
+    valid rows first, in their order (`rows` maps them back), pruned to the
+    candidate columns `cand` when NQ > 4*NT; n_rows counts the valid rows.
+    Shapes alone decide the sizes: nothing is read back to the host."""
     nt, nq = cost.shape[-2:]
     if nt > nq:
         raise ValueError(f"hungarian: {nt} target rows for {nq} query "
@@ -138,29 +43,49 @@ def hungarian(cost, row_valid):
     flat = torch.where(valid[..., None], cost.reshape(-1, nt, nq).float(),
                        0.0)
     nb = flat.shape[0]
-    out = torch.zeros(nb, nt, dtype=torch.long, device=cost.device)
-    k = int(valid.sum(1).max()) if nb else 0
-    if k:
-        rows = torch.sort((~valid).to(torch.uint8), dim=1,
-                          stable=True).indices[:, :k]
-        sub = flat.gather(1, rows[..., None].expand(nb, k, nq))
-        out.scatter_(1, rows, _solve_pruned(sub))
-    return out.reshape(*batch_shape, nt)
+    cand = None
+    if nq > 4 * nt:
+        _, idx = top_k(-flat, nt)                             # (N, NT, NT)
+        cand = idx.reshape(nb, nt * nt).sort(dim=-1).values
+        dup = torch.cat([torch.zeros_like(cand[:, :1], dtype=torch.bool),
+                         cand[:, 1:] == cand[:, :-1]], dim=-1)
+        flat = flat.gather(2, cand[:, None, :].expand(nb, nt, nt * nt))
+        flat = torch.where(dup[:, None, :], BIG, flat)
+    rows = torch.sort((~valid).to(torch.uint8), dim=1, stable=True).indices
+    sub = flat.gather(1, rows[..., None].expand(nb, nt, flat.shape[-1]))
+    return sub, valid.sum(1, dtype=torch.int32), rows, cand
 
 
-def _solve_pruned(flat):
-    """col4row (N, K) of the (N, K, NQ) problems, pruned to every row's K
-    cheapest columns when NQ > 4*K (see `hungarian`)."""
-    nb, k, nq = flat.shape
-    if nq <= 4 * k:
-        return _hungarian_batched(flat)
-    _, idx = top_k(-flat, k)                              # (N, K, K)
-    cand = idx.reshape(nb, k * k).sort(dim=-1).values
-    dup = torch.cat([torch.zeros_like(cand[:, :1], dtype=torch.bool),
-                     cand[:, 1:] == cand[:, :-1]], dim=-1)
-    sub = flat.gather(2, cand[:, None, :].expand(nb, k, k * k))
-    sub = torch.where(dup[:, None, :], BIG, sub)
-    return cand.gather(1, _hungarian_batched(sub))
+@torch.no_grad()
+def hungarian(cost, row_valid):
+    """Batched assignment. cost: (..., NT, NQ); row_valid: (..., NT) bool.
+    Returns col4row (..., NT) int64; entries of invalid rows are arbitrary
+    columns, to be masked by the caller. On a CUDA tensor it makes no host
+    sync.
+
+    Only the valid rows are solved. The JAX package keeps a padding row in
+    the problem as a row of constant zeros, which can take any column the
+    valid rows leave without changing their optimum, at tens of solver
+    steps a row. So the valid rows are moved first, in their order, and
+    the solver stops at each problem's valid count; the padded shape stays.
+    The valid rows' matches are the full problem's unless two assignments
+    tie exactly.
+
+    Column pruning (exact), as the JAX package does: when NQ > 4*NT each
+    problem is restricted to the union of every row's NT cheapest columns.
+    An optimal assignment that used a column outside row i's NT best could
+    swap to one of those NT cheaper columns, at most NT-1 of which are
+    taken, without raising the total; this holds for any count of rows up
+    to NT, so for the valid rows alone too. Duplicate candidates get a BIG
+    cost, so no column is assigned twice. The Waymo encoder-output match
+    (NT=250, NQ~205k) becomes a (250, 62,500) problem.
+    """
+    sub, n_rows, rows, cand = assignment_problem(cost, row_valid)
+    col = solve_assignment(sub, n_rows)
+    if cand is not None:
+        col = cand.gather(1, col)
+    out = torch.empty_like(col).scatter_(1, rows, col)
+    return out.reshape(*cost.shape[:-1])
 
 
 def _focal_class_cost(out_prob, tgt_labels, alpha=0.25, gamma=2.0):

@@ -95,6 +95,11 @@ def library() -> ctypes.CDLL:
         lib.scatter_rows_segmented.argtypes = [i32, vp, vp, i32, vp, i64, i32,
                                                vp, vp]
         lib.scatter_rows_segmented.restype = i32
+        lib.hungarian_scratch_bytes.argtypes = [i64, i32]
+        lib.hungarian_scratch_bytes.restype = i64
+        lib.hungarian_solve.argtypes = [i32, vp, vp, vp, i64, i32, i32, vp,
+                                        vp]
+        lib.hungarian_solve.restype = i32
         _lib = lib
     return _lib
 

@@ -1,7 +1,8 @@
 """Wall time per update of the port's trainer on the shipped segm config,
-for the tree on PYTHONPATH.
+for the tree on PYTHONPATH; or that tree's `chip_smoke.py` phases 10 and 11.
 
     PYTHONPATH=TREE python boxer_tpu_torch/tools/bench_trainer.py [UPDATES]
+    PYTHONPATH=TREE python boxer_tpu_torch/tools/bench_trainer.py phases
 
 TREE is the root of a checkout (this one, or a `git archive` of another
 commit): its `boxer_tpu_torch` package, and its `chip_smoke.py`, whose
@@ -21,10 +22,20 @@ to the card), the step and the engine's logging, as a user's run pays them
 one JSON line {"tree": ..., "wall_ms": [...], "median_wall_ms": ...,
 "step_ms": [...], "peak_gib": ...}, where a step's ms is the train step's
 own call.
+
+`phases` runs the tree's phase 10 (`chip_smoke.run_trainer`, the shipped
+segm config) and phase 11 (`run_trainer_3d`, the shipped Waymo config), as
+its `chip_smoke.py` runs them (TF32 off), each inside its
+`matcher_syncs()` tally, and prints one JSON line {"tree": ..., "device":
+nvidia-smi's name and power limit, "phase10": {...}, "phase11": {...}},
+each with the phase's "ms" per update (the median of updates 2-6) and
+"times", the profiled update's "busy_ms" and "busy_share", and the
+matcher's host "syncs" and hungarian "calls" over the phase.
 """
 
 import json
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -71,5 +82,29 @@ def main(updates=12):
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
 
 
+def phases():
+    import chip_smoke
+
+    tree = Path(chip_smoke.__file__).resolve().parent
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    out = {"tree": str(tree), "device": smi}
+    for name, run in (("phase10", chip_smoke.run_trainer),
+                      ("phase11", chip_smoke.run_trainer_3d)):
+        with chip_smoke.matcher_syncs() as tally:
+            _, res = run(dev, smi)
+        out[name] = {"ms": res["ms"], "times": res["times"],
+                     "busy_ms": res["busy"][0], "busy_share": res["busy"][1],
+                     "syncs": tally["syncs"], "calls": tally["calls"]}
+    print(json.dumps(out))
+
+
 if __name__ == "__main__":
-    main(*map(int, sys.argv[1:]))
+    if sys.argv[1:] == ["phases"]:
+        phases()
+    else:
+        main(*map(int, sys.argv[1:]))

@@ -3,7 +3,7 @@ the p-major and the m-major combine) and one train step, segm, detection
 (per tap) and detection folded, and of one full-width BoxeR-3D forward and
 train step, under torch.profiler, for the tree on PYTHONPATH.
 
-    PYTHONPATH=TREE python boxer_tpu_torch/tools/profile_steps.py
+    PYTHONPATH=TREE python boxer_tpu_torch/tools/profile_steps.py [RUN ...]
 
 TREE is the root of a checkout (this one, or a `git archive` of another
 commit): its `boxer_tpu_torch` package and its `chip_smoke.py` (whose
@@ -19,12 +19,18 @@ of every box-attention level. BoxeR-3D runs at `chip_smoke`'s phases 9 and
 parameters, bf16 autocast), where the tree's `chip_smoke` has them. Each
 runs twice to warm up, WALL_RUNS times each on the host clock up to a
 synchronize, once profiled. Prints, for each, the device's summed kernel
-time against the median wall time and the wall times' spread, and the
-device time and calls of each of the port's kernels (by name:
+time against the median wall time and the wall times' spread, the device
+time and calls of each of the port's kernels (by name:
 `quad_sample_reduce`, `flash_fwd`, `scatter_weighted`, `scatter_rows` and
 `rows_` (the row scatter's kernels, before and after it was split in
-four), `Memset`), then one JSON line {"tree": ..., "busy_ms": {run: ms},
-"wall_ms": {run: [ms, ...]}, "kernels": {run: {kernel: ms}}}.
+four), `hungarian`, `Memset`), and the device time of the kernels that the
+matcher's `nn/matcher.py:hungarian` launches (the tree's module attribute
+is wrapped in a profiler range), of which its sorts (`aten::sort`: the
+valid rows' order and the pruning top-k); then one JSON line {"tree": ...,
+"busy_ms": {run: ms}, "wall_ms": {run: [ms, ...]}, "kernels": {run:
+{kernel: ms}}, "matcher_ms": {run: ms}, "matcher_sort_ms": {run: ms}}.
+RUNs (segm_forward, segm_forward_mmajor, segm, det, det_folded, boxer3d:
+its forward and its step) pick runs; all by default.
 """
 
 import json
@@ -36,13 +42,42 @@ import time
 import torch
 
 PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "scatter_weighted",
-                "scatter_rows", "rows_", "Memset")
+                "scatter_rows", "rows_", "hungarian", "Memset")
 WALL_RUNS = 5
+MATCHER_RANGE = "profile_steps: matcher"
+
+
+def wrap_matcher():
+    """Run the tree's `nn/matcher.py:hungarian` inside MATCHER_RANGE."""
+    from boxer_tpu_torch.nn import matcher
+
+    inner = matcher.hungarian
+
+    def hungarian(*args, **kw):
+        with torch.profiler.record_function(MATCHER_RANGE):
+            return inner(*args, **kw)
+
+    matcher.hungarian = hungarian
+
+
+def matcher_ms(prof):
+    """Device ms of the kernels launched inside MATCHER_RANGE, and of
+    those its `aten::sort` calls launched."""
+    def sorts(e):
+        if e.name == "aten::sort":
+            return e.device_time_total
+        return sum(sorts(c) for c in e.cpu_children)
+
+    ranges = [e for e in prof.events() if e.name == MATCHER_RANGE
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    return (sum(e.device_time_total for e in ranges) / 1e3,
+            sum(sorts(e) for e in ranges) / 1e3)
 
 
 def profile(fn):
     """fn() twice to warm up, WALL_RUNS times on the host clock, once under
-    the profiler: ([wall ms], device busy ms, {port kernel: (ms, calls)})."""
+    the profiler: ([wall ms], device busy ms, {port kernel: (ms, calls)},
+    (matcher device ms, of which its sorts))."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     for _ in range(2):
@@ -59,14 +94,15 @@ def profile(fn):
         fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.key != MATCHER_RANGE]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     ours = {e.key: (e.self_device_time_total / 1e3, e.count) for e in events
             if any(k in e.key for k in PORT_KERNELS)}
-    return wall, busy, ours
+    return wall, busy, ours, matcher_ms(prof)
 
 
-def main():
+def main(runs=()):
     if not torch.cuda.is_available():
         sys.exit("profile_steps: no CUDA card; this script profiles the card")
     import boxer_tpu_torch
@@ -78,32 +114,43 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
     dev = torch.device("cuda", 0)
-    busy, walls, kernels = {}, {}, {}
+    wrap_matcher()
+    busy, walls, kernels, match, match_sort = {}, {}, {}, {}, {}
+    runs = set(runs) or None
 
-    def report(key, wall, ms, ours):
+    def report(key, wall, ms, ours, matcher):
         busy[key], walls[key] = ms, wall
         kernels[key] = {k: v[0] for k, v in ours.items()}
+        match[key], match_sort[key] = matcher
         med = statistics.median(wall)
         print(f"{key}, {tree}: device busy {ms:.2f} ms of a {med:.2f} ms "
               f"run ({100 * ms / med:.1f}%; median of {len(wall)}, "
-              f"{min(wall):.2f}-{max(wall):.2f}); the port's kernels:",
-              flush=True)
+              f"{min(wall):.2f}-{max(wall):.2f}); the matcher's kernels "
+              f"{matcher[0]:.3f} ms, of which its sorts {matcher[1]:.3f} "
+              "ms; the port's kernels:", flush=True)
         for name, (k_ms, calls) in sorted(ours.items(),
                                           key=lambda x: -x[1][0]):
             print(f"  {k_ms:8.3f} ms  {calls:4d}x  {name[:100]}", flush=True)
 
-    model = cs.build_model(True).to(dev, torch.bfloat16)
-    image, mask = (t.to(dev) for t in cs.make_image(cs.CANVAS))
-    post = {"canvas_hw": cs.CANVAS, "topk": 100}
-    for combine, key in (("pmajor", "segm_forward"),
-                         ("mmajor", "segm_forward_mmajor")):
-        with torch.no_grad(), cs.sampling(COMBINE_IMPL=combine):
-            report(key, *profile(
-                lambda: model(image, mask, postprocess=post)))
-    del model
-    torch.cuda.empty_cache()
+    def chosen(*keys):
+        return runs is None or bool(runs & set(keys))
+
+    if chosen("segm_forward", "segm_forward_mmajor"):
+        model = cs.build_model(True).to(dev, torch.bfloat16)
+        image, mask = (t.to(dev) for t in cs.make_image(cs.CANVAS))
+        post = {"canvas_hw": cs.CANVAS, "topk": 100}
+        for combine, key in (("pmajor", "segm_forward"),
+                             ("mmajor", "segm_forward_mmajor")):
+            if chosen(key):
+                with torch.no_grad(), cs.sampling(COMBINE_IMPL=combine):
+                    report(key, *profile(
+                        lambda: model(image, mask, postprocess=post)))
+        del model
+        torch.cuda.empty_cache()
     for use_mask, key, fold in ((True, "segm", 8), (False, "det", 8),
                                 (False, "det_folded", 0)):
+        if not chosen(key):
+            continue
         model = cs.build_model(use_mask).to(dev).train()
         _, state, step = cs.train_setup(model, use_mask, torch.bfloat16)
         batch = cs.train_batch(cs.CANVAS, use_mask, dev)
@@ -111,7 +158,7 @@ def main():
             report(key, *profile(lambda: step(state, batch)))
         del model, state, step
         torch.cuda.empty_cache()
-    if hasattr(cs, "build_model_3d"):
+    if hasattr(cs, "build_model_3d") and chosen("boxer3d"):
         grid = cs.grid_3d(cs.PC_RANGE_3D)
         model = cs.build_model_3d(cs.PC_RANGE_3D).to(dev, torch.bfloat16)
         vox, coords, npts = cs.random_voxels_3d(grid, cs.VOXELS_3D, 1, 0)
@@ -127,8 +174,9 @@ def main():
         del model, state, step
         torch.cuda.empty_cache()
     print(json.dumps({"tree": tree, "busy_ms": busy, "wall_ms": walls,
-                      "kernels": kernels}), flush=True)
+                      "kernels": kernels, "matcher_ms": match,
+                      "matcher_sort_ms": match_sort}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
