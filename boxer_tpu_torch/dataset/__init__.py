@@ -44,16 +44,22 @@ def build_dataloader(dataset, dataset_type: str, batch_size: int,
     """The split's loader; its batches are tensors on `device` (CPU by
     default). The sampler's replicas are the data shards (`replicas`, this
     one `rank`: the trainer's dp axis; by default the torch.distributed
-    group's processes, 1 without a group)."""
+    group's processes, 1 without a group); a dataset whose config sets
+    `cache_mode` takes the shard-first sampler, as the JAX package's."""
     from boxer_tpu_torch.dataset.helper.loader import DataLoader
-    from boxer_tpu_torch.dataset.helper.sampler import DistributedSampler
+    from boxer_tpu_torch.dataset.helper.sampler import (
+        DistributedSampler,
+        ShardDistributedSampler,
+    )
 
     dist = torch.distributed
     grouped = dist.is_available() and dist.is_initialized()
     if replicas is None:
         replicas = dist.get_world_size() if grouped else 1
         rank = dist.get_rank() if grouped else 0
-    sampler = DistributedSampler(
+    cache_mode = bool(getattr(dataset, "config", {}).get("cache_mode", False))
+    sampler_cls = ShardDistributedSampler if cache_mode else DistributedSampler
+    sampler = sampler_cls(
         len(dataset),
         num_replicas=replicas,
         rank=rank,

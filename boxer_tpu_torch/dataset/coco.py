@@ -16,6 +16,7 @@ Differences from the reference, as in the JAX package:
 """
 
 import os
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -147,6 +148,15 @@ class COCODetection:
 
         self.prepare = ConvertCocoPolysToMask(self.use_mask,
                                               self.cat_id_to_label)
+        # cache_mode: the decoded RGB images kept in RAM by image id
+        # (reference CocoDetection cache_mode, `helper/coco_detection.py:
+        # 41-71`; build_dataloader pairs it with ShardDistributedSampler,
+        # so each rank holds its own shard); the loader's worker threads
+        # share it, so it is read and filled under a lock (two threads that
+        # miss on one image both decode it)
+        self.cache_mode = bool(config.get("cache_mode", False))
+        self._image_cache = {} if self.cache_mode else None
+        self._cache_lock = threading.Lock()
         procs = config.get("processors", {})
         key = ("image_train_processor" if dataset_type == "train"
                else "image_test_processor")
@@ -167,7 +177,12 @@ class COCODetection:
         image_id = self.ids[idx]
         info = self.coco.load_img(image_id)
         path = os.path.join(self.image_folder, info["file_name"])
-        img = Image.open(path).convert("RGB")
+        img = self._cached_image(image_id)
+        if img is None:
+            img = Image.open(path).convert("RGB")
+            if self._image_cache is not None:
+                with self._cache_lock:
+                    self._image_cache[image_id] = img.copy()
 
         if self.dataset_type == "test":
             target = {"image_id": image_id, "annotations": []}
@@ -180,6 +195,15 @@ class COCODetection:
         if self.processor is not None:
             sample, target = self.processor(sample, target, rng)
         return sample, target
+
+    def _cached_image(self, image_id):
+        """A copy of the cached image (an augmentation may write into what
+        a load returns), or None."""
+        if self._image_cache is None:
+            return None
+        with self._cache_lock:
+            img = self._image_cache.get(image_id)
+        return None if img is None else img.copy()
 
     # ------------------------------------------------------------------
     # Fixed-shape collate (parity: `collate_fn.py:66-112`, a fixed canvas)

@@ -1,11 +1,12 @@
-"""Epoch-seeded distributed sampler; copy of the DistributedSampler of
+"""Epoch-seeded distributed samplers; copy of
 `boxer_tpu/dataset/helper/sampler.py`.
 
-Parity: reference `e2edet/dataset/helper/sampler.py:8-53` (pad to even
-shards, shard round-robin, epoch-seeded shuffle). "Rank" is the process's
-rank in the torch.distributed group (0 of 1 without one). The JAX
-package's ShardDistributedSampler (for `cache_mode`) waits for data
-parallel: in one process it gives this sampler's order.
+Parity: reference `e2edet/dataset/helper/sampler.py:8-90` —
+DistributedSampler (pad to even shards, shard round-robin, epoch-seeded
+shuffle) and ShardDistributedSampler (shard first, contiguous, then
+shuffle within the shard, so that a `cache_mode` dataset's ranks each keep
+their own images in RAM). "Rank" is the data shard (the trainer's dp axis:
+0 of 1 without a torch.distributed group).
 """
 
 from typing import Iterator, List
@@ -46,3 +47,19 @@ class DistributedSampler:
     def __len__(self):
         return self.num_samples
 
+
+class ShardDistributedSampler(DistributedSampler):
+    """Shard first (contiguous), then shuffle within the shard (reference
+    `sampler.py:56-90`)."""
+
+    def __iter__(self) -> Iterator[int]:
+        indices = np.arange(self.dataset_len)
+        pad = self.total_size - len(indices)
+        if pad > 0:
+            indices = np.concatenate([indices, indices[:pad]])
+        shard = indices[self.rank * self.num_samples:
+                        (self.rank + 1) * self.num_samples]
+        if self.shuffle:
+            rng = np.random.RandomState(self.seed + self.epoch)
+            shard = rng.permutation(shard)
+        return iter(shard.tolist())

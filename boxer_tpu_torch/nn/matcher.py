@@ -2,8 +2,8 @@
 
 An exact shortest-augmenting-path (Jonker-Volgenant style) solver with dual
 potentials, `ops/hungarian.py:solve_assignment` (H1): on a CUDA tensor one
-kernel launch solves every problem of the call, one thread block a
-problem, with no host round trip, as the JAX package's vmapped
+kernel launch solves every problem of the call, a thread-block cluster
+a problem, with no host round trip, as the JAX package's vmapped
 `lax.while_loop`s run inside the one XLA program of its train step; on a
 CPU tensor its plain version. Ties break as there: `argmin` takes the first
 minimum, the pruning top-k the lower index.

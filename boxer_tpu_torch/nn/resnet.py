@@ -159,3 +159,20 @@ class BackBone(ResNetBackbone):
         pe = build_position_encoding(self.position_encoding, self.hidden_dim)
         pos = [pe(feat, m, self.ref_size).to(feat.dtype) for feat, m in outs]
         return outs, pos
+
+
+def build_resnet(config, dtype=torch.float32) -> BackBone:
+    """A `BackBone` from the JAX package's (and the reference's) config
+    surface (`boxer_tpu/nn/resnet.py:build_resnet`): `type` the arch,
+    `params` its return_interm_layers (default layer4),
+    position_encoding, hidden_dim and ref_size, its parameters in
+    `dtype`."""
+    params = config["params"]
+    return BackBone(
+        arch=config["type"],
+        return_layers=tuple(params.get("return_interm_layers")
+                            or ("layer4",)),
+        position_encoding=params.get("position_encoding"),
+        hidden_dim=params["hidden_dim"],
+        ref_size=params.get("ref_size", 4),
+    ).to(dtype)

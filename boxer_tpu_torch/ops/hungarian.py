@@ -9,8 +9,9 @@ The algorithm is the JAX package's `boxer_tpu/nn/matcher.py:
 _hungarian_single`, a Jonker-Volgenant shortest augmenting path solver with
 dual potentials, there XLA loops vmapped over the problems (no Pallas
 kernel). `solve_assignment` launches the hand-written CUDA kernel of
-`boxer_tpu_torch/csrc/hungarian.cu` (one thread block a problem, the whole
-solve on the card, no host round trip) on a CUDA tensor and runs
+`boxer_tpu_torch/csrc/hungarian.cu` (a cluster of `cluster_size(m)` thread
+blocks a problem, each owning a slice of the columns, the whole solve on
+the card, no host round trip) on a CUDA tensor and runs
 `solve_assignment_plain` on a CPU tensor; there is no other fallback. The
 plain version runs the problems in lockstep, its loop tests on the host,
 with the kernel's float operations in the same order and `argmin`'s
@@ -26,6 +27,21 @@ from boxer_tpu_torch.ops import _build
 BIG = 1e9
 # the kernel keeps the row duals and a search's path in shared memory
 MAX_ROWS = 4096
+# the cluster size C a problem: one block up to SINGLE_BLOCK_COLUMNS
+# columns, above that the smallest C (at most MAX_CLUSTER) whose slice of
+# the columns is at most SLICE_COLUMNS, a thread a column, so that the
+# valid rows' slices fit the block's shared memory more often (measured on
+# an H100 at the four shipped matching calls: `PERF.md`)
+SINGLE_BLOCK_COLUMNS = 2048
+SLICE_COLUMNS = 640
+MAX_CLUSTER = 16
+
+
+def cluster_size(m):
+    """The kernel's blocks a problem of m columns (the fixed rule above)."""
+    if m <= SINGLE_BLOCK_COLUMNS:
+        return 1
+    return min(MAX_CLUSTER, -(-m // SLICE_COLUMNS))
 
 
 def solve_assignment_plain(cost, n_rows, count_steps=False):
@@ -109,13 +125,18 @@ def solve_assignment_plain(cost, n_rows, count_steps=False):
     return (col4row, steps) if count_steps else col4row
 
 
-def solve_assignment(cost, n_rows):
+def solve_assignment(cost, n_rows, clusters=None):
     """cost: (N, n, m) f32, n <= m; n_rows: (N,) int32 on cost's device.
     Returns col4row (N, n) int64. On a CUDA tensor the whole solve is one
-    kernel launch: no host sync."""
+    kernel launch, on clusters of `clusters` blocks a problem (1 to
+    MAX_CLUSTER; by default `cluster_size(m)`): no host sync. A cluster the
+    card cannot hold raises."""
     if cost.dim() != 3 or cost.shape[1] > cost.shape[2]:
         raise ValueError(f"solve_assignment: cost of shape {tuple(cost.shape)}"
                          "; want (N, n, m) with n <= m")
+    if clusters is not None and not 1 <= clusters <= MAX_CLUSTER:
+        raise ValueError(f"solve_assignment: clusters {clusters}; want 1 to "
+                         f"{MAX_CLUSTER}")
     if cost.device.type == "cpu":
         return solve_assignment_plain(cost, n_rows)
     if not cost.is_cuda:
@@ -130,20 +151,32 @@ def solve_assignment(cost, n_rows):
     if n > MAX_ROWS or m >= 2 ** 31 - 1:
         raise ValueError(f"solve_assignment: {n} rows, {m} columns (the "
                          f"kernel takes up to {MAX_ROWS} rows)")
+    clusters = cluster_size(m) if clusters is None else int(clusters)
     out = torch.empty(nb, n, dtype=torch.long, device=cost.device)
     if nb == 0 or n == 0:
         return out
     lib = _build.library()
-    scratch = torch.empty(lib.hungarian_scratch_bytes(nb, m),
+    scratch = torch.empty(lib.hungarian_scratch_bytes(nb, n, m, clusters),
                           dtype=torch.uint8, device=cost.device)
     with torch.cuda.device(cost.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.hungarian_solve(cost.device.index, cost.data_ptr(),
                                   n_rows.data_ptr(), out.data_ptr(), nb, n,
-                                  m, scratch.data_ptr(), stream)
+                                  m, clusters, scratch.data_ptr(), None,
+                                  stream)
     _build.check(err, "solve_assignment")
     solve_assignment.launches += 1
     return out
 
 
 solve_assignment.launches = 0
+
+
+def max_active_clusters(device, n, m, clusters):
+    """Clusters of `clusters` blocks at (n, m) that the card can hold at
+    once; 0 if it cannot hold one, so a launch there raises."""
+    count = _build.library().hungarian_max_active_clusters(
+        torch.device(device).index or 0, n, m, clusters)
+    if count < 0:
+        raise RuntimeError(f"max_active_clusters: CUDA error {-count}")
+    return count

@@ -1,7 +1,8 @@
-"""K1, K2, K3, K5/K6, K7a/K7b and K8 at their main-path shapes, this tree's
-kernels against another tree's, in one process on one card.
+"""K1, K2, K3, K5/K6, K7a/K7b and K8 (or, with --h1, H1) at their main-path
+shapes, this tree's kernels against another tree's, in one process on one
+card.
 
-    python -m boxer_tpu_torch.tools.bench_kernels --parent DIR
+    python -m boxer_tpu_torch.tools.bench_kernels [--h1] --parent DIR
 
 DIR is an unpacked copy of another commit of the repo (`git archive`);
 its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
@@ -41,6 +42,15 @@ with a library call also times it, both ways. Rows:
   folded detection train step (captured by `chip_smoke.k7b_model_inputs`);
 - K8 (`quad_sample_reduce_mmajor`) at P=4, M=161,576 and P=196, M=2,400,
   to be read beside K1 and K2 at the same shapes.
+
+With --h1 only H1 (`solve_assignment`, the matcher's JV solve) is timed,
+on the four matching problems of `chip_smoke.py` phase 3d (the shipped
+configs' calls, the costs from the matchers' own `cost_matrix`): this
+tree's kernel at its rule's cluster size in turns with the other tree's
+(whose entry points may be the one-block design's, `hungarian_solve`
+without a cluster size), then this tree's at each cluster size the card
+can hold, each held bitwise against the plain version first; CUDA events,
+mean of 5, and device time as above.
 
 Inputs are made on the card from a seed: a bf16 quad table of encoder
 level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
@@ -428,10 +438,122 @@ def run(device, parent=None, log=print, model_inputs=None):
     return results
 
 
+# the parts of csrc/hungarian.cu's probe, in its order (then the steps and
+# the whole kernel's cycles)
+H1_PROBES = ("sweep", "block argmin + push", "cluster wait",
+             "decision + dual update", "walk")
+
+
+def h1_launcher(lib, clusters=None):
+    """H1 through the C entry point as the tree's wrapper calls it: with a
+    cluster size where the tree's `hungarian_solve` takes one (its library
+    has `hungarian_max_active_clusters`), else the one-block design's."""
+    from boxer_tpu_torch.ops.hungarian import cluster_size
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    clustered = hasattr(lib, "hungarian_max_active_clusters")
+    lib.hungarian_scratch_bytes.restype = i64
+    lib.hungarian_solve.restype = i32
+    if clustered:
+        lib.hungarian_scratch_bytes.argtypes = [i64, i32, i32, i32]
+        lib.hungarian_solve.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32,
+                                        vp, vp, vp]
+    else:
+        lib.hungarian_scratch_bytes.argtypes = [i64, i32]
+        lib.hungarian_solve.argtypes = [i32, vp, vp, vp, i64, i32, i32, vp,
+                                        vp]
+
+    def run(cost, n_rows, probe=None):
+        nb, n, m = cost.shape
+        c = clusters or cluster_size(m)
+        size = (lib.hungarian_scratch_bytes(nb, n, m, c) if clustered
+                else lib.hungarian_scratch_bytes(nb, m))
+        scratch = torch.empty(size, dtype=torch.uint8, device=cost.device)
+        out = torch.empty(nb, n, dtype=torch.long, device=cost.device)
+        head = (cost.device.index, cost.data_ptr(), n_rows.data_ptr(),
+                out.data_ptr(), nb, n, m)
+        args = ((*head, c, scratch.data_ptr(),
+                 None if probe is None else probe.data_ptr(), _stream())
+                if clustered else (*head, scratch.data_ptr(), _stream()))
+        _build.check(lib.hungarian_solve(*args), "hungarian_solve")
+        return out
+    return run
+
+
+def run_h1(device, parent=None, log=print):
+    """H1 at phase 3d's four problems; raises if a kernel disagrees with
+    the plain version. Returns a list of dicts."""
+    import chip_smoke
+    from boxer_tpu_torch.ops import hungarian as hg
+
+    libs = {"this": _build.library()}
+    if parent is not None:
+        libs["other"] = load(Path(parent) / "boxer_tpu_torch" / "csrc")
+    results = []
+    for (label, _, _, _, _, outputs, targets,
+         matcher) in chip_smoke.assignment_calls(device):
+        _, sub, n_rows, _, _ = chip_smoke.assignment_of(matcher, outputs,
+                                                        targets)
+        nb, n, m = sub.shape
+        want, steps = hg.solve_assignment_plain(sub, n_rows,
+                                                count_steps=True)
+        calls = {k: functools.partial(h1_launcher(v), sub, n_rows)
+                 for k, v in libs.items()}
+        for k, fn in calls.items():
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"H1 ({k}) at {label} disagrees")
+        timer = functools.partial(cuda_ms, iters=5)
+        other, this = in_turns(calls.get("other"), calls["this"], timer)
+        other_dev, this_dev = in_turns(calls.get("other"), calls["this"],
+                                       functools.partial(device_ms, iters=5))
+        r = dict(label=label, shape=tuple(sub.shape),
+                 clusters=hg.cluster_size(m), steps=int(steps.max()),
+                 ms=this, device_ms=this_dev, other_ms=other,
+                 other_device_ms=other_dev, by_c={})
+        for c in (1, 2, 4, 8, 16):
+            if not hg.max_active_clusters(device, n, m, c):
+                continue
+            fn = functools.partial(h1_launcher(libs["this"], c), sub, n_rows)
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"H1 at {label}, C {c} disagrees")
+            r["by_c"][c] = (timer(fn), device_ms(fn, 5))
+        # where a step's time goes: thread 0 of block 0 of problem 0,
+        # clock64 cycles by part (csrc/hungarian.cu: Probe), a step's mean
+        # in us at the SM clock nvidia-smi reads after the run
+        probe = torch.zeros(len(H1_PROBES) + 2, dtype=torch.long,
+                            device=device)
+        h1_launcher(libs["this"])(sub, n_rows, probe)
+        cycles = probe.tolist()
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits"], capture_output=True, text=True,
+            check=True).stdout.split()[0])
+        steps0 = max(cycles[-2], 1)
+        r["split_us"] = {part: cycles[i] / mhz / steps0
+                         for i, part in enumerate(H1_PROBES)}
+        r["probe_steps"], r["probe_us"] = cycles[-2], cycles[-1] / mhz
+        log(f"H1 {label} {r['shape']} steps {r['steps']} C {r['clusters']}: "
+            f"this {this:.4f} ms (device {this_dev:.4f}; "
+            f"{1e3 * this / max(r['steps'], 1):.2f} us a step)"
+            + ("" if other is None else
+               f", other {other:.4f} ms (device {other_dev:.4f})")
+            + "; by C " + ", ".join(f"{c}: {t:.4f} ({d:.4f})"
+                                    for c, (t, d) in r["by_c"].items())
+            + f"; problem 0: {r['probe_steps']} steps, {r['probe_us']:.1f} us "
+            f"at {mhz:.0f} MHz, us a step by part: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in r["split_us"].items()))
+        results.append(r)
+        del sub, want
+        torch.cuda.empty_cache()
+    return results
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="unpacked copy of the tree to compare "
                     "against (this tree's C signatures)")
+    ap.add_argument("--h1", action="store_true",
+                    help="time H1 alone, at phase 3d's problems")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_kernels: no CUDA card; this tool times kernels")
@@ -441,6 +563,10 @@ def main():
     import chip_smoke
 
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.h1:
+        run_h1(dev, args.parent, log=lambda s: print(s, flush=True))
+        return
     run(dev, args.parent, log=lambda s: print(s, flush=True),
         model_inputs=chip_smoke.k7b_model_inputs(dev))
 

@@ -2,7 +2,7 @@
 for the tree on PYTHONPATH; or that tree's `chip_smoke.py` phases 10 and 11.
 
     PYTHONPATH=TREE python boxer_tpu_torch/tools/bench_trainer.py [UPDATES]
-    PYTHONPATH=TREE python boxer_tpu_torch/tools/bench_trainer.py phases
+    PYTHONPATH=TREE python boxer_tpu_torch/tools/bench_trainer.py phases [10] [11]
 
 TREE is the root of a checkout (this one, or a `git archive` of another
 commit): its `boxer_tpu_torch` package, and its `chip_smoke.py`, whose
@@ -24,7 +24,8 @@ one JSON line {"tree": ..., "wall_ms": [...], "median_wall_ms": ...,
 own call.
 
 `phases` runs the tree's phase 10 (`chip_smoke.run_trainer`, the shipped
-segm config) and phase 11 (`run_trainer_3d`, the shipped Waymo config), as
+segm config) and phase 11 (`run_trainer_3d`, the shipped Waymo config), or
+those of the two it names, as
 its `chip_smoke.py` runs them (TF32 off), each inside its
 `matcher_syncs()` tally, and prints one JSON line {"tree": ..., "device":
 nvidia-smi's name and power limit, "phase10": {...}, "phase11": {...}},
@@ -82,7 +83,7 @@ def main(updates=12):
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}))
 
 
-def phases():
+def phases(which=("10", "11")):
     import chip_smoke
 
     tree = Path(chip_smoke.__file__).resolve().parent
@@ -95,6 +96,8 @@ def phases():
     out = {"tree": str(tree), "device": smi}
     for name, run in (("phase10", chip_smoke.run_trainer),
                       ("phase11", chip_smoke.run_trainer_3d)):
+        if name[len("phase"):] not in which:
+            continue
         with chip_smoke.matcher_syncs() as tally:
             _, res = run(dev, smi)
         out[name] = {"ms": res["ms"], "times": res["times"],
@@ -104,7 +107,7 @@ def phases():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["phases"]:
-        phases()
+    if sys.argv[1:2] == ["phases"]:
+        phases(*[sys.argv[2:]] if sys.argv[2:] else [])
     else:
         main(*map(int, sys.argv[1:]))

@@ -25,17 +25,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    `box_attention` at P=16 (the folded path, through `TakeRows` and K7b),
    whose output must carry a grad_fn, against the same op with K7b swapped
    for its plain version (rel err 1e-5); (3d) H1, the matcher's solve
-   (`csrc/hungarian.cu`, one block a problem), at the shipped configs'
-   four matching calls (the 2D and Waymo decoders' stacked layers, 100 x
-   300 and 250 x 300; their encoder heads pruned to 100 x 10,000 and 250 x
-   62,500), the costs from the matchers' own `cost_matrix` on random
-   outputs with COCO's 1-60 and Waymo's 20-70 valid targets a frame:
-   col4row equal to the plain version's, the plain version equal to scipy
-   for one problem, `hungarian` and the solve free of host syncs under
-   `torch.cuda.set_sync_debug_mode("error")`; the kernel's time beside the
-   plain version's, scipy's host time and the bound of the bytes the solve
-   must move (the valid rows' cost rows, n_rows and col4row, each once),
-   with the plain version's Dijkstra steps beside it;
+   (`csrc/hungarian.cu`, a cluster of C blocks a problem), at the shipped
+   configs' four matching calls (the 2D and Waymo decoders' stacked
+   layers, 100 x 300 and 250 x 300; their encoder heads pruned to 100 x
+   10,000 and 250 x 62,500), the costs from the matchers' own
+   `cost_matrix` on random outputs with COCO's 1-60 and Waymo's 20-70
+   valid targets a frame: col4row equal to the plain version's at the
+   rule's C and at every C of 1, 2, 4, 8, 16 the card can hold, the plain
+   version equal to scipy for one problem, `hungarian` and the solve free
+   of host syncs under `torch.cuda.set_sync_debug_mode("error")`; the
+   kernel's time at each C beside the one-block design's (commit
+   e0deb11, `PERF.md`), the plain version's, scipy's host time and the
+   bound of the bytes the solve must move (the valid rows' cost rows,
+   n_rows and col4row, each once), with the plain version's Dijkstra
+   steps and the kernel's ms a step beside it;
 4. the full-width slice: BoxeR-2D R50 (hidden 256, 8 heads, 6+6 layers, 300
    queries, 91 classes) in bf16 at batch 1 on an 800x1216 canvas with
    seeded random weights, segm with the deferred top-100 mask decode, then
@@ -692,52 +695,82 @@ def matching_inputs(rs, batch, layers, nt, nq, counts, is_3d, dev):
                                       for k, v in targets.items()}
 
 
-def check_assignment(dev, smi):
-    """Phase 3d: H1 against its plain version at the shipped matching calls
-    (ASSIGN_CALLS), the costs from the matchers' own `cost_matrix` on
-    random outputs and the problems as `hungarian` builds them (valid rows
-    first, pruned columns): col4row equal; the plain version equal to
-    scipy on the host for the first problem; the criterion's matching
-    (`match_layers`: the cost matrices and `hungarian`) and the kernel free
-    of host syncs (`torch.cuda.set_sync_debug_mode("error")`). Times
-    the kernel and the plain version (CUDA events) and scipy (host clock,
-    one problem); the bound is the bytes the solve must move, each once,
-    at 3.35 TB/s: the cost rows of each problem's valid rows (a solve
-    visits each), n_rows and col4row. The kernel is bound by its chain of
-    dependent Dijkstra steps, not by these bytes: the plain version's step
-    count stands beside the bound. Returns {label: result dict}."""
-    from scipy.optimize import linear_sum_assignment
+# H1 at these calls as one block a problem solved them (e0deb11, `PERF.md`
+# section 6: NVIDIA H100 80GB HBM3, 700 W, CUDA events, mean of 5)
+ONE_BLOCK_H1_MS = {"2D decoder": 0.0520, "2D encoder": 0.4231,
+                   "Waymo decoder": 0.1398, "Waymo encoder": 0.9501}
+# the cluster sizes phase 3d holds against the plain version at each call
+H1_CLUSTERS = (1, 2, 4, 8, 16)
 
-    from boxer_tpu_torch.criterion.losses import match_layers
+
+def assignment_calls(dev):
+    """ASSIGN_CALLS's inputs from one seed, in order: yields (label,
+    layers, batch, nt, nq, [output dict a layer], targets, matcher)."""
     from boxer_tpu_torch.nn import matcher as mt
-    from boxer_tpu_torch.ops import hungarian as hg
-    from boxer_tpu_torch.tools import bench_combine as bc
 
     rs = np.random.RandomState(11)
-    results = {}
     for label, batch, layers, nt, nq, (lo, hi), is_3d in ASSIGN_CALLS:
         counts = rs.randint(lo, hi + 1, batch)
         outputs, targets = matching_inputs(rs, batch, layers, nt, nq, counts,
                                            is_3d, dev)
         matcher = (mt.HungarianMatcher3d(2, 5, 2, 4) if is_3d
                    else mt.HungarianMatcher(2, 5, 2, focal_label=True))
-        # the layers stacked as `match_layers` stacks them
-        stacked = {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
-        tiled = {k: v.repeat((layers,) + (1,) * (v.dim() - 1))
-                 for k, v in targets.items()}
-        valid = tiled["valid"]
+        yield label, layers, batch, nt, nq, outputs, targets, matcher
+
+
+def assignment_of(matcher, outputs, targets):
+    """The layers stacked as `match_layers` stacks them and the problem as
+    `hungarian` builds it from their cost matrix: (valid, sub, n_rows,
+    rows, cand)."""
+    from boxer_tpu_torch.nn import matcher as mt
+
+    layers = len(outputs)
+    stacked = {k: torch.cat([o[k] for o in outputs]) for k in outputs[0]}
+    tiled = {k: v.repeat((layers,) + (1,) * (v.dim() - 1))
+             for k, v in targets.items()}
+    cost = matcher.cost_matrix(stacked, tiled).transpose(-1, -2)
+    return (tiled["valid"],) + tuple(mt.assignment_problem(cost,
+                                                           tiled["valid"]))
+
+
+def check_assignment(dev, smi):
+    """Phase 3d: H1 against its plain version at the shipped matching calls
+    (ASSIGN_CALLS), the costs from the matchers' own `cost_matrix` on
+    random outputs and the problems as `hungarian` builds them (valid rows
+    first, pruned columns): col4row equal at the rule's cluster size and
+    at each of H1_CLUSTERS the card can hold; the plain version equal to
+    scipy on the host for the first problem; the criterion's matching
+    (`match_layers`: the cost matrices and `hungarian`) and the kernel free
+    of host syncs (`torch.cuda.set_sync_debug_mode("error")`). Times
+    the kernel at each cluster size and the plain version (CUDA events)
+    and scipy (host clock, one problem); the bound is the bytes the solve
+    must move, each once, at 3.35 TB/s: the cost rows of each problem's
+    valid rows (a solve visits each), n_rows and col4row. The kernel is
+    bound by its chain of dependent Dijkstra steps, not by these bytes: the
+    plain version's step count stands beside the bound, and the kernel's
+    ms a step is its ms over the longest problem's steps. Returns {label:
+    result dict}."""
+    from scipy.optimize import linear_sum_assignment
+
+    from boxer_tpu_torch.criterion.losses import match_layers
+    from boxer_tpu_torch.ops import hungarian as hg
+    from boxer_tpu_torch.tools import bench_combine as bc
+
+    results = {}
+    for (label, layers, batch, nt, nq, outputs, targets,
+         matcher) in assignment_calls(dev):
         torch.cuda.synchronize()
         before = hg.solve_assignment.launches
         torch.cuda.set_sync_debug_mode("error")
         try:
             matched = torch.cat(match_layers(matcher, outputs, targets)[0])
-            cost = matcher.cost_matrix(stacked, tiled).transpose(-1, -2)
-            sub, n_rows, rows, cand = mt.assignment_problem(cost, valid)
+            valid, sub, n_rows, rows, cand = assignment_of(matcher, outputs,
+                                                           targets)
             got = hg.solve_assignment(sub, n_rows)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         launched = hg.solve_assignment.launches - before
-        del outputs, stacked
+        del outputs
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         want, steps = hg.solve_assignment_plain(sub, n_rows,
@@ -746,6 +779,16 @@ def check_assignment(dev, smi):
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(end)
         equal = torch.equal(got, want)
+        nb, n, m = sub.shape
+        by_c, refused = {}, []
+        for c in H1_CLUSTERS:
+            if not hg.max_active_clusters(dev, n, m, c):
+                refused.append(c)
+                continue
+            same = torch.equal(hg.solve_assignment(sub, n_rows, c), want)
+            by_c[c] = bc.cuda_ms(lambda c=c: hg.solve_assignment(
+                sub, n_rows, c), 5)
+            equal = equal and same
         # the criterion's matches: the solve mapped back to the original
         # rows and columns
         col = got if cand is None else cand.gather(1, got)
@@ -758,30 +801,40 @@ def check_assignment(dev, smi):
         scipy_ms = (time.perf_counter() - t0) * 1e3
         scipy_ok = (r_idx.tolist() == list(range(k))
                     and c_idx.tolist() == want[0, :k].tolist())
-        nb, n, m = sub.shape
+        clusters = hg.cluster_size(m)
         r = dict(shape=f"{tuple(sub.shape)}", plain_ms=plain_ms,
                  ms=bc.cuda_ms(lambda: hg.solve_assignment(sub, n_rows), 5),
                  max_abs_err=float((got - want).abs().max()),
                  library_ms=None, scipy_ms=scipy_ms, steps=steps.tolist(),
-                 n_rows=n_rows.tolist())
+                 n_rows=n_rows.tolist(), clusters=clusters, by_c=by_c,
+                 one_block_ms=ONE_BLOCK_H1_MS[label])
+        r["step_us"] = 1e3 * r["ms"] / max(int(steps.max()), 1)
         r["bound_ms"], r["bound_by"] = bc.bound_ms(
             int(n_rows.sum()) * m * 4 + nb * 4 + nb * n * 8, 0)
         log(f"H1 [{label}: {layers} layer(s) x batch {batch}, NT {nt}, NQ "
             f"{nq} -> {r['shape']}, valid rows {r['n_rows']}] [{smi}]: "
-            f"equal to plain {equal}, plain equal to scipy on problem 0 "
+            f"equal to plain {equal} (at C {clusters} and "
+            f"{sorted(by_c)}; the card holds no cluster of {refused}), "
+            f"plain equal to scipy on problem 0 "
             f"{scipy_ok}, `match_layers` the same matches {mapped}, launches "
             f"under the sync check {launched} (no host sync); Dijkstra steps "
-            f"{r['steps']}; kernel {r['ms']:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, scipy {scipy_ms:.4f} host ms (problem 0), "
-            f"library none, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-            f"the valid rows' cost rows, n_rows and col4row once; "
-            f"{int(steps.sum())} dependent Dijkstra steps in all)")
-        if not (equal and scipy_ok and mapped and launched == 2):
+            f"{r['steps']}; kernel {r['ms']:.4f} ms at C {clusters} "
+            f"({r['step_us']:.2f} us a step of the longest problem; one "
+            f"block a problem, e0deb11: {r['one_block_ms']:.4f} ms), by C "
+            + ", ".join(f"{c}: {t:.4f}" for c, t in by_c.items())
+            + f" ms; plain {plain_ms:.4f} ms, scipy {scipy_ms:.4f} host ms "
+            f"(problem 0), library none, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: the valid rows' cost rows, n_rows and "
+            f"col4row once; {int(steps.sum())} dependent Dijkstra steps in "
+            f"all)")
+        if not (equal and scipy_ok and mapped and launched == 2
+                and clusters in by_c):
             raise AssertionError(f"H1 at the {label} call: equal {equal}, "
                                  f"scipy {scipy_ok}, mapped {mapped}, "
-                                 f"launches {launched}")
+                                 f"launches {launched}, C {clusters} held "
+                                 f"{clusters in by_c}")
         results[label] = r
-        del cost, sub, got, want, matched, col
+        del sub, got, want, matched, col
         torch.cuda.empty_cache()
     return results
 

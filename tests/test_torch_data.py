@@ -122,7 +122,7 @@ def test_shipped_config_loads_as_jax(rel, monkeypatch):
 # ---------------------------------------------------------------- batches
 
 def _processors(kind):
-    if kind == "test":
+    if kind in ("test", "fixed"):               # no random draw
         preps = [{"type": "random_resize",
                   "params": {"min_size": 96, "max_size": 160}}]
     elif kind == "lsj":
@@ -172,46 +172,207 @@ def _flat(batch):
     return out
 
 
-@pytest.mark.parametrize("split,kind,ipu,epoch", [
-    ("train", "train", 1, 0), ("train", "train", 2, 1),
-    ("train", "lsj", 1, 0), ("val", "test", 1, 0)])
-def test_loader_batches_match_jax(coco_root, split, kind, ipu, epoch):
+def _batches_equal(want, got, ipu=1):
+    """A port batch against the JAX loader's: exact for integers, masks and
+    crops, images and boxes within 1e-6. Returns whether it has a mask."""
+    assert _meta_equal(got["meta"], want["meta"])
+    w_flat, g_flat = _flat(want), _flat(got)
+    assert sorted(g_flat) == sorted(w_flat)
+    for k, w in w_flat.items():
+        g = g_flat[k]
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu", k
+        g = g.numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        assert g.shape[0] == ipu, k
+        if np.issubdtype(w.dtype, np.floating) and k != \
+                "targets.instance_masks":
+            assert np.abs(g - w).max() <= 1e-6, k
+        else:
+            assert np.array_equal(g, w), k
+    return w_flat["targets.instance_masks"].sum() > 0
+
+
+# (split, processors, iter_per_update, epoch, data shards, cache_mode); the
+# cache_mode cases take the shard-first sampler on both sides, the one at
+# two shards with the draw-free processors (the port folds a rank into a
+# batch's augmentation seed at more than one shard, the JAX loader does not)
+LOADER_CASES = [
+    pytest.param("train", "train", 1, 0, 1, False, id="train-train-1-0"),
+    pytest.param("train", "train", 2, 1, 1, False, id="train-train-2-1"),
+    pytest.param("train", "lsj", 1, 0, 1, False, id="train-lsj-1-0"),
+    pytest.param("val", "test", 1, 0, 1, False, id="val-test-1-0"),
+    pytest.param("train", "train", 1, 1, 1, True, id="train-train-1-1-cache"),
+    pytest.param("train", "fixed", 1, 2, 2, True,
+                 id="train-fixed-1-2-cache-2shards")]
+
+
+@pytest.mark.parametrize("split,kind,ipu,epoch,shards,cache", LOADER_CASES)
+def test_loader_batches_match_jax(coco_root, split, kind, ipu, epoch, shards,
+                                  cache, monkeypatch):
     from boxer_tpu.dataset import build_dataloader as j_loader
     from boxer_tpu.dataset import build_dataset as j_dataset
+    from boxer_tpu.dataset.helper import sampler as j_sampler
     from boxer_tpu_torch.dataset import build_dataloader, build_dataset
+    from boxer_tpu_torch.dataset.helper import sampler
 
-    cfg = _dataset_config(coco_root, kind)
+    cfg = dict(_dataset_config(coco_root, kind), cache_mode=cache)
     j_ds, t_ds = (j_dataset("detection", cfg, split),
                   build_dataset("detection", cfg, split))
     assert t_ds.get_answer_size() == j_ds.get_answer_size() == 3
     assert t_ds.label_to_cat_id == j_ds.label_to_cat_id == {0: 1, 1: 3, 2: 7}
-    want_loader = j_loader(j_ds, split, batch_size=2, num_workers=1,
-                           iter_per_update=ipu, seed=11)
-    got_loader = build_dataloader(t_ds, split, batch_size=2, num_workers=2,
-                                  iter_per_update=ipu, seed=11)
-    assert len(got_loader) == len(want_loader) == 4
-    want_loader.sampler.set_epoch(epoch)
-    got_loader.sampler.set_epoch(epoch)
-    pairs = list(zip(list(want_loader), list(got_loader)))
-    assert len(pairs) == 4
     n_masks = 0
-    for want, got in pairs:
-        assert _meta_equal(got["meta"], want["meta"])
-        w_flat, g_flat = _flat(want), _flat(got)
-        assert sorted(g_flat) == sorted(w_flat)
-        for k, w in w_flat.items():
-            g = g_flat[k]
-            assert isinstance(g, torch.Tensor) and g.device.type == "cpu", k
-            g = g.numpy()
-            assert g.shape == w.shape and g.dtype == w.dtype, k
-            assert g.shape[0] == ipu, k
-            if np.issubdtype(w.dtype, np.floating) and k != \
-                    "targets.instance_masks":
-                assert np.abs(g - w).max() <= 1e-6, k
-            else:
-                assert np.array_equal(g, w), k
-        n_masks += int(w_flat["targets.instance_masks"].sum() > 0)
+    monkeypatch.setattr(jax, "process_count", lambda: shards)
+    for rank in range(shards):
+        monkeypatch.setattr(jax, "process_index", lambda: rank)
+        want_loader = j_loader(j_ds, split, batch_size=2, num_workers=1,
+                               iter_per_update=ipu, seed=11)
+        got_loader = build_dataloader(t_ds, split, batch_size=2,
+                                      num_workers=2, iter_per_update=ipu,
+                                      seed=11, replicas=shards, rank=rank)
+        assert type(want_loader.sampler) is (
+            j_sampler.ShardDistributedSampler if cache
+            else j_sampler.DistributedSampler)
+        assert type(got_loader.sampler).__name__ == \
+            type(want_loader.sampler).__name__
+        assert isinstance(got_loader.sampler, sampler.DistributedSampler)
+        assert len(got_loader) == len(want_loader) == 4 // shards
+        want_loader.sampler.set_epoch(epoch)
+        got_loader.sampler.set_epoch(epoch)
+        pairs = list(zip(list(want_loader), list(got_loader)))
+        assert len(pairs) == 4 // shards
+        for want, got in pairs:
+            n_masks += int(_batches_equal(want, got, ipu))
     assert n_masks == 4
+    assert (t_ds._image_cache is not None) == cache
+
+
+@pytest.mark.parametrize("n", range(7, 12))
+def test_shard_sampler_matches_jax(n):
+    from boxer_tpu.dataset.helper.sampler import ShardDistributedSampler as J
+    from boxer_tpu_torch.dataset.helper.sampler import ShardDistributedSampler
+
+    for replicas in range(1, 5):
+        shards = []
+        for rank in range(replicas):
+            for shuffle in (True, False):
+                got = ShardDistributedSampler(n, replicas, rank, shuffle, 3)
+                want = J(n, replicas, rank, shuffle, 3)
+                for epoch in range(3):
+                    got.set_epoch(epoch)
+                    want.set_epoch(epoch)
+                    assert list(got) == list(want)
+                    assert len(got) == len(want) == -(-n // replicas)
+            shards += list(ShardDistributedSampler(n, replicas, rank,
+                                                   shuffle=False))
+        # unshuffled, the shards are the padded index range cut in turn
+        pad = -(-n // replicas) * replicas - n
+        assert shards == list(range(n)) + list(range(pad))
+
+
+@pytest.mark.parametrize("cache", [False, True])
+def test_build_dataloader_picks_the_sampler_by_cache_mode(coco_root, cache):
+    from boxer_tpu_torch.dataset import build_dataloader, build_dataset
+    from boxer_tpu_torch.dataset.helper.sampler import (
+        DistributedSampler,
+        ShardDistributedSampler,
+    )
+
+    cfg = dict(_dataset_config(coco_root, "train"), cache_mode=cache)
+    ds = build_dataset("detection", cfg, "train")
+    loader = build_dataloader(ds, "train", batch_size=2, replicas=3, rank=1)
+    assert type(loader.sampler) is (ShardDistributedSampler if cache
+                                    else DistributedSampler)
+    assert (loader.sampler.num_replicas, loader.sampler.rank) == (3, 1)
+
+
+def test_cache_mode_under_threads(tmp_path):
+    """The image cache shared by loader threads: 12 threads load every
+    image of a cache_mode dataset in their own order, switching every
+    microsecond; each load equals a single-threaded load of the uncached
+    dataset, the cache holds one image a file, and writing into a handed
+    out image leaves the cache as it was."""
+    import sys
+    import threading
+
+    from boxer_tpu_torch.dataset import build_dataset
+
+    root = write_coco(tmp_path / "coco", n_images=5, seed=6)
+    cfg = _dataset_config(root, "fixed")
+    want = [build_dataset("detection", cfg, "train").load(
+        i, np.random.RandomState(0))[0]["image"] for i in range(5)]
+    ds = build_dataset("detection", dict(cfg, cache_mode=True), "train")
+    got, errors = [], []
+
+    def work(seed):
+        try:
+            for i in np.random.RandomState(seed).permutation(5):
+                image = ds.load(int(i), np.random.RandomState(0))[0]["image"]
+                got.append((int(i), np.array(image)))
+                image[...] = 0                  # an in-place augmentation
+        except Exception as e:                  # reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,))
+                   for k in range(12)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert len(got) == 12 * 5
+    for i, image in got:
+        np.testing.assert_array_equal(image, np.asarray(want[i]))
+    assert sorted(ds._image_cache) == sorted(ds.ids)
+    for image_id, img in ds._image_cache.items():
+        path = root / "images" / f"{image_id}.jpg"
+        np.testing.assert_array_equal(np.asarray(img), np.asarray(
+            Image.open(path).convert("RGB")))
+
+
+def test_cache_mode_second_epoch_reads_no_file(tmp_path):
+    """cache_mode: after an epoch the image files are deleted; the second
+    epoch equals a fresh loader's and the JAX loader's (taken before the
+    deletion), so it was read from the cache, and the first epoch's
+    augmentations (flips, resizes) did not write into the cache."""
+    from boxer_tpu.dataset import build_dataloader as j_loader
+    from boxer_tpu.dataset import build_dataset as j_dataset
+    from boxer_tpu_torch.dataset import build_dataloader, build_dataset
+
+    root = write_coco(tmp_path / "coco", n_images=6, seed=4)
+    cfg = dict(_dataset_config(root, "train"), cache_mode=True)
+
+    def loader():
+        return build_dataloader(build_dataset("detection", cfg, "train"),
+                                "train", batch_size=2, num_workers=3,
+                                seed=7)
+
+    want_loader = j_loader(j_dataset("detection", cfg, "train"), "train",
+                           batch_size=2, num_workers=1, seed=7)
+    want_loader.sampler.set_epoch(1)
+    want = list(want_loader)
+    fresh = loader()
+    fresh.sampler.set_epoch(1)
+    fresh = list(fresh)
+    cached = loader()
+    first = list(cached)
+    assert len(cached.dataset._image_cache) == 6
+    for f in (root / "images").iterdir():
+        f.unlink()
+    cached.sampler.set_epoch(1)
+    second = list(cached)
+    assert len(second) == len(fresh) == len(want) == len(first) == 3
+    for w, f, g in zip(want, fresh, second):
+        _batches_equal(w, g)
+        for k, v in _flat(f).items():
+            assert torch.equal(_flat(g)[k], v), k
+        assert _meta_equal(g["meta"], f["meta"])
+    with pytest.raises(FileNotFoundError):
+        list(loader())
 
 
 def test_loader_resumes_mid_epoch(coco_root):

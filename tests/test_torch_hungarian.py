@@ -87,55 +87,115 @@ def test_plain_solver_matches_scipy_per_row_count(n, m):
     assert steps[0] == 0 and (steps[1:] >= torch.from_numpy(counts[1:])).all()
 
 
-def _kernel_model(cost, rows):
-    """One problem as `hungarian_kernel` orders its steps, in f32."""
+def _precedes(av, aj, bv, bj):
+    """argmin's order: a NaN first, then the smaller value, then the lower
+    index among equals."""
+    an, bn = np.isnan(av), np.isnan(bv)
+    if an or bn:
+        return an and (not bn or aj < bj)
+    return av < bv or (av == bv and aj < bj)
+
+
+def _order_key(v):
+    """csrc/hungarian.cu:order_key, argmin's order as an unsigned key."""
+    if np.isnan(v):
+        return 0
+    b = int(np.float32(0.0 if v == 0 else v).view(np.uint32))
+    return (~b & 0xFFFFFFFF) if b & 0x80000000 else b | 0x80000000
+
+
+def _warp_reduce(cands):
+    """The kernel's warp minimum over 32 lanes, (value, column, p, used,
+    way) a lane, the lanes past the candidates empty: the least key, then
+    the least column among it (two `redux.sync`)."""
+    lanes = list(cands) + [(np.float32(np.inf), INT_MAX, -1, True, 0)] * (
+        32 - len(cands))
+    kmin = min(_order_key(c[0]) for c in lanes)
+    jmin = min(c[1] for c in lanes if _order_key(c[0]) == kmin)
+    return next(c for c in lanes if _order_key(c[0]) == kmin
+                and c[1] == jmin)
+
+
+INT_MAX = 2 ** 31 - 1
+
+
+def _kernel_model(cost, rows, clusters=1):
+    """One problem as `hungarian_kernel` orders its steps, in f32, on a
+    cluster of `clusters` blocks: block k sweeps its slice of the columns
+    alone (1 + k*S .. (k+1)*S, S = ceil(m / C); a slice may be empty) to
+    its first minimum, which it hands on with that column's p, used and
+    way; the C candidates are reduced as a warp reduces them. u and the
+    path (each column with the row it held and its way when it joined)
+    are replicated; the v of a path column is updated by its owner, the
+    unused columns' minv - delta by the next sweep; the augmenting walk
+    follows the path's ways, not the columns' state."""
     big = np.float32(1e9)
     n, m = cost.shape
+    s = -(-m // clusters)
+    slices = [range(1 + k * s, min(m + 1, 1 + (k + 1) * s))
+              for k in range(clusters)]
     v, minv = np.zeros(m + 1, np.float32), np.zeros(m + 1, np.float32)
     p, way = np.full(m + 1, -1), np.zeros(m + 1, np.int64)
     used, u = np.zeros(m + 1, bool), np.zeros(n, np.float32)
     for i in range(rows):
-        p[0], j0, path, delta, first = i, 0, [], np.float32(0), True
+        j0, i0, w0, path, delta = 0, i, 0, [], np.float32(0)
+        first = fresh = True
         while True:
-            if first or not used[j0]:
-                path.append(j0)
-            i0 = i if first else p[j0]
-            best, j1 = np.float32(np.inf), 0
-            for j in range(1, m + 1):
-                was = not first and used[j]
-                mv = big if first else minv[j]
-                if not first and not was:
-                    mv = np.float32(mv - delta)
-                now = was or j == j0
-                cur = big if now else np.float32(
-                    np.float32(cost[i0, j - 1] - u[i0]) - v[j])
-                if cur < mv:
-                    mv, way[j] = cur, j0
-                elif first:
-                    way[j] = 0
-                minv[j] = mv
-                if first or j == j0:
-                    used[j] = now
-                masked = big if now else mv
-                if masked < best:
-                    best, j1 = masked, j
-            delta = best
-            for col in path:
-                r = i if col == 0 else p[col]
-                u[r], v[col] = np.float32(u[r] + delta), np.float32(v[col]
-                                                                   - delta)
-            j0, first = j1, False
-            if p[j1] == -1:
+            if fresh:
+                path.append((j0, i0, w0))
+            cands = []
+            for cols in slices:
+                best, bj = np.float32(np.inf), INT_MAX
+                for j in cols:
+                    was = not first and used[j]
+                    mv = big if first else minv[j]
+                    if not first and not was:
+                        mv = np.float32(mv - delta)
+                    now = was or j == j0
+                    cur = big if now else np.float32(
+                        np.float32(cost[i0, j - 1] - u[i0]) - v[j])
+                    if cur < mv:
+                        mv, way[j] = cur, j0
+                    elif first:
+                        way[j] = 0
+                    minv[j] = mv
+                    if first or j == j0:
+                        used[j] = now
+                    masked = big if now else mv
+                    if _precedes(masked, j, best, bj):
+                        best, bj = masked, j
+                cands.append((best, bj, -1, True, 0) if bj == INT_MAX
+                             else (best, bj, p[bj], used[bj], way[bj]))
+            delta, j1, p1, used1, w1 = _warp_reduce(cands)
+            for col, r, _ in path:
+                u[r] = np.float32(u[r] + delta)
+                for cols in slices:              # the owner's update
+                    if col in cols:
+                        v[col] = np.float32(v[col] - delta)
+            j0, i0, w0, fresh, first = j1, p1, w1, not used1, False
+            if p1 == -1:
                 break
-        while j0 != 0:
-            p[j0], j0 = p[way[j0]], way[j0]
+        entry = {col: (r, w) for col, r, w in path}
+        j, w = j0, w0
+        while j != 0:
+            r, nxt = entry[w]
+            p[j], j, w = r, w, nxt
     out = np.zeros(n, np.int64)
     out[p[1:][p[1:] >= 0]] = np.nonzero(p[1:] >= 0)[0]
     return out
 
 
-@pytest.mark.parametrize("seed", range(4))
-def test_kernel_step_order_matches_plain(seed):
+# C = 1 (one block a problem) under the cases' first names; 2, 3 (a slice
+# boundary off a power of two), 8 and 16 (slices of a column or two, some
+# empty) as "<seed>-C<C>"
+CLUSTERS = (1, 2, 3, 8, 16)
+STEP_CASES = [pytest.param(seed, 1, id=str(seed)) for seed in range(4)] + [
+    pytest.param(seed, c, id=f"{seed}-C{c}")
+    for c in CLUSTERS[1:] for seed in range(4)]
+
+
+@pytest.mark.parametrize("seed,clusters", STEP_CASES)
+def test_kernel_step_order_matches_plain(seed, clusters):
     rs = np.random.RandomState(seed)
     for _ in range(5):
         n = rs.randint(1, 10)
@@ -143,39 +203,64 @@ def test_kernel_step_order_matches_plain(seed):
         cost = (rs.randn(3, n, m) * 10).astype(np.float32)
         if seed % 2:
             cost = np.round(cost)                       # ties
+            s = -(-m // clusters)
+            for k in range(1, clusters):                # across a boundary
+                if k * s < m:
+                    cost[:, :, k * s] = cost[:, :, k * s - 1]
         cost[:, :, rs.rand(m) < 0.3] = 1e9              # BIG columns
         counts = rs.randint(0, n + 1, 3)
+        counts[seed % 3] = 0
         want = solve_assignment_plain(torch.from_numpy(cost),
                                       torch.from_numpy(counts)).numpy()
         for b in range(3):
-            np.testing.assert_array_equal(_kernel_model(cost[b], counts[b]),
-                                          want[b])
+            np.testing.assert_array_equal(
+                _kernel_model(cost[b], counts[b], clusters), want[b])
 
 
-def _few_finite_columns(rs, nb, n, m, finite):
-    """Costs whose first finite[b] columns are finite and the rest above BIG:
-    once the finite columns are taken, every unused column's minv sits at
-    BIG, so a step's argmin lands on a used column (the lowest index)."""
+def _few_finite_columns(rs, nb, n, m, finite, last=False):
+    """Costs whose first finite[b] columns (with last: the last finite[b])
+    are finite and the rest above BIG: once the finite columns are taken,
+    every unused column's minv sits at BIG, so a step's argmin lands on a
+    used column (the lowest index)."""
     cost = (rs.rand(nb, n, m) * 10).astype(np.float32)
     for b, k in enumerate(finite):
-        cost[b, :, k:] = rs.uniform(1.5e9, 3.5e9, (n, m - k))
+        big = rs.uniform(1.5e9, 3.5e9, (n, m - k))
+        if last:
+            cost[b, :, :m - k] = big
+        else:
+            cost[b, :, k:] = big
     return cost
 
 
 def test_kernel_step_order_with_more_rows_than_finite_columns():
     rs = np.random.RandomState(5)
-    for _ in range(6):
+    for trial in range(6):
         n = rs.randint(3, 9)
         m = rs.randint(n, 16)
         finite = rs.randint(1, n, 3)
-        cost = _few_finite_columns(rs, 3, n, m, finite)
+        cost = _few_finite_columns(rs, 3, n, m, finite, last=trial % 2)
         counts = np.array([n, n, rs.randint(1, n + 1)])
         want = solve_assignment_plain(torch.from_numpy(cost),
                                       torch.from_numpy(counts)).numpy()
         for b in range(3):
             assert len(set(want[b, :counts[b]].tolist())) == counts[b]
-            np.testing.assert_array_equal(_kernel_model(cost[b], counts[b]),
-                                          want[b])
+            for clusters in CLUSTERS:
+                np.testing.assert_array_equal(
+                    _kernel_model(cost[b], counts[b], clusters), want[b])
+
+
+def test_cluster_rule():
+    """The wrapper's fixed rule: one block up to 2,048 columns, then the
+    smallest C (at most 16) whose slice is at most 640 columns."""
+    from boxer_tpu_torch.ops.hungarian import cluster_size
+
+    assert [cluster_size(m) for m in (1, 300, 2048, 2049, 2560, 2561,
+                                      10_000, 10_240, 62_500, 10 ** 6)] == \
+        [1, 1, 1, 4, 4, 5, 16, 16, 16, 16]
+    for clusters in (0, 17):
+        with pytest.raises(ValueError):
+            solve_assignment(torch.zeros(1, 2, 4),
+                             torch.ones(1, dtype=torch.int32), clusters)
 
 
 def test_solver_refuses_bad_shapes():
@@ -252,6 +337,32 @@ def cuda():
     return torch.device("cuda")
 
 
+# the cluster sizes the card tests force at every shape (None: the rule's)
+CARD_CLUSTERS = (None, 1, 2, 4, 8, 16)
+
+
+def _equal_at_every_cluster_size(cost, n_rows):
+    """The kernel at every C of CARD_CLUSTERS equals the plain version; a
+    C the card cannot hold (16 is non-portable) raises. Returns the C
+    that ran."""
+    from boxer_tpu_torch.ops.hungarian import max_active_clusters
+
+    want = solve_assignment_plain(cost, n_rows)
+    ran = []
+    for clusters in CARD_CLUSTERS:
+        _, n, m = cost.shape
+        if clusters and not max_active_clusters(cost.device, n, m, clusters):
+            with pytest.raises(RuntimeError):
+                solve_assignment(cost, n_rows, clusters)
+            continue
+        got = solve_assignment(cost, n_rows, clusters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), clusters
+        ran.append(clusters)
+    assert ran[:5] == [None, 1, 2, 4, 8]
+    return want
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", sorted(SHIPPED))
 def test_kernel_matches_plain_on_shipped_shapes(cuda, shape):
@@ -261,10 +372,8 @@ def test_kernel_matches_plain_on_shipped_shapes(cuda, shape):
     counts = rs.randint(lo, hi + 1, nb)
     counts[0] = 0
     n_rows = torch.from_numpy(counts.astype(np.int32)).to(cuda)
+    want = _equal_at_every_cluster_size(cost, n_rows)
     got = solve_assignment(cost, n_rows)
-    want = solve_assignment_plain(cost, n_rows)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
     rows = torch.arange(n, device=cuda)
     for b, k in enumerate(counts):
         assert (got[b, k:] == 0).all()
@@ -273,15 +382,30 @@ def test_kernel_matches_plain_on_shipped_shapes(cuda, shape):
 
 
 @pytest.mark.gpu
-def test_kernel_matches_plain_with_more_rows_than_finite_columns(cuda):
+@pytest.mark.parametrize("m", [300, 10_000])
+def test_kernel_matches_plain_with_ties_across_slices(cuda, m):
+    """Integer costs, each slice boundary's two columns equal, BIG columns,
+    a problem of 0 rows."""
+    rs = np.random.RandomState(m)
+    cost = np.round(rs.randn(4, 60, m) * 3).astype(np.float32)
+    for c in (2, 4, 8, 16):
+        s = -(-m // c)
+        cost[:, :, s:m:s] = cost[:, :, s - 1:m - 1:s]
+    cost[:, :, rs.rand(m) < 0.2] = 1e9
+    n_rows = torch.from_numpy(np.array([60, 0, 31, 60], np.int32)).to(cuda)
+    _equal_at_every_cluster_size(torch.from_numpy(cost).to(cuda), n_rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("last", [False, True])
+def test_kernel_matches_plain_with_more_rows_than_finite_columns(cuda, last):
+    """With last, the finite columns all lie in the last block's slice."""
     rs = np.random.RandomState(6)
     finite = np.array([1, 5, 20, 49, 10, 30])
-    cost = torch.from_numpy(_few_finite_columns(rs, 6, 50, 300, finite))
+    cost = torch.from_numpy(_few_finite_columns(rs, 6, 50, 300, finite,
+                                                last))
     n_rows = torch.from_numpy(np.array([50, 50, 50, 50, 25, 40], np.int32))
-    got = solve_assignment(cost.to(cuda), n_rows.to(cuda))
-    want = solve_assignment_plain(cost.to(cuda), n_rows.to(cuda))
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    _equal_at_every_cluster_size(cost.to(cuda), n_rows.to(cuda))
 
 
 @pytest.mark.gpu

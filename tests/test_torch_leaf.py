@@ -308,3 +308,99 @@ def test_visualize_and_demo_write_a_png(tmp_path):
                           dim_feedforward=64, num_queries=16,
                           backbone_arch="resnet10"))
     assert Image.open(out).size == (128, 128)
+
+
+# --- utils/box_ops.py, nn/resnet.py:build_resnet, the package exports -----
+
+def test_box_ops_match_jax():
+    from boxer_tpu.utils import box_ops as jb
+    from boxer_tpu_torch.utils import box_ops as tb
+
+    rs = np.random.RandomState(12)
+    xy = rs.rand(2, 9, 2).astype(np.float32)
+    boxes = np.concatenate([xy, xy + rs.rand(2, 9, 2).astype(np.float32)],
+                           -1)
+    boxes[0, 0] = [0.5, 0.5, 0.5, 0.9]                 # zero area
+    _close(tb.box_xyxy_to_cxcywh(torch.from_numpy(boxes)),
+           jb.box_xyxy_to_cxcywh(jnp.asarray(boxes)))
+    a, b = boxes[0], boxes[1]
+    for g, w in zip(tb.elementwise_box_iou(torch.from_numpy(a),
+                                           torch.from_numpy(b)),
+                    jb.elementwise_box_iou(jnp.asarray(a), jnp.asarray(b))):
+        _close(g, w)
+    _close(tb.elementwise_generalized_box_iou(torch.from_numpy(a),
+                                              torch.from_numpy(b)),
+           jb.elementwise_generalized_box_iou(jnp.asarray(a),
+                                              jnp.asarray(b)))
+    masks = rs.rand(4, 7, 11) > 0.8
+    masks[1] = False                                    # empty: a zero box
+    masks[2] = False
+    masks[2, 3, 5] = True                               # one pixel
+    got = tb.masks_to_boxes(torch.from_numpy(masks))
+    want = np.asarray(jb.masks_to_boxes(jnp.asarray(masks)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want[1], 0)
+    np.testing.assert_array_equal(want[2], [5, 3, 6, 4])
+
+
+@pytest.mark.parametrize("layers,encoding,ref_size", [
+    (["layer4"], "fixed", None),                        # DETR's surface
+    (["layer2", "layer3", "layer4"], "fixed_box", 2)])  # BoxeR-2D's
+def test_build_resnet_matches_jax(layers, encoding, ref_size):
+    """`build_resnet` reads the config surface as JAX's does: the same
+    arch, returned layers, encoding, width and ref_size, and JAX's
+    parameters at their init shapes load into it strictly (the forward of
+    `BackBone` against JAX's: `test_torch_modules.py::
+    test_r10_backbone_with_padding_mask`)."""
+    from test_torch_modules import load_submodule, random_variables
+
+    from boxer_tpu.nn.resnet import build_resnet as j_build
+    from boxer_tpu_torch.nn.resnet import BackBone, build_resnet
+
+    params = {"return_interm_layers": layers,
+              "position_encoding": encoding, "hidden_dim": 32}
+    if ref_size is not None:
+        params["ref_size"] = ref_size
+    config = {"type": "resnet10", "params": params}
+    jm, tm = j_build(config), build_resnet(config)
+    assert isinstance(tm, BackBone)
+    assert tm.return_layers == tuple(jm.return_layers)
+    assert (tm.position_encoding, tm.hidden_dim, tm.ref_size) == (
+        jm.position_encoding, jm.hidden_dim, jm.ref_size)
+    image = jnp.zeros((1, 32, 32, 3))
+    v = random_variables(jm, 14, image, jnp.zeros((1, 32, 32), bool))
+    load_submodule(tm, v, ("backbone",), "backbone.")
+    with torch.no_grad():
+        feats, pos = tm(torch.zeros(1, 32, 32, 3),
+                        torch.zeros(1, 32, 32, dtype=torch.bool))
+    assert [f.shape[-1] for f, _ in feats] == tm.num_channels
+    assert [p.shape[-1] for p in pos] == [32] * len(layers)
+    assert next(build_resnet(config, torch.bfloat16).parameters()).dtype \
+        == torch.bfloat16
+
+
+@pytest.mark.parametrize("package", ["nn", "dataset.reader"])
+def test_package_exports_match_jax(package):
+    """Every name of the JAX package's `__all__` is exported by the port's
+    package of the same path, as the port's own object of that name; the
+    package's import loads none of its modules (so `import
+    boxer_tpu_torch.nn` builds no kernel)."""
+    import subprocess
+    import sys
+
+    jmod = importlib.import_module(f"boxer_tpu.{package}")
+    tmod = importlib.import_module(f"boxer_tpu_torch.{package}")
+    assert sorted(tmod.__all__) == sorted(jmod.__all__)
+    for name in jmod.__all__:
+        obj = getattr(tmod, name)
+        assert obj.__module__.startswith("boxer_tpu_torch."), name
+        assert obj.__name__ == name
+    probe = (f"import sys, boxer_tpu_torch.{package} as p; "
+             f"print(sorted(m for m in sys.modules if m.startswith("
+             f"'boxer_tpu_torch.{package}.')))")
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout
+    assert out.strip() == "[]"
+    with pytest.raises(AttributeError):
+        getattr(tmod, "NoSuchName")
