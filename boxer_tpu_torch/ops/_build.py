@@ -102,6 +102,10 @@ def library() -> ctypes.CDLL:
         lib.hungarian_solve.argtypes = [i32, vp, vp, vp, i64, i32, i32, i32,
                                         vp, vp, vp]
         lib.hungarian_solve.restype = i32
+        lib.instance_sample_reduce.argtypes = [
+            i32, i32, vp, vp, vp, vp, ctypes.POINTER(i32), i32, vp, vp, vp,
+            vp, vp, vp, i32, i32, i32, i32, vp]
+        lib.instance_sample_reduce.restype = i32
         _lib = lib
     return _lib
 

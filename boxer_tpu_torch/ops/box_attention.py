@@ -38,6 +38,11 @@ Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
   over P in that dtype (`_reduce_pmajor`), as
   `_box_attention_qminor_folded(fused=False)` does.
 
+`instance_attention_qminor` takes both of its sums in one launch of K4
+(`ops/instance_sample.py`) when autograd needs no gradient of the call, and
+through `QuadSample` (K2 forward, K6 backward) with train=True or when it
+does.
+
 The corner weights are formed in torch, so autograd carries their cotangent
 back to the sampling grid and the attention weights. `floor` has zero
 gradient, so d frac / d x = 1, as in JAX.
@@ -74,10 +79,13 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from boxer_tpu_torch.ops.combine_reduce import (corner_weights,
+from boxer_tpu_torch.ops.combine_reduce import (corner_weights, pmajor_taps,
                                                 quad_sample_reduce_mmajor,
                                                 quad_sample_reduce_raw,
-                                                quad_sample_reduce_w4)
+                                                quad_sample_reduce_w4,
+                                                tap_rows)
+from boxer_tpu_torch.ops.instance_sample import (instance_sample_reduce,
+                                                 instance_sample_reduce_plain)
 from boxer_tpu_torch.ops.scatter_accum import (
     scatter_add_rows_pmajor, scatter_add_rows_weighted_dw4)
 from boxer_tpu_torch.utils.general import level_start_index
@@ -275,40 +283,15 @@ def _folded_level(table, idx, lx, ly, w_tap, dtype):
     return _reduce_pmajor(taps, p, m).float()
 
 
-def _tap_rows(gx, gy, hl: int, wl: int):
-    """gx, gy: (P, BH, LQ) f32 in [0,1] -> quad-table rows (P, BH, LQ) int32
-    (with the per-BH slice offset), bilinear fractions lx, ly and the
-    whole-tap validity."""
-    bh = gx.shape[1]
-    x = gx * wl - 0.5
-    y = gy * hl - 0.5
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    lx = x - x0
-    ly = y - y0
-    x0i = x0.to(torch.int32)
-    y0i = y0.to(torch.int32)
-    valid = (x0i >= -1) & (x0i <= wl - 1) & (y0i >= -1) & (y0i <= hl - 1)
-    xq = (x0i + 1).clamp(0, wl)
-    yq = (y0i + 1).clamp(0, hl)
-    base = torch.arange(bh, dtype=torch.int32, device=gx.device)[None, :, None]
-    idx = base * ((hl + 1) * (wl + 1)) + yq * (wl + 1) + xq
-    return idx, lx, ly, valid
-
-
-def _pmajor(t, bh: int, nl: int, npt: int, lq: int):
-    """(B, H, L, P, LQ) -> (L, P, BH, LQ) f32, contiguous."""
-    return t.reshape(bh, nl, npt, lq).permute(1, 2, 0, 3).float().contiguous()
-
-
 def _level_taps(shapes: Shapes, gx, gy, attn_weight, bh: int):
     """Per level of `shapes`, the taps of (B, H, L, P, LQ) inputs as (P, M)
     tensors: quad-table rows idx, fractions lx, ly, validity (f32) and the
     tap weight w_tap = valid * attn_weight."""
     _, _, nl, npt, lq = gx.shape
-    gx, gy, aw = (_pmajor(t, bh, nl, npt, lq) for t in (gx, gy, attn_weight))
+    gx, gy, aw = (pmajor_taps(t, bh, nl, npt, lq)
+                  for t in (gx, gy, attn_weight))
     for li, (hl, wl) in enumerate(shapes):
-        idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
+        idx, lx, ly, valid = tap_rows(gx[li], gy[li], hl, wl)
         w_tap = torch.where(valid, aw[li], 0.0)
         yield tuple(t.reshape(npt, bh * lq)
                     for t in (idx, lx, ly, valid.float(), w_tap))
@@ -496,6 +479,13 @@ def box_attention(value, shapes: Shapes, sampling_loc, attn_weight):
     return box_attention_qminor(value, shapes, gx, gy, aw)
 
 
+def _quad_sample_taps(table, idx, bw4):
+    """One level's per-tap samples through `QuadSample` (K2 forward, K6
+    backward): (P, M, ch) f32, differentiable."""
+    npt, m = idx.shape
+    return QuadSample.apply(True, None, table, idx, bw4).reshape(npt, m, -1)
+
+
 def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
                               level_weight, kernel_size: int,
                               raw: bool = False, train: bool = False):
@@ -506,43 +496,25 @@ def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
 
     gx/gy/spatial_weight/level_weight: (B, H, L, P=k*k, LQ).
     Returns (out (B,LQ,H*Ch) — or (B,H,LQ,Ch) when raw=True — and mask_out
-    (B,LQ,k,k,H*Ch)), in value.dtype. The per-tap samples are a plain
-    gather at inference (the JAX package runs this op in XLA with no Pallas
-    kernel) and `QuadSample` (K2, K6) with train=True.
+    (B,LQ,k,k,H*Ch)), in value.dtype. With train=True, or when autograd
+    needs a gradient of the call (grad mode on and an input that requires
+    one), the per-tap samples go through `QuadSample` (K2, K6) and both sums
+    are taken in torch; otherwise (the inference and test forwards) one
+    launch of K4 (`instance_sample_reduce`) gives both, or its plain version
+    on the CPU. The JAX package runs this op in XLA with no Pallas kernel.
     """
-    b, s, nh, ch = value.shape
-    _, _, nl, npt, lq = gx.shape
-    k = kernel_size
-    assert npt == k * k
-    bh = b * nh
-    m = bh * lq
-
+    assert gx.shape[3] == kernel_size * kernel_size
     tables = _build_quad_tables(value, shapes)
-    gx = _pmajor(gx, bh, nl, npt, lq)
-    gy = _pmajor(gy, bh, nl, npt, lq)
-    sw = _pmajor(spatial_weight, bh, nl, npt, lq)
-    lw = _pmajor(level_weight, bh, nl, npt, lq)
-
-    out = torch.zeros((m, ch), dtype=torch.float32, device=value.device)
-    mask = torch.zeros((npt, m, ch), dtype=torch.float32, device=value.device)
-    for li, (hl, wl) in enumerate(shapes):
-        idx, lx, ly, valid = _tap_rows(gx[li], gy[li], hl, wl)
-        bw4 = corner_weights(lx, ly, valid.float()).reshape(npt, 4, m)
-        idx = idx.reshape(npt, m)
-        if train:
-            taps = QuadSample.apply(True, None, tables[li], idx,
-                                    bw4).reshape(npt, m, ch)
-        else:
-            g = tables[li][idx.reshape(-1).long()].float().reshape(
-                npt, m, 4, ch)
-            taps = (g * bw4.transpose(1, 2)[..., None]).sum(dim=2)  # (P,M,Ch)
-        out = out + (taps * sw[li].reshape(npt, m, 1)).sum(dim=0)
-        mask = mask + taps * lw[li].reshape(npt, m, 1)
-
-    out = out.to(value.dtype).reshape(b, nh, lq, ch)
-    # mask rows are (p=(ky,kx), b, h, lq) -> (B, LQ, k, k, H*Ch)
-    mask_out = (mask.reshape(k, k, b, nh, lq, ch).permute(2, 4, 0, 1, 3, 5)
-                .reshape(b, lq, k, k, nh * ch).to(value.dtype))
+    inputs = (gx, gy, spatial_weight, level_weight)
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (value, *inputs))
+    if train or needs_grad:
+        out, mask_out = instance_sample_reduce_plain(
+            tables, shapes, *inputs, kernel_size, sample=_quad_sample_taps)
+    else:
+        out, mask_out = instance_sample_reduce(
+            tables, shapes, *(t.float().contiguous() for t in inputs),
+            kernel_size)
     if raw:
         return out, mask_out
     return _merge_heads(out), mask_out

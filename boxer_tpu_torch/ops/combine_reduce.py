@@ -42,6 +42,33 @@ def corner_weights(lx, ly, wt):
                         lx * ly * wt], dim=1)
 
 
+def tap_rows(gx, gy, hl: int, wl: int):
+    """gx, gy: (P, BH, LQ) f32 in [0,1] -> quad-table rows (P, BH, LQ) int32
+    (with the per-BH slice offset), bilinear fractions lx, ly and the
+    whole-tap validity: the sampling convention of every sampling op, which
+    K4 (`csrc/instance_sample.cu`) repeats in its kernel."""
+    bh = gx.shape[1]
+    x = gx * wl - 0.5
+    y = gy * hl - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    lx = x - x0
+    ly = y - y0
+    x0i = x0.to(torch.int32)
+    y0i = y0.to(torch.int32)
+    valid = (x0i >= -1) & (x0i <= wl - 1) & (y0i >= -1) & (y0i <= hl - 1)
+    xq = (x0i + 1).clamp(0, wl)
+    yq = (y0i + 1).clamp(0, hl)
+    base = torch.arange(bh, dtype=torch.int32, device=gx.device)[None, :, None]
+    idx = base * ((hl + 1) * (wl + 1)) + yq * (wl + 1) + xq
+    return idx, lx, ly, valid
+
+
+def pmajor_taps(t, bh: int, nl: int, npt: int, lq: int):
+    """(B, H, L, P, LQ) -> (L, P, BH, LQ) f32, contiguous."""
+    return t.reshape(bh, nl, npt, lq).permute(1, 2, 0, 3).float().contiguous()
+
+
 def _gather_rows(table, idx):
     """`table[idx]` as f32, (idx.numel(), 4*ch); raises on an index outside
     the table."""

@@ -21,7 +21,8 @@ runs twice to warm up, WALL_RUNS times each on the host clock up to a
 synchronize, once profiled. Prints, for each, the device's summed kernel
 time against the median wall time and the wall times' spread, the device
 time and calls of each of the port's kernels (by name:
-`quad_sample_reduce`, `flash_fwd`, `scatter_weighted`, `scatter_rows` and
+`quad_sample_reduce`, `flash_fwd`, `instance_sample` (K4, in a tree that
+has it), `scatter_weighted`, `scatter_rows` and
 `rows_` (the row scatter's kernels, before and after it was split in
 four), `hungarian`, `Memset`), and the device time of the kernels that the
 matcher's `nn/matcher.py:hungarian` launches (the tree's module attribute
@@ -41,8 +42,9 @@ import time
 
 import torch
 
-PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "scatter_weighted",
-                "scatter_rows", "rows_", "hungarian", "Memset")
+PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "instance_sample",
+                "scatter_weighted", "scatter_rows", "rows_", "hungarian",
+                "Memset")
 WALL_RUNS = 5
 MATCHER_RANGE = "profile_steps: matcher"
 

@@ -14,7 +14,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    type): K1-K3 (inference; K1 at P=4, M=161,576 and the
    detection decoder's M=2,400; K2 at P=196, M=2,400 and at the
    training forward's P=4, M=161,576, P=4, M=2,400 and P=1, M=470,400; K3
-   at BH=8, L=300 in f32 and in bf16, its tensor-core kernel),
+   at BH=8, L=300 in f32 and in bf16, its tensor-core kernel), K4 (the
+   segm model's last decoder layer: both sums of its instance attention,
+   B 1, H 8, LQ 300, 14x14 taps over the 4 levels of 800x1216, with bf16
+   and with f32 tables; `csrc/instance_sample.cu`),
    then (3b) the d_value scatters K5 (P=4, M=161,576 and M=2,400) and K6
    (P=196, M=2,400), each as the fused kernel that also returns d_w4, as
    its d_table alone, and as the yardstick d_table kernel + plain d_w4
@@ -43,13 +46,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    queries, 91 classes) in bf16 at batch 1 on an 800x1216 canvas with
    seeded random weights, segm with the deferred top-100 mask decode, then
    detection only; img/s, and the kernels' launch counts over the timed
-   forwards, which must match every call site; (4c) the same with the
-   m-major combine (`COMBINE_IMPL = "mmajor"`: K8 at every sampling level),
-   one profiled m-major segm forward, then card against CPU as in phase 5
-   under it;
+   forwards, which must match every call site (one K4 a segm forward);
+   (4c) the same with the m-major combine (`COMBINE_IMPL = "mmajor"`: K8
+   at every sampling level), one profiled m-major segm forward, then card
+   against CPU as in phase 5 under it;
 5. the same weights and image on a 256x384 canvas in f32 (no TF32), card
-   (kernels) against CPU (plain versions): identical top-k labels, scores
-   and boxes within atol 1e-3, fewer than 1e-3 of mask pixels different;
+   (kernels, K4 among them) against CPU (plain versions): identical top-k
+   labels, scores and boxes within atol 1e-3, fewer than 1e-3 of mask
+   pixels different;
 6. one more segm forward under torch.profiler: the device's busy time
    against the forward's time, and the kernels that take the most of it;
 7. the training slice at full width, segm then detection: one train step
@@ -108,7 +112,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    update 4's model and optimizer state bitwise, at (update, epoch, skip)
    (4, 1, 0), taking 2 more finite updates; ms per update (the median of
    updates 2-6, the first update a warm-up left out), peak memory,
-   the eval forwards' launches per image and one profiled update; no
+   the eval forwards' launches per image (one K4 a test step, none at
+   val, whose decoder samples with train=True) and one profiled update; no
    matcher host sync in any update (H1 solves on the card);
 11. the Waymo trainer: the shipped Waymo-Detection/boxer3d_pointpillar
    config through `build_trainer`, `load`, `train` at full width (hidden
@@ -199,7 +204,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    with K5/K6 swapped for their plain version (loss terms and leaves
    within 1e-4) and with K2, K3, K5 and K6 swapped (loss terms 1e-4, the
    median leaf 1e-4, the worst 0.1), and the inference forward (fold=True:
-   K1, K2, K3) against world 1 and against K1, K2 and K3 swapped (every
+   K1, K2, K3, one K4) against world 1 and against K1-K4 swapped (every
    output within 1e-4, the ranks' outputs bitwise equal); (15b) two bf16
    updates from the loader at sp2 x mp2 with a checkpoint at update 2
    equal to the ranks' gathered state, resumed at world 1 bitwise for one
@@ -249,7 +254,7 @@ OPTIM = {"type": "adamw", "params": {"lr": 2e-4, "lr_backbone": 2e-5,
 SCHEDULE = {"type": "multi_step", "params": {"lr_steps": [10 ** 9],
                                              "lr_ratio": 0.1,
                                              "use_warmup": False}}
-KERNELS = ("K1", "K2", "K3", "K5", "K6", "K7a", "K7b", "K8", "H1")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K8", "H1")
 # BoxeR-3D at the width of boxer_tpu/config/base_boxer3d_detection.yaml:
 # 82-137 as tools/mfu_bench.py:measure_boxer3d instantiates it (:202-221):
 # a 468x468 BEV grid of 0.32 m pillars, 32,000 voxels of 20 points
@@ -366,11 +371,12 @@ def per_run(**counts):
 
 # launches per forward at every call site: K1 in 6 encoder layers x 4 levels
 # (+ 6 decoder layers x 4 levels when detection only), K2 in 5 decoder
-# layers x 4 levels, K3 in 6 decoder self-attentions; under the m-major
-# combine K8 takes every level of K1 and K2
-INFER_LAUNCHES = {("pmajor", True): per_run(K1=24, K2=20, K3=6),
+# layers x 4 levels, K3 in 6 decoder self-attentions, K4 in the segm model's
+# last decoder layer (its instance attention, all 4 levels in one launch);
+# under the m-major combine K8 takes every level of K1 and K2
+INFER_LAUNCHES = {("pmajor", True): per_run(K1=24, K2=20, K3=6, K4=1),
                   ("pmajor", False): per_run(K1=48, K3=6),
-                  ("mmajor", True): per_run(K8=44, K3=6),
+                  ("mmajor", True): per_run(K8=44, K3=6, K4=1),
                   ("mmajor", False): per_run(K8=48, K3=6)}
 # launches per train step at every call site: K2 is the forward of every
 # sampling level (6 encoder + 6 decoder layers x 4 levels), K5 the backward
@@ -467,6 +473,10 @@ def check_kernels(dev):
             *qkv16),
         nbytes=4 * nbytes(qkv16[0]), flops=attn_flops, dtype="bf16",
         tol=1e-2, shape="BH=8 L=300 D=32 bf16")
+
+    # K4 at the segm forward's last decoder layer, in bf16 (the row the
+    # kernels line reports) and f32 tables
+    results.update(instance_rows(dev, rs))
 
     # 3b. the backward scatters, f32 cotangents as the backward hands them,
     # the bf16 table the forward sampled: at each shape the fused kernel
@@ -591,16 +601,83 @@ def check_kernels(dev):
                else f"{r['library_ms']:.4f} ms")
         if "standing" in r:
             lib += f" (standing table: {bc.cuda_ms(r['standing']):.4f} ms)"
+        device = (f" (device {bk.device_ms(r['kernel']):.4f} ms)"
+                  if r.get("device_ms") else "")
         log(f"{name} [{r['shape']}]: rel err {r['rel_err']:.3e} "
             f"(tol {r['tol']:g}), max abs err {r['max_abs_err']:.3e}, "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"kernel {r['ms']:.4f} ms{device}, plain {r['plain_ms']:.4f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         if not r["rel_err"] <= r["tol"]:
             raise AssertionError(f"{name} disagrees with its plain version")
     # numbers only: the callables hold the inputs, which would otherwise
     # stay allocated through the later phases and their peak memory
     return {name: {k: v for k, v in r.items() if not callable(v)}
             for name, r in results.items()}
+
+
+# K4's shape: the segm forward's last decoder layer at 800x1216 (batch 1, 8
+# heads, 300 queries, the 14x14 RoI over the 4 levels)
+SEGM_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))
+ROI_K = 14
+
+
+def instance_rows(dev, rs):
+    """Phase 3: K4 against its plain version at the segm shape, with bf16
+    and with f32 tables, on random values and taps laid out as the model
+    lays them: each (head, query)'s 14x14 grid spread over a box (centre in
+    [0.05, 0.95], sides in [0.02, 0.5], so some taps lie past a border),
+    moved a little at each level; random spatial and level weights. The
+    bound counts the distinct quad rows the valid taps read, gx, gy and the
+    two weights once, and both outputs once; the operations, 4 corners and
+    2 sums of 32 channels a tap and level, at the f32 peak; its device time
+    (torch.profiler) is printed beside its CUDA-event time. Returns {name:
+    case}."""
+    from boxer_tpu_torch.ops import instance_sample as isr
+    from boxer_tpu_torch.ops.combine_reduce import pmajor_taps, tap_rows
+    from boxer_tpu_torch.tools import bench_combine as bc
+
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    nh, lq, k, nl = BENCH["nhead"], BENCH["num_queries"], ROI_K, len(
+        SEGM_LEVELS)
+    npt = k * k
+    value = torch.from_numpy(rs.randn(
+        1, sum(h * w for h, w in SEGM_LEVELS), nh, 32).astype(np.float32))
+    grid = (np.arange(k) + 0.5) / k - 0.5
+    centre = rs.uniform(0.05, 0.95, (2, 1, nh, 1, 1, lq))
+    side = rs.uniform(0.02, 0.5, (2, 1, nh, 1, 1, lq))
+    offset = rs.normal(0.0, 0.01, (2, 1, nh, nl, 1, lq))
+    steps = (np.tile(grid, k), np.repeat(grid, k))          # x, y by tap
+    gx, gy = (torch.from_numpy((centre[a] + side[a] * steps[a][:, None]
+                                + offset[a]).astype(np.float32)).to(dev)
+              for a in (0, 1))
+    sw, lw = (torch.from_numpy(rs.rand(1, nh, nl, npt, lq).astype(
+        np.float32)).to(dev) for _ in range(2))
+    taps = (gx, gy, sw, lw)
+    # the quad rows the valid taps read
+    rows = []
+    for li, (h, w) in enumerate(SEGM_LEVELS):
+        idx, _, _, valid = tap_rows(pmajor_taps(gx, nh, nl, npt, lq)[li],
+                                    pmajor_taps(gy, nh, nl, npt, lq)[li], h, w)
+        rows.append(torch.unique(idx[valid]).numel())
+    cases = {}
+    for name, dtype, tol in (("K4", torch.bfloat16, 1e-2),
+                             ("K4 f32", torch.float32, 1e-5)):
+        tables = ba._build_quad_tables(value.to(dev, dtype), SEGM_LEVELS)
+        size = torch.finfo(dtype).bits // 8
+        nbytes = (sum(rows) * 128 * size + 4 * gx.numel() * 4
+                  + (nh * lq * 32 + lq * npt * nh * 32) * size)
+        cases[name] = dict(
+            wrapper=isr.instance_sample_reduce,
+            kernel=functools.partial(isr.instance_sample_reduce, tables,
+                                     SEGM_LEVELS, *taps, k),
+            plain=functools.partial(isr.instance_sample_reduce_plain, tables,
+                                    SEGM_LEVELS, *taps, k),
+            library=None,
+            bound=bc.bound_ms(nbytes, gx.numel() * (4 + 2) * 32 * 2),
+            device_ms=True, tol=tol,
+            shape=f"B=1 H={nh} LQ={lq} k={k}, levels {SEGM_LEVELS} "
+            f"({sum(rows)} quad rows read), {str(dtype)[6:]} tables")
+    return cases
 
 
 def box_attention_grads(dev):
@@ -868,10 +945,12 @@ def counters():
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
     from boxer_tpu_torch.ops import hungarian as hg
+    from boxer_tpu_torch.ops import instance_sample as isr
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     return {"K1": cr.quad_sample_reduce_raw, "K2": cr.quad_sample_reduce_w4,
-            "K3": fa.flash_attention, "K5": sa.scatter_add_rows_weighted,
+            "K3": fa.flash_attention, "K4": isr.instance_sample_reduce,
+            "K5": sa.scatter_add_rows_weighted,
             "K6": sa.scatter_add_rows_pmajor_weighted,
             "K7a": sa.scatter_add_rows, "K7b": sa.scatter_add_rows_pmajor,
             "K8": cr.quad_sample_reduce_mmajor, "H1": hg.solve_assignment}
@@ -955,7 +1034,8 @@ def card_vs_cpu(dev, combine="pmajor"):
     model = build_model(True, seed=1, noise_seed=2)
     image, mask = make_image(E2E_CANVAS, seed=1)
     post = {"canvas_hw": E2E_CANVAS, "topk": 100}
-    used = ("K8", "K3") if combine == "mmajor" else ("K1", "K2", "K3")
+    used = (("K8", "K3", "K4") if combine == "mmajor"
+            else ("K1", "K2", "K3", "K4"))
     with torch.no_grad(), sampling(COMBINE_IMPL=combine):
         want = model(image, mask, postprocess=post)
         model.to(dev)
@@ -2052,8 +2132,10 @@ def record_steps(trainer, log_update, syncs=None):
             before = launched()
             out = fn(state, batch)
             torch.cuda.synchronize()
-            tally = rec["eval"].setdefault(name, {"images": 0, "launches": {
-                k: 0 for k in before}})
+            tally = rec["eval"].setdefault(name, {"images": 0, "steps": 0,
+                                                  "launches": {
+                                                      k: 0 for k in before}})
+            tally["steps"] += 1
             tally["images"] += (batch["batch_size"] if "voxels" in batch
                                 else batch["image"].shape[0])
             for k, v in launched().items():
@@ -2169,11 +2251,20 @@ def run_trainer(dev, smi):
         per_image = {split: {k: v / e["images"] for k, v in
                              e["launches"].items()}
                      for split, e in rec["eval"].items()}
+        # K4: one launch a test step (the inference forward's last decoder
+        # layer, both images of the batch); none at val, whose forward
+        # (inference=False) runs the decoder's training topology, every
+        # layer's instance attention with train=True (`QuadSample`, K2)
+        k4 = {split: e["launches"]["K4"] for split, e in rec["eval"].items()}
+        if k4 != {"val": 0, "test": rec["eval"]["test"]["steps"]}:
+            raise AssertionError(f"{label}: K4 launches {k4} in "
+                                 f"{rec['eval']['test']['steps']} test steps")
         log(f"{label} [{smi}]: load {t_load:.1f} s, train() {t_train:.1f} s "
             f"(4 updates, val and test); ms per update "
             f"{', '.join(f'{t:.2f}' for t in times)}; peak "
             f"{peak:.2f} GiB; launches per update {updates[-1]['launches']};"
-            f" per eval image {per_image}; val AP bbox "
+            f" per eval image {per_image} (K4 {k4} in "
+            f"{rec['eval']['test']['steps']} test steps); val AP bbox "
             f"{ap['coco_eval_bbox'][0]:.4g}, segm "
             f"{ap['coco_eval_segm'][0]:.4g}; {len(records)} test records of "
             f"{len(test_ids)} images; the loader's first batch on the card "
@@ -3830,11 +3921,12 @@ def collective_ms():
 
 @contextlib.contextmanager
 def plain_kernels(*names):
-    """Inside, the model's call sites of the named kernels (K1, K2, K3 and
-    K56, the fused K5/K6 scatter) run their plain versions."""
+    """Inside, the model's call sites of the named kernels (K1, K2, K3, K4
+    and K56, the fused K5/K6 scatter) run their plain versions."""
     ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
+    from boxer_tpu_torch.ops import instance_sample as isr
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     swaps = {
@@ -3845,6 +3937,7 @@ def plain_kernels(*names):
                lambda table, idx, w4: cr.quad_sample_reduce_plain(
                    table, idx, w4=w4)),
         "K3": (fa, "flash_attention", fa.flash_attention_plain),
+        "K4": (ba, "instance_sample_reduce", isr.instance_sample_reduce_plain),
         "K56": (ba, "scatter_add_rows_weighted_dw4",
                 sa.scatter_accum_dw4_plain)}
     saved = [(mod, attr, getattr(mod, attr))
@@ -4030,12 +4123,13 @@ def mp_ranks(task_path, name):
 
 def inference_outputs(trainer, batch):
     """15a: the trainer's inference step (fold=True: K1 in the encoder, K2
-    in the instance attention) in f32 on the batch's first microbatch,
-    with the kernels and then with K1, K2 and K3 swapped for their plain
-    versions: [({output: host f32}, launches)] in that order."""
+    in the decoder's box attention, K4 in its last layer's instance
+    attention) in f32 on the batch's first microbatch, with the kernels and
+    then with K1, K2, K3 and K4 swapped for their plain versions:
+    [({output: host f32}, launches)] in that order."""
     image = {"image": batch["image"][0], "mask": batch["mask"][0]}
     runs = []
-    for names in ((), ("K1", "K2", "K3")):
+    for names in ((), ("K1", "K2", "K3", "K4")):
         for f in counters().values():
             f.launches = 0
         with plain_kernels(*names):
@@ -4275,7 +4369,7 @@ def run_model_parallel(dev, smi):
         log(f"15a [{smi}]: sp2 x mp2 f32 inference (fold=True) at "
             f"{E2E_CANVAS}: against world 1 " + ", ".join(
                 f"{k} {e:.3e}" for k, e in vs_w1.items())
-            + "; against K1, K2 and K3 swapped for their plain versions "
+            + "; against K1, K2, K3 and K4 swapped for their plain versions "
             + ", ".join(f"{k} {e:.3e}" for k, e in vs_plain.items())
             + f"; every rank's outputs bitwise equal {same}; launches a "
             f"rank { {k: v for k, v in counts.items() if v} } (world 1 "
@@ -4284,8 +4378,10 @@ def run_model_parallel(dev, smi):
         infer_ok = (sorted(outs) == sorted(w1_outs) and len(outs) > 0
                     and max(vs_w1.values()) <= 1e-4
                     and max(vs_plain.values()) <= 1e-4 and same
-                    and counts["K1"] > 0 and counts == w1_counts
-                    and not any(plain_counts[k] for k in ("K1", "K2", "K3")))
+                    and counts["K1"] > 0 and counts["K4"] == 1
+                    and counts == w1_counts
+                    and not any(plain_counts[k]
+                                for k in ("K1", "K2", "K3", "K4")))
         if not (keys_ok and swap_ok and infer_ok):
             raise AssertionError(
                 f"15a: a sharded update departs from world 1 ({keys_ok}) or "
@@ -4532,6 +4628,8 @@ def main():
              pallas + "combine_reduce.py:264"),
             ("K3", "flash_attention", "flash_attention.cu",
              pallas + "flash_attention.py:69"),
+            ("K4", "instance_sample_reduce", "instance_sample.cu",
+             "boxer_tpu/ops/box_attention.py:639"),
             ("K5", "scatter_add_rows_weighted_dw4 (shared g)", sacc,
              pallas + "scatter_accum.py:330"),
             ("K6", "scatter_add_rows_weighted_dw4 (per-tap g)", sacc,

@@ -30,6 +30,8 @@ from boxer_tpu_torch.ops.combine_reduce import (
     quad_sample_reduce_plain, quad_sample_reduce_raw, quad_sample_reduce_w4)
 from boxer_tpu_torch.ops.flash_attention import (NEG_INF, flash_attention,
                                                  flash_attention_plain)
+from boxer_tpu_torch.ops.instance_sample import (instance_sample_reduce,
+                                                 instance_sample_reduce_plain)
 from boxer_tpu_torch.ops.scatter_accum import (
     scatter_accum_dw4_plain, scatter_accum_plain, scatter_add_rows,
     scatter_add_rows_pmajor, scatter_add_rows_pmajor_weighted,
@@ -96,6 +98,51 @@ def _quad_case(p, m, rows, seed):
     lx, ly, wt = rs.rand(3, p, m).astype(np.float32)
     w4 = rs.rand(p, 4, m).astype(np.float32)
     return table, idx, lx, ly, wt, w4
+
+
+# K4's levels: four small ones, and the segm forward's at 800x1216
+INSTANCE_SHAPES = ((9, 13), (5, 7), (3, 4), (2, 2))
+SEGM_SHAPES = ((100, 152), (50, 76), (25, 38), (13, 19))
+
+
+def instance_case(b, nh, k, shapes, lq, seed):
+    """K4's inputs from a seed, numpy f32: value (B, S, H, 32) and gx, gy,
+    spatial_w, level_w (B, H, L, k*k, LQ). A third of the locations lie on,
+    just inside or past the level borders, a third on the level's cell
+    edges ((i + 0.5) / W, where x = gx*W - 0.5 lands on an integer and a
+    fused multiply-add would move floor), the rest uniform over [-0.2,
+    1.2]."""
+    rs = np.random.RandomState(seed)
+    size = (b, nh, len(shapes), k * k, lq)
+    value = rs.randn(b, sum(h * w for h, w in shapes), nh, 32).astype(
+        np.float32)
+    borders = np.array([-0.3, -0.05, 0.0, 1e-3, 0.37, 0.5, 0.999, 1.0, 1.05,
+                        1.3], np.float32)
+
+    def coords(axis):
+        pick = rs.randint(0, 3, size)
+        out = np.where(pick == 0, rs.choice(borders, size),
+                       rs.uniform(-0.2, 1.2, size)).astype(np.float32)
+        for li, hw in enumerate(shapes):
+            n = hw[axis]
+            cells = ((np.arange(-1, n + 1) + 0.5) / n).astype(np.float32)
+            on = pick[:, :, li] == 1
+            out[:, :, li][on] = rs.choice(cells, int(on.sum()))
+        return out
+
+    gx, gy = coords(1), coords(0)
+    sw, lw = rs.rand(2, *size).astype(np.float32)
+    return value, gx, gy, sw, lw
+
+
+def instance_inputs(case, shapes, device, dtype=torch.float32):
+    """An `instance_case` as K4's arguments on `device`: the value's quad
+    tables in `dtype` and gx, gy, spatial_w, level_w f32."""
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    value, *taps = case
+    tables = ba._build_quad_tables(torch.from_numpy(value).to(device, dtype),
+                                   shapes)
+    return tables, [torch.from_numpy(a).to(device) for a in taps]
 
 
 def _flash_case(bh, lq, lkv, d, masked, seed):
@@ -417,7 +464,8 @@ def test_cpu_tensors_take_the_plain_version_only():
     wrappers = (quad_sample_reduce_raw, quad_sample_reduce_w4,
                 quad_sample_reduce_mmajor, flash_attention,
                 scatter_add_rows_weighted, scatter_add_rows_pmajor_weighted,
-                scatter_add_rows, scatter_add_rows_pmajor)
+                scatter_add_rows, scatter_add_rows_pmajor,
+                instance_sample_reduce)
     launches = [f.launches for f in wrappers]
     quad_sample_reduce_raw(table, idx, lx, ly, wt)
     quad_sample_reduce_w4(table, idx, w4)
@@ -434,6 +482,11 @@ def test_cpu_tensors_take_the_plain_version_only():
             idx, gt, w4, table, per_tap, want_table=False)[0] is None
     scatter_add_rows(idx.reshape(-1), table[:20], 50)
     scatter_add_rows_pmajor(idx, table[:20], 50)
+    tables, taps = instance_inputs(instance_case(1, 2, 2, INSTANCE_SHAPES, 5,
+                                                 seed=4), INSTANCE_SHAPES,
+                                   "cpu")
+    out, mask = instance_sample_reduce(tables, INSTANCE_SHAPES, *taps, 2)
+    assert out.shape == (1, 2, 5, 32) and mask.shape == (1, 5, 2, 2, 64)
     assert [f.launches for f in wrappers] == launches
     meta = [t.to("meta") for t in (table, idx, lx, ly, wt, w4)]
     with pytest.raises(ValueError):
@@ -452,6 +505,10 @@ def test_cpu_tensors_take_the_plain_version_only():
                                       meta[0], False)
     with pytest.raises(ValueError):
         scatter_add_rows_pmajor(meta[1], table[:20].to("meta"), 50)
+    with pytest.raises(ValueError):
+        instance_sample_reduce([t.to("meta") for t in tables],
+                               INSTANCE_SHAPES,
+                               *(t.to("meta") for t in taps), 2)
     with pytest.raises(IndexError):
         quad_sample_reduce_w4(table, idx + 50, w4)
     with pytest.raises(IndexError):
@@ -823,3 +880,86 @@ def test_box3d_attention_cuda_grads_match_plain_k5(cuda, monkeypatch,
     for g, w in zip(got, want):
         assert float(w.abs().max()) > 0
         assert _rel_err(g.cpu().numpy(), w.cpu().numpy()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,nh,k,nl", [
+    (b, nh, k, 4) for b in (1, 2) for nh in (1, 2) for k in (2, 14)] + [
+    (2, 4, 14, 4), (2, 4, 14, 3), (1, 2, 14, 1)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, RTOL),
+                                        (torch.bfloat16, 1e-2)])
+def test_instance_sample_cuda_matches_plain(cuda, b, nh, k, nl, dtype, rtol):
+    """K4 against its plain version, both outputs: taps on, just inside
+    and past the borders and on the cells' edges, 1 to 4 levels, LQ not a
+    multiple of a warp."""
+    shapes = INSTANCE_SHAPES[:nl]
+    tables, taps = instance_inputs(
+        instance_case(b, nh, k, shapes, 37, seed=30 + 8 * b + nh + k + nl),
+        shapes, cuda, dtype)
+    before = instance_sample_reduce.launches
+    got = instance_sample_reduce(tables, shapes, *taps, k)
+    want = instance_sample_reduce_plain(tables, shapes, *taps, k)
+    torch.cuda.synchronize()
+    assert instance_sample_reduce.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype
+        assert _rel_err(g.float().cpu().numpy(),
+                        w.float().cpu().numpy()) <= rtol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, RTOL),
+                                        (torch.bfloat16, 1e-2)])
+def test_instance_sample_cuda_segm_shape(cuda, dtype, rtol):
+    """K4 at the segm forward's shape: B 1, H 8, LQ 300, k 14, the four
+    levels of an 800x1216 canvas."""
+    tables, taps = instance_inputs(
+        instance_case(1, 8, 14, SEGM_SHAPES, 300, seed=40), SEGM_SHAPES, cuda,
+        dtype)
+    got = instance_sample_reduce(tables, SEGM_SHAPES, *taps, 14)
+    want = instance_sample_reduce_plain(tables, SEGM_SHAPES, *taps, 14)
+    torch.cuda.synchronize()
+    assert got[0].shape == (1, 8, 300, 32)
+    assert got[1].shape == (1, 300, 14, 14, 256)
+    for g, w in zip(got, want):
+        assert _rel_err(g.float().cpu().numpy(),
+                        w.float().cpu().numpy()) <= rtol
+
+
+@pytest.mark.gpu
+def test_instance_attention_cuda_gradient_takes_quad_sample(cuda):
+    """On the card a train=False call that needs a gradient runs
+    `QuadSample` (K2 a level, K6 in the backward) and not K4: its outputs
+    carry a grad_fn and its gradients equal train=True's (K6 sums in
+    another order: 1e-5); the same call without grad mode launches K4 once
+    and returns outputs without one."""
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    case = instance_case(1, 2, 14, INSTANCE_SHAPES, 20, seed=50)
+    rs = np.random.RandomState(51)
+    cot = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
+           for s in ((1, 2, 20, 32), (1, 20, 14, 14, 64))]
+
+    def run(train, grad=True):
+        ts = [torch.from_numpy(a).to(cuda).requires_grad_() for a in case]
+        with torch.set_grad_enabled(grad):
+            outs = ba.instance_attention_qminor(ts[0], INSTANCE_SHAPES,
+                                                *ts[1:], 14, raw=True,
+                                                train=train)
+        return ts, outs
+
+    k4, k2 = instance_sample_reduce.launches, quad_sample_reduce_w4.launches
+    grads = []
+    for train in (False, True):
+        ts, outs = run(train)
+        assert all(o.grad_fn is not None for o in outs)
+        sum((o * c).sum() for o, c in zip(outs, cot)).backward()
+        torch.cuda.synchronize()
+        grads.append([t.grad for t in ts])
+    assert instance_sample_reduce.launches == k4
+    assert quad_sample_reduce_w4.launches == k2 + 2 * len(INSTANCE_SHAPES)
+    for g, w in zip(*grads):
+        assert float(w.abs().max()) > 0
+        assert _rel_err(g.cpu().numpy(), w.cpu().numpy()) <= RTOL
+    _, outs = run(False, grad=False)
+    assert all(o.grad_fn is None for o in outs)
+    assert instance_sample_reduce.launches == k4 + 1
