@@ -207,12 +207,12 @@ class InstanceAttention(_SamplingAttention):
         return self.out_proj(mask_out)
 
     def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
-                ref_windows, emit_roi: bool = False, raw_roi: bool = False,
-                train: bool = False):
+                ref_windows, emit_roi: bool = False, raw_roi: bool = False):
         """emit_roi=False: attention output only (inference layers), through
         the fused sampling kernel. emit_roi=True: also the k×k mask RoI,
         projected, or raw (unprojected) when raw_roi=True, differentiable
-        with train=True. Returns (out, roi or None, weights)."""
+        where autograd needs a gradient. Returns (out, roi or None,
+        weights)."""
         b, l1 = query.shape[:2]
         k = self.kernel_size
         nh, nl = self.num_head, self.num_level
@@ -238,7 +238,7 @@ class InstanceAttention(_SamplingAttention):
             level = self._expand_quadrant_weights(torch.softmax(attn, dim=2))
             out, mask_out = instance_attention_qminor(
                 value, v_shape, gx, gy, spatial, level, kernel_size=k,
-                raw=True, train=train)
+                raw=True)
             if raw_roi:
                 return self.out_proj.raw(out), mask_out, (spatial, level)
             return (self.out_proj.raw(out), self.out_proj(mask_out),

@@ -123,8 +123,9 @@ class EncoderLayer(nn.Module):
 class DecoderLayer(nn.Module):
     """Decoder layer. emit_roi: False (no RoI), True (full RoI) or "defer"
     (the raw RoI and the residual carriers are returned, and `decode_roi`
-    runs the RoI tail on a selected-query subset). train=True takes the
-    differentiable sampling paths."""
+    runs the RoI tail on a selected-query subset). train=True takes box
+    attention's training path (not folded); instance attention takes its
+    differentiable path wherever autograd needs a gradient."""
     tp = None
 
     def __init__(self, d_model: int, nhead: int, nlevel: int,
@@ -162,7 +163,7 @@ class DecoderLayer(nn.Module):
         if self.use_mask:
             tgt2, roi, _ = self.multihead_attn(
                 q2, memory, v_shape, memory_mask, valid_ratios, ref_windows,
-                emit_roi=bool(emit_roi), raw_roi=defer, train=train)
+                emit_roi=bool(emit_roi), raw_roi=defer)
         else:
             tgt2, _ = self.multihead_attn(
                 q2, memory, v_shape, memory_mask, valid_ratios, ref_windows,

@@ -106,6 +106,8 @@ def library() -> ctypes.CDLL:
             i32, i32, vp, vp, vp, vp, ctypes.POINTER(i32), i32, vp, vp, vp,
             vp, vp, vp, i32, i32, i32, i32, vp]
         lib.instance_sample_reduce.restype = i32
+        lib.instance_sample_tile.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+        lib.instance_sample_tile.restype = i32
         _lib = lib
     return _lib
 

@@ -39,9 +39,9 @@ Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
   `_box_attention_qminor_folded(fused=False)` does.
 
 `instance_attention_qminor` takes both of its sums in one launch of K4
-(`ops/instance_sample.py`) when autograd needs no gradient of the call, and
-through `QuadSample` (K2 forward, K6 backward) with train=True or when it
-does.
+(`ops/instance_sample.py`) when autograd needs no gradient of the call (the
+inference, test and val forwards), and through `QuadSample` (K2 forward, K6
+backward) when it does.
 
 The corner weights are formed in torch, so autograd carries their cotangent
 back to the sampling grid and the attention weights. `floor` has zero
@@ -488,7 +488,7 @@ def _quad_sample_taps(table, idx, bw4):
 
 def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
                               level_weight, kernel_size: int,
-                              raw: bool = False, train: bool = False):
+                              raw: bool = False):
     """Instance attention, query-minor inputs: one sampling pass, two sums.
 
       out[b,h,q]    = sum_{l,p} spatial_w * sample(l, p)
@@ -496,19 +496,21 @@ def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
 
     gx/gy/spatial_weight/level_weight: (B, H, L, P=k*k, LQ).
     Returns (out (B,LQ,H*Ch) — or (B,H,LQ,Ch) when raw=True — and mask_out
-    (B,LQ,k,k,H*Ch)), in value.dtype. With train=True, or when autograd
-    needs a gradient of the call (grad mode on and an input that requires
-    one), the per-tap samples go through `QuadSample` (K2, K6) and both sums
-    are taken in torch; otherwise (the inference and test forwards) one
-    launch of K4 (`instance_sample_reduce`) gives both, or its plain version
-    on the CPU. The JAX package runs this op in XLA with no Pallas kernel.
+    (B,LQ,k,k,H*Ch)), in value.dtype. When autograd needs a gradient of the
+    call (grad mode on and an input that requires one: training, and
+    remat's forward and recompute), the per-tap samples go through
+    `QuadSample` (K2, K6) and both sums are taken in torch; otherwise (the
+    inference and test forwards, and the val forward, whose decoder layers
+    sample with train=True under no_grad) one launch of K4
+    (`instance_sample_reduce`) gives both, or its plain version on the CPU.
+    The JAX package runs this op in XLA with no Pallas kernel.
     """
     assert gx.shape[3] == kernel_size * kernel_size
     tables = _build_quad_tables(value, shapes)
     inputs = (gx, gy, spatial_weight, level_weight)
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (value, *inputs))
-    if train or needs_grad:
+    if needs_grad:
         out, mask_out = instance_sample_reduce_plain(
             tables, shapes, *inputs, kernel_size, sample=_quad_sample_taps)
     else:

@@ -16,6 +16,16 @@ kernel is `csrc/instance_sample.cu`.
 version, `instance_sample_reduce_plain`, on a CPU tensor; there is no other
 fallback. The kernel's output has no `grad_fn`: a caller that needs a
 gradient takes the differentiable path (`box_attention.QuadSample`).
+
+The kernel's design (the source's note has it whole): a block of 4 warps
+takes a tile of 8 consecutive queries of one (b, h), reads the tap inputs
+along q and forms each tap's quad row and corner weights once into shared
+memory; its warps take the tile's (q, p) items, a few threads an item, each
+reading 16 bytes of every corner of the item's quad row; the mask leaves in
+its final layout. A thread-block cluster of blocks shares a tile's taps, as
+many as fill the card at the launch's shape (`launch_tile`), and `out` is
+summed over the item groups, then over the cluster's blocks, in a fixed
+order, so two launches give bitwise-equal outputs.
 """
 
 import ctypes
@@ -28,8 +38,21 @@ from boxer_tpu_torch.ops.combine_reduce import (CH, corner_weights,
 
 # the kernel takes each level's table by its own pointer
 MAX_LEVELS = 4
-# a block holds one warp a head
-MAX_HEADS = 32
+# the grid's head and batch axes
+MAX_GRID = 65535
+
+
+def launch_tile(device, dtype, b: int, nh: int, lq: int):
+    """The tile the kernel launches on CUDA `device` for tables of `dtype`
+    at B, H, LQ: (queries, warps, blocks a cluster), from the built
+    library; the cluster size depends on the card."""
+    index = torch.device(device).index
+    tile = (ctypes.c_int * 3)()
+    _build.check(_build.library().instance_sample_tile(
+        torch.cuda.current_device() if index is None else index,
+        int(dtype == torch.bfloat16), b, nh, lq, tile),
+        "instance_sample_tile")
+    return tuple(tile)
 
 
 def gather_taps(table, idx, bw4):
@@ -84,8 +107,9 @@ def _launch(tables, shapes, inputs, k: int):
                          f"shapes and {nl} levels (1 to {MAX_LEVELS})")
     if npt != k * k:
         raise ValueError(f"{name}: {npt} taps for k={k}")
-    if not 1 <= nh <= MAX_HEADS:
-        raise ValueError(f"{name}: {nh} heads (1 to {MAX_HEADS})")
+    if not 1 <= nh <= MAX_GRID or b > MAX_GRID:
+        raise ValueError(f"{name}: {b} images and {nh} heads (each at most "
+                         f"{MAX_GRID})")
     if table.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: table dtype {table.dtype}")
     for t, (hl, wl) in zip(tables, shapes):
@@ -109,6 +133,9 @@ def _launch(tables, shapes, inputs, k: int):
             raise ValueError(f"{name}: tensors must be contiguous")
     if not table.is_cuda:
         raise ValueError(f"{name}: unsupported device {table.device}")
+    # each thread reads 16 bytes of a quad row's corner
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError(f"{name}: tables must be 16-byte aligned")
     out = torch.empty((b, nh, lq, CH), dtype=table.dtype, device=table.device)
     mask = torch.empty((b, lq, k, k, nh * CH), dtype=table.dtype,
                        device=table.device)
@@ -128,10 +155,10 @@ def _launch(tables, shapes, inputs, k: int):
 def instance_sample_reduce(tables, shapes, gx, gy, spatial_w, level_w,
                            k: int):
     """K4. tables: one quad table a level, (B*H*(Hl+1)*(Wl+1), 4*32) bf16 or
-    f32 (`_build_quad_tables`), at most 4; shapes: ((Hl, Wl), ...); gx, gy,
-    spatial_w, level_w: (B, H, L, P=k*k, LQ) f32, contiguous. Returns (out
-    (B, H, LQ, 32), mask (B, LQ, k, k, H*32)) in the tables' dtype, summed
-    in f32, with no `grad_fn`."""
+    f32 (`_build_quad_tables`), at most 4, 16-byte aligned; shapes: ((Hl,
+    Wl), ...); gx, gy, spatial_w, level_w: (B, H, L, P=k*k, LQ) f32,
+    contiguous. Returns (out (B, H, LQ, 32), mask (B, LQ, k, k, H*32)) in
+    the tables' dtype, summed in f32, with no `grad_fn`."""
     if tables[0].device.type == "cpu":
         return instance_sample_reduce_plain(tables, shapes, gx, gy, spatial_w,
                                             level_w, k)

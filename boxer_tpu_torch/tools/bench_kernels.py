@@ -1,8 +1,8 @@
-"""K1, K2, K3, K5/K6, K7a/K7b and K8 (or, with --h1, H1) at their main-path
-shapes, this tree's kernels against another tree's, in one process on one
-card.
+"""K1, K2, K3, K5/K6, K7a/K7b and K8 (or, with --h1, H1; with --k4, K4) at
+their main-path shapes, this tree's kernels against another tree's, in one
+process on one card.
 
-    python -m boxer_tpu_torch.tools.bench_kernels [--h1] --parent DIR
+    python -m boxer_tpu_torch.tools.bench_kernels [--h1 | --k4] --parent DIR
 
 DIR is an unpacked copy of another commit of the repo (`git archive`);
 its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
@@ -52,6 +52,23 @@ without a cluster size), then this tree's at each cluster size the card
 can hold, each held bitwise against the plain version first; CUDA events,
 mean of 5, and device time as above.
 
+With --k4 only K4 (`instance_sample_reduce`, the segm decoder's dual-output
+instance attention) is timed, at `chip_smoke.py` phase 3's segm shape and
+inputs (`chip_smoke.segm_instance_case`: B 1, H 8, LQ 300, k 14, the 4
+levels of 800x1216, box-shaped taps) with bf16 and with f32 tables: each
+tree's kernel through its C entry point `instance_sample_reduce` (which
+every commit since 5f345b5 has with this signature), first held against the
+plain version (rel err 1e-2 in bf16, 1e-5 in f32) and this tree's two
+launches bitwise against each other, then timed in turns; then variants
+of this tree's kernel source, each built with a few changes of its text
+into a library of its own, all at once: the other block shapes of
+K4_TILES (queries, warps a block) at the source's cluster-size rule, and
+the source's block shape at each cluster size of K4_SPLITS, each held
+against the plain version first; and two probes (K4_PROBES: every row read
+an L1 hit; no row reads), to show what bounds the kernel (their outputs are
+not compared); CUDA events, mean of 20, and device time as above, beside
+`chip_smoke.k4_bound`.
+
 Inputs are made on the card from a seed: a bf16 quad table of encoder
 level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
 and cotangents, q, k, v from a normal distribution. Every kernel output is
@@ -62,6 +79,7 @@ it is timed. Without --parent only this tree's kernels are timed.
 import argparse
 import ctypes
 import functools
+import importlib
 import re
 import subprocess
 import sys
@@ -88,6 +106,11 @@ K7_SHAPES = ((4, 8 * 20197, ROWS), (16, 2 * 600, 2 * 81 * 121),
              (196, 8 * 300, ROWS))
 # (P, M) of the m-major combine
 K8_SHAPES = ((4, 8 * 20197), (196, 8 * 300))
+# K4's sweep: block shapes (queries, warps) other than the source's 8 x 4,
+# at its cluster-size rule (32 x 4 is left out: f32 tables cannot take it),
+# and cluster sizes at 8 x 4
+K4_TILES = ((8, 8), (16, 4), (16, 8), (32, 8))
+K4_SPLITS = (1, 2, 3, 4, 6, 8)
 TOL = 1e-5
 
 
@@ -548,12 +571,188 @@ def run_h1(device, parent=None, log=print):
     return results
 
 
+def k4_launcher(lib):
+    """K4 through the C entry point as the tree's wrapper calls it: the
+    outputs allocated, then `instance_sample_reduce`."""
+    from boxer_tpu_torch.ops.instance_sample import MAX_LEVELS
+
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.instance_sample_reduce.argtypes = [
+        i32, i32, vp, vp, vp, vp, ctypes.POINTER(i32), i32, vp, vp, vp, vp,
+        vp, vp, i32, i32, i32, i32, vp]
+    lib.instance_sample_reduce.restype = i32
+
+    def run(tables, shapes, gx, gy, sw, lw, k):
+        b, nh, nl, npt, lq = gx.shape
+        table = tables[0]
+        out = torch.empty((b, nh, lq, cr.CH), dtype=table.dtype,
+                          device=table.device)
+        mask = torch.empty((b, lq, k, k, nh * cr.CH), dtype=table.dtype,
+                           device=table.device)
+        ptrs = [t.data_ptr() for t in tables] + [None] * (MAX_LEVELS - nl)
+        hw = (i32 * (2 * nl))(*(v for s in shapes for v in s))
+        _build.check(lib.instance_sample_reduce(
+            table.device.index, int(table.dtype == torch.bfloat16), *ptrs,
+            hw, nl, *(t.data_ptr() for t in (gx, gy, sw, lw)),
+            out.data_ptr(), mask.data_ptr(), b, nh, npt, lq, _stream()),
+            "instance_sample_reduce")
+        return out, mask
+    return run
+
+
+def k4_tile(lib, device, dtype, b, nh, lq):
+    """The tile (queries, warps, blocks a cluster) a K4 library launches at
+    B, H, LQ, by its `instance_sample_tile`."""
+    i32 = ctypes.c_int
+    lib.instance_sample_tile.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
+    lib.instance_sample_tile.restype = i32
+    tile = (i32 * 3)()
+    _build.check(lib.instance_sample_tile(
+        device.index, int(dtype == torch.bfloat16), b, nh, lq, tile),
+        "instance_sample_tile")
+    return tuple(tile)
+
+
+# K4's probes: this tree's kernel source with one change each, by text
+# (old, new); each old text must be in the source
+K4_PROBES = {
+    # every row read of a tap and level hits one of its head's first 16
+    # quad rows of the level: the reads stay, all L1 hits
+    "rows in L1": ("static_cast<long long>(s.row[l][it]) * 4 * kCh",
+                   "(bh * (lv.h[l] + 1) * (lv.w[l] + 1) + (s.row[l][it] & 15))"
+                   " * 4 * kCh"),
+    # no row reads: each corner's 16 bytes made from its address
+    "no row reads": ("v[l][c] = __ldg(reinterpret_cast<const uint4*>(src + c"
+                     " * kCh));",
+                     "v[l][c] = make_uint4(static_cast<unsigned>("
+                     "reinterpret_cast<size_t>(src)) + c, 7u, 9u, 11u);"),
+}
+
+
+K4_RULE = ("int cluster_size(int device, int is_bf16, int batch, int heads, "
+           "int lq) {\n")
+
+
+def k4_tile_edits(tq, warps, splits=None):
+    """The source edits that build K4 at `tq` queries and `warps` warps a
+    block, and at `splits` blocks a cluster (None: the source's rule)."""
+    edits = [("constexpr int kTileQ = 8;", f"constexpr int kTileQ = {tq};"),
+             ("constexpr int kWarps = 4;", f"constexpr int kWarps = {warps};")]
+    if splits is not None:
+        edits.append((K4_RULE, K4_RULE + f"  return {splits};\n"))
+    return edits
+
+
+def k4_variant_libs(variants):
+    """This tree's K4 source built once a variant ({name: [(old, new),
+    ...]}), each into its own library under build/k4_variant/, the nvcc
+    runs all started together; raises if an old text is not in the
+    source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    src = (_build.CSRC / "instance_sample.cu").read_text()
+    dirs = {}
+    for name, edits in variants.items():
+        text = src
+        for old, new in edits:
+            if old not in src:
+                raise RuntimeError(f"K4 variant {name!r}: {old!r} is not in "
+                                   "csrc/instance_sample.cu any more")
+            text = text.replace(old, new)
+        csrc = (_build.BUILD_ROOT.parent / "k4_variant"
+                / re.sub(r"\W+", "_", name).strip("_"))
+        csrc.mkdir(parents=True, exist_ok=True)
+        (csrc / "instance_sample.cu").write_text(text)
+        dirs[name] = csrc
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        paths = dict(zip(dirs, pool.map(_build.build, dirs.values())))
+    return {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
+
+
+def run_k4(device, parent=None, log=print):
+    """K4 at phase 3's segm shape, bf16 and f32 tables; raises if a kernel
+    disagrees with the plain version or two of this tree's launches
+    differ. Returns a list of dicts."""
+    import numpy as np
+
+    import chip_smoke
+    from boxer_tpu_torch.ops import instance_sample as isr
+
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    libs = {"this": _build.library()}
+    if parent is not None:
+        libs["other"] = load(Path(parent) / "boxer_tpu_torch" / "csrc")
+    sweep = {(*t, None): k4_tile_edits(*t) for t in K4_TILES}
+    sweep.update({(8, 4, sp): k4_tile_edits(8, 4, sp) for sp in K4_SPLITS})
+    built = k4_variant_libs({**{str(t): e for t, e in sweep.items()},
+                             **{n: [e] for n, e in K4_PROBES.items()}})
+    value, taps, rows = chip_smoke.segm_instance_case(
+        device, np.random.RandomState(0))
+    shapes, k = chip_smoke.SEGM_LEVELS, chip_smoke.ROI_K
+    results = []
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, TOL)):
+        tables = ba._build_quad_tables(value.to(device, dtype), shapes)
+        args = (tables, shapes, *taps, k)
+        want = isr.instance_sample_reduce_plain(*args)
+        calls = {side: functools.partial(k4_launcher(lib), *args)
+                 for side, lib in libs.items()}
+        errs = {side: rel_err(fn(), want) for side, fn in calls.items()}
+        if max(errs.values()) > tol:
+            raise AssertionError(f"K4 {dtype}: rel err {errs} > {tol}")
+        first, again = calls["this"](), calls["this"]()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"K4 {dtype}: two launches differ")
+        other, this = in_turns(calls.get("other"), calls["this"], cuda_ms)
+        other_dev, this_dev = in_turns(calls.get("other"), calls["this"],
+                                       device_ms)
+        bound, _ = chip_smoke.k4_bound(rows, taps[0], dtype)
+        shape = (*taps[0].shape[:2], taps[0].shape[-1])
+        r = dict(dtype=str(dtype)[6:],
+                 tile=isr.launch_tile(device, dtype, *shape),
+                 ms=this, device_ms=this_dev, other_ms=other,
+                 other_device_ms=other_dev, bound_ms=bound, rel_err=errs,
+                 by_tile={})
+        for variant in sweep:
+            lib = built[str(variant)]
+            tile = k4_tile(lib, device, dtype, *shape)
+            fn = functools.partial(k4_launcher(lib), *args)
+            err = rel_err(fn(), want)
+            if err > tol:
+                raise AssertionError(f"K4 {dtype} tile {tile}: rel err "
+                                     f"{err} > {tol}")
+            r["by_tile"][tile] = (cuda_ms(fn), device_ms(fn))
+        # the probes (their outputs are not the op's)
+        r["probes"] = {
+            name: (cuda_ms(fn), device_ms(fn)) for name in K4_PROBES
+            for fn in [functools.partial(k4_launcher(built[name]), *args)]}
+        log(f"K4 [B=1 H=8 LQ=300 k=14, {rows} quad rows read, {r['dtype']} "
+            f"tables, tile {r['tile']}]: this {this:.4f} ms (device "
+            f"{this_dev:.4f})" + ("" if other is None else
+                                  f", other {other:.4f} ms (device "
+                                  f"{other_dev:.4f})")
+            + f", bound {bound:.4f} ms, rel err "
+            + ", ".join(f"{s} {e:.2e}" for s, e in errs.items())
+            + "; probes: " + ", ".join(
+                f"{name} {a:.4f} ({d:.4f})"
+                for name, (a, d) in r["probes"].items())
+            + "; by tile (queries, warps, splits): " + ", ".join(
+                f"{t}: {a:.4f} ({d:.4f})"
+                for t, (a, d) in r["by_tile"].items()))
+        results.append(r)
+        del tables, want
+        torch.cuda.empty_cache()
+    return results
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="unpacked copy of the tree to compare "
                     "against (this tree's C signatures)")
     ap.add_argument("--h1", action="store_true",
                     help="time H1 alone, at phase 3d's problems")
+    ap.add_argument("--k4", action="store_true",
+                    help="time K4 alone, at phase 3's segm shape, and "
+                    "variants of this tree's K4 by tile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_kernels: no CUDA card; this tool times kernels")
@@ -566,6 +765,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.h1:
         run_h1(dev, args.parent, log=lambda s: print(s, flush=True))
+        return
+    if args.k4:
+        run_k4(dev, args.parent, log=lambda s: print(s, flush=True))
         return
     run(dev, args.parent, log=lambda s: print(s, flush=True),
         model_inputs=chip_smoke.k7b_model_inputs(dev))

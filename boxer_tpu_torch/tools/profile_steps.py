@@ -1,7 +1,8 @@
 """Device time of one full-width BoxeR-2D R50 segm inference forward (under
-the p-major and the m-major combine) and one train step, segm, detection
-(per tap) and detection folded, and of one full-width BoxeR-3D forward and
-train step, under torch.profiler, for the tree on PYTHONPATH.
+the p-major and the m-major combine), one segm val forward and one train
+step, segm, detection (per tap) and detection folded, and of one
+full-width BoxeR-3D forward and train step, under torch.profiler, for the
+tree on PYTHONPATH.
 
     PYTHONPATH=TREE python boxer_tpu_torch/tools/profile_steps.py [RUN ...]
 
@@ -13,7 +14,11 @@ a tree that has them and not this file can be profiled too) are imported
 from there. The forward runs at `chip_smoke`'s phase 6 (bf16 weights, batch
 1, 800x1216, top-100 postprocess with masks), each train step at its recipe
 (batch 1, 800x1216, 20 targets, f32 parameters, bf16 autocast, AdamW); the
-m-major forward runs K8 at every level, the folded step K7b in the backward
+m-major forward runs K8 at every level; the val forward runs as the
+trainer's val step runs it (`parallel/steps.py:make_eval_step`: f32
+parameters, bf16 autocast, under no_grad, train=False, inference=False:
+every decoder layer's instance attention with its RoI, 300 queries), on
+the forward's image; the folded step K7b in the backward
 of every box-attention level. BoxeR-3D runs at `chip_smoke`'s phases 9 and
 9c (468x468, bf16 forward of 32,000 voxels; a train step of 2 frames, f32
 parameters, bf16 autocast), where the tree's `chip_smoke` has them. Each
@@ -30,8 +35,8 @@ is wrapped in a profiler range), of which its sorts (`aten::sort`: the
 valid rows' order and the pruning top-k); then one JSON line {"tree": ...,
 "busy_ms": {run: ms}, "wall_ms": {run: [ms, ...]}, "kernels": {run:
 {kernel: ms}}, "matcher_ms": {run: ms}, "matcher_sort_ms": {run: ms}}.
-RUNs (segm_forward, segm_forward_mmajor, segm, det, det_folded, boxer3d:
-its forward and its step) pick runs; all by default.
+RUNs (segm_forward, segm_forward_mmajor, segm_val, segm, det, det_folded,
+boxer3d: its forward and its step) pick runs; all by default.
 """
 
 import json
@@ -147,6 +152,17 @@ def main(runs=()):
                 with torch.no_grad(), cs.sampling(COMBINE_IMPL=combine):
                     report(key, *profile(
                         lambda: model(image, mask, postprocess=post)))
+        del model
+        torch.cuda.empty_cache()
+    if chosen("segm_val"):
+        model = cs.build_model(True).to(dev)
+        image, mask = (t.to(dev) for t in cs.make_image(cs.CANVAS))
+
+        def val():
+            with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+                return model(image, mask, train=False, inference=False)
+
+        report("segm_val", *profile(val))
         del model
         torch.cuda.empty_cache()
     for use_mask, key, fold in ((True, "segm", 8), (False, "det", 8),

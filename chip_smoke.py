@@ -17,7 +17,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at BH=8, L=300 in f32 and in bf16, its tensor-core kernel), K4 (the
    segm model's last decoder layer: both sums of its instance attention,
    B 1, H 8, LQ 300, 14x14 taps over the 4 levels of 800x1216, with bf16
-   and with f32 tables; `csrc/instance_sample.cu`),
+   and with f32 tables, two launches bitwise equal, the kernel's tile
+   printed; `csrc/instance_sample.cu`),
    then (3b) the d_value scatters K5 (P=4, M=161,576 and M=2,400) and K6
    (P=196, M=2,400), each as the fused kernel that also returns d_w4, as
    its d_table alone, and as the yardstick d_table kernel + plain d_w4
@@ -112,8 +113,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    update 4's model and optimizer state bitwise, at (update, epoch, skip)
    (4, 1, 0), taking 2 more finite updates; ms per update (the median of
    updates 2-6, the first update a warm-up left out), peak memory,
-   the eval forwards' launches per image (one K4 a test step, none at
-   val, whose decoder samples with train=True) and one profiled update; no
+   the eval forwards' launches per image (one K4 a test step, one a
+   decoder layer a val step: the val forward samples every layer's RoI
+   with train=True under no_grad) and one profiled update; no
    matcher host sync in any update (H1 solves on the card);
 11. the Waymo trainer: the shipped Waymo-Detection/boxer3d_pointpillar
    config through `build_trainer`, `load`, `train` at full width (hidden
@@ -589,6 +591,10 @@ def check_kernels(dev):
         r["rel_err"] = max(rel_err(a.float(), b.float()) for a, b in pairs)
         r["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
                                for a, b in pairs)
+        if r.get("bitwise"):
+            again = r["kernel"]()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: two launches differ")
         before = r["wrapper"].launches
         r["ms"] = bc.cuda_ms(r["kernel"])
         r["op_launches"] = r["wrapper"].launches - before
@@ -621,22 +627,16 @@ SEGM_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))
 ROI_K = 14
 
 
-def instance_rows(dev, rs):
-    """Phase 3: K4 against its plain version at the segm shape, with bf16
-    and with f32 tables, on random values and taps laid out as the model
-    lays them: each (head, query)'s 14x14 grid spread over a box (centre in
-    [0.05, 0.95], sides in [0.02, 0.5], so some taps lie past a border),
-    moved a little at each level; random spatial and level weights. The
-    bound counts the distinct quad rows the valid taps read, gx, gy and the
-    two weights once, and both outputs once; the operations, 4 corners and
-    2 sums of 32 channels a tap and level, at the f32 peak; its device time
-    (torch.profiler) is printed beside its CUDA-event time. Returns {name:
-    case}."""
-    from boxer_tpu_torch.ops import instance_sample as isr
+def segm_instance_case(dev, rs):
+    """K4's inputs at the segm shape: a random value (1, S, H, 32) f32 on
+    the host, and gx, gy, spatial and level weights (1, H, L, P, LQ) f32 on
+    `dev`, the taps laid out as the model lays them: each (head, query)'s
+    14x14 grid spread over a box (centre in [0.05, 0.95], sides in [0.02,
+    0.5], so some taps lie past a border), moved a little at each level;
+    random spatial and level weights. Returns (value, taps, the number of
+    distinct quad rows the valid taps read)."""
     from boxer_tpu_torch.ops.combine_reduce import pmajor_taps, tap_rows
-    from boxer_tpu_torch.tools import bench_combine as bc
 
-    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     nh, lq, k, nl = BENCH["nhead"], BENCH["num_queries"], ROI_K, len(
         SEGM_LEVELS)
     npt = k * k
@@ -652,31 +652,56 @@ def instance_rows(dev, rs):
               for a in (0, 1))
     sw, lw = (torch.from_numpy(rs.rand(1, nh, nl, npt, lq).astype(
         np.float32)).to(dev) for _ in range(2))
-    taps = (gx, gy, sw, lw)
     # the quad rows the valid taps read
-    rows = []
+    rows = 0
     for li, (h, w) in enumerate(SEGM_LEVELS):
         idx, _, _, valid = tap_rows(pmajor_taps(gx, nh, nl, npt, lq)[li],
                                     pmajor_taps(gy, nh, nl, npt, lq)[li], h, w)
-        rows.append(torch.unique(idx[valid]).numel())
+        rows += torch.unique(idx[valid]).numel()
+    return value, (gx, gy, sw, lw), rows
+
+
+def k4_bound(rows, gx, dtype):
+    """K4's bound: the distinct quad rows the valid taps read, gx, gy and
+    the two weights once, and both outputs once; the operations, 4 corners
+    and 2 sums of 32 channels a tap and level, at the f32 peak."""
+    from boxer_tpu_torch.tools import bench_combine as bc
+
+    _, nh, _, npt, lq = gx.shape
+    size = torch.finfo(dtype).bits // 8
+    nbytes = (rows * 128 * size + 4 * gx.numel() * 4
+              + (nh * lq * 32 + lq * npt * nh * 32) * size)
+    return bc.bound_ms(nbytes, gx.numel() * (4 + 2) * 32 * 2)
+
+
+def instance_rows(dev, rs):
+    """Phase 3: K4 against its plain version at the segm shape
+    (`segm_instance_case`), with bf16 and with f32 tables, two launches
+    bitwise equal; its bound (`k4_bound`); its device time (torch.profiler)
+    is printed beside its CUDA-event time, and its tile beside its shape.
+    Returns {name: case}."""
+    from boxer_tpu_torch.ops import instance_sample as isr
+
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    value, taps, rows = segm_instance_case(dev, rs)
+    gx, k = taps[0], ROI_K
+    nh, lq = gx.shape[1], gx.shape[-1]
     cases = {}
     for name, dtype, tol in (("K4", torch.bfloat16, 1e-2),
                              ("K4 f32", torch.float32, 1e-5)):
+        tq, warps, splits = isr.launch_tile(dev, dtype, 1, nh, lq)
         tables = ba._build_quad_tables(value.to(dev, dtype), SEGM_LEVELS)
-        size = torch.finfo(dtype).bits // 8
-        nbytes = (sum(rows) * 128 * size + 4 * gx.numel() * 4
-                  + (nh * lq * 32 + lq * npt * nh * 32) * size)
         cases[name] = dict(
             wrapper=isr.instance_sample_reduce,
             kernel=functools.partial(isr.instance_sample_reduce, tables,
                                      SEGM_LEVELS, *taps, k),
             plain=functools.partial(isr.instance_sample_reduce_plain, tables,
                                     SEGM_LEVELS, *taps, k),
-            library=None,
-            bound=bc.bound_ms(nbytes, gx.numel() * (4 + 2) * 32 * 2),
-            device_ms=True, tol=tol,
+            library=None, bound=k4_bound(rows, gx, dtype), device_ms=True,
+            bitwise=True, tol=tol,
             shape=f"B=1 H={nh} LQ={lq} k={k}, levels {SEGM_LEVELS} "
-            f"({sum(rows)} quad rows read), {str(dtype)[6:]} tables")
+            f"({rows} quad rows read), {str(dtype)[6:]} tables, tile {tq} "
+            f"queries x {warps} warps, {splits} blocks a cluster")
     return cases
 
 
@@ -2252,18 +2277,23 @@ def run_trainer(dev, smi):
                              e["launches"].items()}
                      for split, e in rec["eval"].items()}
         # K4: one launch a test step (the inference forward's last decoder
-        # layer, both images of the batch); none at val, whose forward
-        # (inference=False) runs the decoder's training topology, every
-        # layer's instance attention with train=True (`QuadSample`, K2)
+        # layer, both images of the batch); one a decoder layer a val step,
+        # whose forward (inference=False) runs the decoder's training
+        # topology, every layer's instance attention with train=True under
+        # no_grad
         k4 = {split: e["launches"]["K4"] for split, e in rec["eval"].items()}
-        if k4 != {"val": 0, "test": rec["eval"]["test"]["steps"]}:
-            raise AssertionError(f"{label}: K4 launches {k4} in "
-                                 f"{rec['eval']['test']['steps']} test steps")
+        layers = len(trainer.state.model.transformer.decoder.layers)
+        want_k4 = {"val": layers * rec["eval"]["val"]["steps"],
+                   "test": rec["eval"]["test"]["steps"]}
+        if k4 != want_k4:
+            raise AssertionError(f"{label}: K4 launches {k4} != {want_k4} "
+                                 f"({layers} decoder layers)")
         log(f"{label} [{smi}]: load {t_load:.1f} s, train() {t_train:.1f} s "
             f"(4 updates, val and test); ms per update "
             f"{', '.join(f'{t:.2f}' for t in times)}; peak "
             f"{peak:.2f} GiB; launches per update {updates[-1]['launches']};"
             f" per eval image {per_image} (K4 {k4} in "
+            f"{rec['eval']['val']['steps']} val and "
             f"{rec['eval']['test']['steps']} test steps); val AP bbox "
             f"{ap['coco_eval_bbox'][0]:.4g}, segm "
             f"{ap['coco_eval_segm'][0]:.4g}; {len(records)} test records of "

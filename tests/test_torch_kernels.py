@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from boxer_tpu_torch.ops import instance_sample
 from boxer_tpu_torch.ops.combine_reduce import (
     quad_sample_reduce_mmajor, quad_sample_reduce_mmajor_plain,
     quad_sample_reduce_plain, quad_sample_reduce_raw, quad_sample_reduce_w4)
@@ -883,19 +884,28 @@ def test_box3d_attention_cuda_grads_match_plain_k5(cuda, monkeypatch,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,nh,k,nl", [
-    (b, nh, k, 4) for b in (1, 2) for nh in (1, 2) for k in (2, 14)] + [
-    (2, 4, 14, 4), (2, 4, 14, 3), (1, 2, 14, 1)])
+@pytest.mark.parametrize("b,nh,k,nl,lq", [
+    (b, nh, k, 4, 37) for b in (1, 2) for nh in (1, 2) for k in (2, 14)] + [
+    (2, 4, 14, 4, 37), (2, 4, 14, 3, 37), (1, 2, 14, 1, 37),
+    (2, 3, 2, 2, 1), (2, 3, 4, 4, 7), (1, 8, 14, 4, 301),
+    (2, 1, 14, 3, 301), (2, 8, 2, 1, 37), (2, 3, 14, 2, 7),
+    (1, 1, 4, 4, 301), (2, 8, 4, 4, 1), (8, 8, 2, 4, 600)])
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, RTOL),
                                         (torch.bfloat16, 1e-2)])
-def test_instance_sample_cuda_matches_plain(cuda, b, nh, k, nl, dtype, rtol):
+def test_instance_sample_cuda_matches_plain(cuda, b, nh, k, nl, lq, dtype,
+                                            rtol):
     """K4 against its plain version, both outputs: taps on, just inside
-    and past the borders and on the cells' edges, 1 to 4 levels, LQ not a
-    multiple of a warp."""
+    and past the borders and on the cells' edges, 1 to 4 levels, P 4, 16
+    and 196, H 1 to 8, LQ 1, 7, 37, 301 and 600 (all but the last not a
+    multiple of the 8-query tile: the last tile ragged, or the only one),
+    and clusters of 1 to 8 blocks, as the card's rule gives them."""
     shapes = INSTANCE_SHAPES[:nl]
     tables, taps = instance_inputs(
-        instance_case(b, nh, k, shapes, 37, seed=30 + 8 * b + nh + k + nl),
+        instance_case(b, nh, k, shapes, lq, seed=30 + 8 * b + nh + k + nl
+                      + (lq if lq != 37 else 0)),
         shapes, cuda, dtype)
+    splits = instance_sample.launch_tile(cuda, dtype, b, nh, lq)[2]
+    assert 1 <= splits <= 8
     before = instance_sample_reduce.launches
     got = instance_sample_reduce(tables, shapes, *taps, k)
     want = instance_sample_reduce_plain(tables, shapes, *taps, k)
@@ -905,6 +915,23 @@ def test_instance_sample_cuda_matches_plain(cuda, b, nh, k, nl, dtype, rtol):
         assert g.shape == w.shape and g.dtype == w.dtype == dtype
         assert _rel_err(g.float().cpu().numpy(),
                         w.float().cpu().numpy()) <= rtol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,b,nh,lq", [(SEGM_SHAPES, 1, 8, 300),
+                                            (INSTANCE_SHAPES, 2, 3, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_instance_sample_cuda_bitwise(cuda, shapes, b, nh, lq, dtype):
+    """Two launches of K4 on the same inputs give bitwise-equal outputs:
+    `out` is summed over the item groups in a fixed order, no atomics."""
+    tables, taps = instance_inputs(
+        instance_case(b, nh, 14, shapes, lq, seed=70 + lq), shapes, cuda,
+        dtype)
+    first = instance_sample_reduce(tables, shapes, *taps, 14)
+    again = instance_sample_reduce(tables, shapes, *taps, 14)
+    torch.cuda.synchronize()
+    assert float(first[0].float().abs().max()) > 0
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.gpu
@@ -928,38 +955,37 @@ def test_instance_sample_cuda_segm_shape(cuda, dtype, rtol):
 
 @pytest.mark.gpu
 def test_instance_attention_cuda_gradient_takes_quad_sample(cuda):
-    """On the card a train=False call that needs a gradient runs
-    `QuadSample` (K2 a level, K6 in the backward) and not K4: its outputs
-    carry a grad_fn and its gradients equal train=True's (K6 sums in
-    another order: 1e-5); the same call without grad mode launches K4 once
-    and returns outputs without one."""
+    """On the card a call that needs a gradient runs `QuadSample` (K2 a
+    level, K6 in the backward) and not K4: its outputs carry a grad_fn and
+    its gradients equal the same call's on the CPU (K6 sums in another
+    order: 1e-5); the same call without grad mode launches K4 once and
+    returns outputs without one."""
     ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
     case = instance_case(1, 2, 14, INSTANCE_SHAPES, 20, seed=50)
     rs = np.random.RandomState(51)
     cot = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
            for s in ((1, 2, 20, 32), (1, 20, 14, 14, 64))]
 
-    def run(train, grad=True):
-        ts = [torch.from_numpy(a).to(cuda).requires_grad_() for a in case]
+    def run(device, grad=True):
+        ts = [torch.from_numpy(a).to(device).requires_grad_() for a in case]
         with torch.set_grad_enabled(grad):
             outs = ba.instance_attention_qminor(ts[0], INSTANCE_SHAPES,
-                                                *ts[1:], 14, raw=True,
-                                                train=train)
+                                                *ts[1:], 14, raw=True)
         return ts, outs
 
     k4, k2 = instance_sample_reduce.launches, quad_sample_reduce_w4.launches
     grads = []
-    for train in (False, True):
-        ts, outs = run(train)
+    for device in (cuda, "cpu"):
+        ts, outs = run(device)
         assert all(o.grad_fn is not None for o in outs)
-        sum((o * c).sum() for o, c in zip(outs, cot)).backward()
+        sum((o * c.to(device)).sum() for o, c in zip(outs, cot)).backward()
         torch.cuda.synchronize()
-        grads.append([t.grad for t in ts])
+        grads.append([t.grad.cpu() for t in ts])
     assert instance_sample_reduce.launches == k4
-    assert quad_sample_reduce_w4.launches == k2 + 2 * len(INSTANCE_SHAPES)
+    assert quad_sample_reduce_w4.launches == k2 + len(INSTANCE_SHAPES)
     for g, w in zip(*grads):
         assert float(w.abs().max()) > 0
-        assert _rel_err(g.cpu().numpy(), w.cpu().numpy()) <= RTOL
-    _, outs = run(False, grad=False)
+        assert _rel_err(g.numpy(), w.numpy()) <= RTOL
+    _, outs = run(cuda, grad=False)
     assert all(o.grad_fn is None for o in outs)
     assert instance_sample_reduce.launches == k4 + 1

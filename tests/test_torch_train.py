@@ -193,7 +193,7 @@ def test_instance_sampling_grads_match_jax():
 
     def t_loss(v, x, y, s, lv):
         out, mask = instance_attention_qminor(v, SHAPES, x, y, s, lv, k,
-                                              raw=True, train=True)
+                                              raw=True)
         return (out * _t(cot)).sum() + (mask * _t(cot_mask)).sum()
 
     got = _torch_grads(t_loss, value, gx, gy, sw, lw)
