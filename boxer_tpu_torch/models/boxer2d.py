@@ -22,6 +22,7 @@ from boxer_tpu_torch.nn.init import reset_default_, xavier_uniform_
 from boxer_tpu_torch.nn.position_encoding import build_position_encoding
 from boxer_tpu_torch.nn.predictor import Detector
 from boxer_tpu_torch.nn.resnet import BackBone, interpolate_mask_nearest
+from boxer_tpu_torch.utils.timer import span
 
 GN_EPS = 1e-6       # flax GroupNorm's epsilon
 
@@ -122,44 +123,49 @@ class BoxeR2D(nn.Module):
                              "dropout_key")
         assert postprocess is None or inference, \
             "postprocess is an inference-only fast path"
-        dtype = self.input_proj[0][0].weight.dtype
-        outs, pos = self.backbone(image.to(dtype), mask)
+        with span("boxer.forward"):
+            with span("boxer.backbone"):
+                dtype = self.input_proj[0][0].weight.dtype
+                outs, pos = self.backbone(image.to(dtype), mask)
 
-        features, masks, pos_encodings = [], [], []
-        for i, (src, m) in enumerate(outs):
-            feat = self.input_proj[i](src.permute(0, 3, 1, 2))
-            features.append(feat.permute(0, 2, 3, 1))
-            masks.append(m)
-            pos_encodings.append(pos[i])
+                features, masks, pos_encodings = [], [], []
+                for i, (src, m) in enumerate(outs):
+                    feat = self.input_proj[i](src.permute(0, 3, 1, 2))
+                    features.append(feat.permute(0, 2, 3, 1))
+                    masks.append(m)
+                    pos_encodings.append(pos[i])
 
-        pe = (build_position_encoding(self.backbone.position_encoding,
-                                      self.hidden_dim)
-              if self.backbone.position_encoding is not None else None)
-        last_raw = outs[-1][0].permute(0, 3, 1, 2)
-        for i in range(len(features), self.num_level):
-            x = (last_raw if i == len(outs)
-                 else F.relu(features[-1]).permute(0, 3, 1, 2))
-            feat = self.input_proj[i](x).permute(0, 2, 3, 1)
-            m = (interpolate_mask_nearest(mask, feat.shape[1:3])
-                 if mask is not None else None)
-            pos_encodings.append(pe(feat, m, self.ref_size).to(feat.dtype)
-                                 if pe is not None else None)
-            features.append(feat)
-            masks.append(m)
+                pe = (build_position_encoding(
+                    self.backbone.position_encoding, self.hidden_dim)
+                    if self.backbone.position_encoding is not None else None)
+                last_raw = outs[-1][0].permute(0, 3, 1, 2)
+                for i in range(len(features), self.num_level):
+                    x = (last_raw if i == len(outs)
+                         else F.relu(features[-1]).permute(0, 3, 1, 2))
+                    feat = self.input_proj[i](x).permute(0, 2, 3, 1)
+                    m = (interpolate_mask_nearest(mask, feat.shape[1:3])
+                         if mask is not None else None)
+                    pos_encodings.append(
+                        pe(feat, m, self.ref_size).to(feat.dtype)
+                        if pe is not None else None)
+                    features.append(feat)
+                    masks.append(m)
 
-        if postprocess is not None and self.use_mask:
-            return self.transformer(features, masks, pos_encodings,
-                                    self.enc_detector, detector=self.detector,
-                                    postprocess=postprocess)
-        hs, roi, dec_ref_windows, *_, enc_outputs = self.transformer(
-            features, masks, pos_encodings, self.enc_detector,
-            inference=inference, dropout_key=dropout_key if train else None)
-        out = self.detector(hs, dec_ref_windows, roi=roi)
-        if not inference:
-            out["enc_outputs"] = enc_outputs
-        if postprocess is None:
-            return out
-        return coco_postprocess(out["pred_logits"], out["pred_boxes"], None,
-                                canvas_hw=postprocess["canvas_hw"],
-                                topk=postprocess.get("topk", 100),
-                                scale=postprocess.get("scale"))
+            if postprocess is not None and self.use_mask:
+                return self.transformer(
+                    features, masks, pos_encodings, self.enc_detector,
+                    detector=self.detector, postprocess=postprocess)
+            hs, roi, dec_ref_windows, *_, enc_outputs = self.transformer(
+                features, masks, pos_encodings, self.enc_detector,
+                inference=inference,
+                dropout_key=dropout_key if train else None)
+            out = self.detector(hs, dec_ref_windows, roi=roi)
+            if not inference:
+                out["enc_outputs"] = enc_outputs
+            if postprocess is None:
+                return out
+            return coco_postprocess(
+                out["pred_logits"], out["pred_boxes"], None,
+                canvas_hw=postprocess["canvas_hw"],
+                topk=postprocess.get("topk", 100),
+                scale=postprocess.get("scale"))

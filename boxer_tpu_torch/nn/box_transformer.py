@@ -55,6 +55,7 @@ from boxer_tpu_torch.parallel.collectives import (RowLinear, Tokens,
 from boxer_tpu_torch.utils.general import (flatten_with_shape,
                                            get_proposal_pos_embed,
                                            inverse_sigmoid, top_k)
+from boxer_tpu_torch.utils.timer import span
 
 Shapes = Tuple[Tuple[int, int], ...]
 LN_EPS = 1e-6       # flax LayerNorm's epsilon
@@ -331,62 +332,68 @@ class BoxTransformer(nn.Module):
         if masks is not None and masks[0] is None:
             masks = None
 
-        src_ref_windows = create_ref_windows_2d(srcs, masks, self.ref_size)
-        valid_ratios = create_valid_ratios(masks)
-        src, src_mask, v_shape = flatten_with_shape(srcs, masks)
-        src_pos = torch.cat([p.reshape(p.shape[0], -1, p.shape[-1])
-                             for p in pos_list], dim=1)
-
         # JAX remats the encoder whenever it trains, the decoder only with
         # use_mask (`boxer_tpu/nn/box_transformer.py:394-412`, `:439-453`)
         enc_remat = self.remat and train and torch.is_grad_enabled()
         dec_remat = enc_remat and self.use_mask
-        tokens = None
-        enc_in = (src, src_pos, src_mask, src_ref_windows)
-        if self.seq_shard:
-            if self.sp is None:
-                raise RuntimeError(
-                    "a model built with seq_shard runs only on a layout "
-                    "with sp > 1: shard it first (parallel/sharding.py:"
-                    "shard_model); it does not run unsharded")
-            tokens = Tokens(self.sp, src.shape[1])
-            # pad tokens: masked, mid-canvas windows; dropped at the gathers
-            enc_in = tuple(None if t is None else slice_tokens(
-                t, tokens, pad_value=pad) for t, pad in zip(
-                    enc_in, (0.0, 0.0, True, 0.5)))
-        output, enc_pos, enc_mask, enc_ref = enc_in
-        for layer in self.encoder.layers:
-            args = (output, enc_pos, v_shape, enc_mask, valid_ratios,
-                    enc_ref)
-            kw = dict(fold=True if inference else None, key=dropout_key,
-                      tokens=tokens)
-            output = remat(layer, *args, **kw) if enc_remat else layer(
-                *args, **kw)
-        if tokens is not None:
-            output = gather_tokens(output, tokens)
+        with span("boxer.encoder"):
+            src_ref_windows = create_ref_windows_2d(srcs, masks,
+                                                    self.ref_size)
+            valid_ratios = create_valid_ratios(masks)
+            src, src_mask, v_shape = flatten_with_shape(srcs, masks)
+            src_pos = torch.cat([p.reshape(p.shape[0], -1, p.shape[-1])
+                                 for p in pos_list], dim=1)
+            tokens = None
+            enc_in = (src, src_pos, src_mask, src_ref_windows)
+            if self.seq_shard:
+                if self.sp is None:
+                    raise RuntimeError(
+                        "a model built with seq_shard runs only on a layout "
+                        "with sp > 1: shard it first (parallel/sharding.py:"
+                        "shard_model); it does not run unsharded")
+                tokens = Tokens(self.sp, src.shape[1])
+                # pad tokens: masked, mid-canvas windows; dropped at the
+                # gathers
+                enc_in = tuple(None if t is None else slice_tokens(
+                    t, tokens, pad_value=pad) for t, pad in zip(
+                        enc_in, (0.0, 0.0, True, 0.5)))
+            output, enc_pos, enc_mask, enc_ref = enc_in
+            for layer in self.encoder.layers:
+                args = (output, enc_pos, v_shape, enc_mask, valid_ratios,
+                        enc_ref)
+                kw = dict(fold=True if inference else None, key=dropout_key,
+                          tokens=tokens)
+                output = remat(layer, *args, **kw) if enc_remat else layer(
+                    *args, **kw)
+            if tokens is not None:
+                output = gather_tokens(output, tokens)
 
-        tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
-            enc_detector, output, src_mask, src_ref_windows)
+        with span("boxer.proposals"):
+            tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
+                enc_detector, output, src_mask, src_ref_windows)
 
         layers = self.decoder.layers
         inter, inter_roi = [], []
         deferred = None
-        for i, layer in enumerate(layers):
-            emit_roi = self.use_mask and (train or i == len(layers) - 1)
-            if emit_roi and defer_mask:
-                emit_roi = "defer"
-            args = (tgt, dec_pos, output, v_shape, src_mask, valid_ratios,
-                    dec_ref_windows, emit_roi, train)
-            tgt, roi = (remat(layer, *args, key=dropout_key) if dec_remat
-                        else layer(*args, key=dropout_key))
-            if emit_roi == "defer":
-                deferred, roi = roi, None
-            inter.append(tgt)
-            inter_roi.append(roi)
+        with span("boxer.decoder"):
+            for i, layer in enumerate(layers):
+                emit_roi = self.use_mask and (train or i == len(layers) - 1)
+                if emit_roi and defer_mask:
+                    emit_roi = "defer"
+                args = (tgt, dec_pos, output, v_shape, src_mask,
+                        valid_ratios, dec_ref_windows, emit_roi, train)
+                tgt, roi = (remat(layer, *args, key=dropout_key)
+                            if dec_remat else layer(*args, key=dropout_key))
+                if emit_roi == "defer":
+                    deferred, roi = roi, None
+                inter.append(tgt)
+                inter_roi.append(roi)
 
         if defer_mask:
-            return self._decode_topk_masks(detector, layers[-1], deferred, tgt,
-                                           dec_ref_windows, postprocess)
+            with span("boxer.mask_decode"):
+                return self._decode_topk_masks(detector, layers[-1], deferred,
+                                               tgt, dec_ref_windows,
+                                               postprocess)
         if inference:
             inter, inter_roi = inter[-1:], inter_roi[-1:]
         hs = torch.stack(inter)

@@ -27,6 +27,7 @@ from boxer_tpu_torch.utils.box3d_ops import (box_cxcyczlwh_to_xyxyxy,
 from boxer_tpu_torch.utils.box_ops import (box_cxcywh_to_xyxy,
                                            generalized_box_iou)
 from boxer_tpu_torch.utils.general import top_k
+from boxer_tpu_torch.utils.timer import span
 
 
 def assignment_problem(cost, row_valid):
@@ -80,11 +81,12 @@ def hungarian(cost, row_valid):
     cost, so no column is assigned twice. The Waymo encoder-output match
     (NT=250, NQ~205k) becomes a (250, 62,500) problem.
     """
-    sub, n_rows, rows, cand = assignment_problem(cost, row_valid)
-    col = solve_assignment(sub, n_rows)
-    if cand is not None:
-        col = cand.gather(1, col)
-    out = torch.empty_like(col).scatter_(1, rows, col)
+    with span("boxer.train.matcher"):
+        sub, n_rows, rows, cand = assignment_problem(cost, row_valid)
+        col = solve_assignment(sub, n_rows)
+        if cand is not None:
+            col = cand.gather(1, col)
+        out = torch.empty_like(col).scatter_(1, rows, col)
     return out.reshape(*cost.shape[:-1])
 
 

@@ -89,6 +89,7 @@ from boxer_tpu_torch.ops.instance_sample import (instance_sample_reduce,
 from boxer_tpu_torch.ops.scatter_accum import (
     scatter_add_rows_pmajor, scatter_add_rows_weighted_dw4)
 from boxer_tpu_torch.utils.general import level_start_index
+from boxer_tpu_torch.utils.timer import span
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -112,14 +113,15 @@ def _build_quad_tables(value, shapes: Shapes):
     b, s, nh, ch = value.shape
     bh = b * nh
     starts = level_start_index(shapes)
-    v = value.permute(0, 2, 1, 3).reshape(bh, s, ch)
-    tables = []
-    for li, (hl, wl) in enumerate(shapes):
-        lvl = v[:, starts[li]:starts[li] + hl * wl].reshape(bh, hl, wl, ch)
-        lvl = F.pad(lvl, (0, 0, 1, 1, 1, 1))
-        q = torch.cat([lvl[:, :-1, :-1], lvl[:, :-1, 1:],
-                       lvl[:, 1:, :-1], lvl[:, 1:, 1:]], dim=-1)
-        tables.append(q.reshape(bh * (hl + 1) * (wl + 1), 4 * ch))
+    with span("boxer.sampling.quad_tables"):
+        v = value.permute(0, 2, 1, 3).reshape(bh, s, ch)
+        tables = []
+        for li, (hl, wl) in enumerate(shapes):
+            lvl = v[:, starts[li]:starts[li] + hl * wl]
+            lvl = F.pad(lvl.reshape(bh, hl, wl, ch), (0, 0, 1, 1, 1, 1))
+            q = torch.cat([lvl[:, :-1, :-1], lvl[:, :-1, 1:],
+                           lvl[:, 1:, :-1], lvl[:, 1:, 1:]], dim=-1)
+            tables.append(q.reshape(bh * (hl + 1) * (wl + 1), 4 * ch))
     return tables
 
 
@@ -286,15 +288,20 @@ def _folded_level(table, idx, lx, ly, w_tap, dtype):
 def _level_taps(shapes: Shapes, gx, gy, attn_weight, bh: int):
     """Per level of `shapes`, the taps of (B, H, L, P, LQ) inputs as (P, M)
     tensors: quad-table rows idx, fractions lx, ly, validity (f32) and the
-    tap weight w_tap = valid * attn_weight."""
+    tap weight w_tap = valid * attn_weight. The p-major reorder and each
+    level's taps run in a span of their own, apart from the caller's work
+    between the levels."""
     _, _, nl, npt, lq = gx.shape
-    gx, gy, aw = (pmajor_taps(t, bh, nl, npt, lq)
-                  for t in (gx, gy, attn_weight))
+    with span("boxer.sampling.taps"):
+        gx, gy, aw = (pmajor_taps(t, bh, nl, npt, lq)
+                      for t in (gx, gy, attn_weight))
     for li, (hl, wl) in enumerate(shapes):
-        idx, lx, ly, valid = tap_rows(gx[li], gy[li], hl, wl)
-        w_tap = torch.where(valid, aw[li], 0.0)
-        yield tuple(t.reshape(npt, bh * lq)
-                    for t in (idx, lx, ly, valid.float(), w_tap))
+        with span("boxer.sampling.taps"):
+            idx, lx, ly, valid = tap_rows(gx[li], gy[li], hl, wl)
+            w_tap = torch.where(valid, aw[li], 0.0)
+            taps = tuple(t.reshape(npt, bh * lq)
+                         for t in (idx, lx, ly, valid.float(), w_tap))
+        yield taps
 
 
 _BOX_ATTN_IMPL = {"default": "xla"}
@@ -437,6 +444,13 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     FOLD_TAP_THRESHOLD, else the per-tap one, as in the JAX package.
     """
     assert gx.shape[2] == len(shapes)
+    with span("boxer.sampling.box"):
+        return _box_attention_qminor(value, shapes, gx, gy, attn_weight, raw,
+                                     fold)
+
+
+def _box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
+                          raw: bool, fold):
     if _BOX_ATTN_IMPL["default"] == "analytic_vjp":
         out = AnalyticBoxAttention.apply(tuple(map(tuple, shapes)), value, gx,
                                          gy, attn_weight)
@@ -506,17 +520,20 @@ def instance_attention_qminor(value, shapes: Shapes, gx, gy, spatial_weight,
     The JAX package runs this op in XLA with no Pallas kernel.
     """
     assert gx.shape[3] == kernel_size * kernel_size
-    tables = _build_quad_tables(value, shapes)
-    inputs = (gx, gy, spatial_weight, level_weight)
-    needs_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (value, *inputs))
-    if needs_grad:
-        out, mask_out = instance_sample_reduce_plain(
-            tables, shapes, *inputs, kernel_size, sample=_quad_sample_taps)
-    else:
-        out, mask_out = instance_sample_reduce(
-            tables, shapes, *(t.float().contiguous() for t in inputs),
-            kernel_size)
+    with span("boxer.sampling.instance"):
+        tables = _build_quad_tables(value, shapes)
+        inputs = (gx, gy, spatial_weight, level_weight)
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, *inputs))
+        if needs_grad:
+            out, mask_out = instance_sample_reduce_plain(
+                tables, shapes, *inputs, kernel_size,
+                sample=_quad_sample_taps)
+        else:
+            with span("boxer.sampling.taps"):
+                inputs = tuple(t.float().contiguous() for t in inputs)
+            out, mask_out = instance_sample_reduce(tables, shapes, *inputs,
+                                                   kernel_size)
     if raw:
         return out, mask_out
     return _merge_heads(out), mask_out

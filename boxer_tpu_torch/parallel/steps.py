@@ -56,6 +56,7 @@ from boxer_tpu_torch.optim import clip_by_global_norm, set_lr
 from boxer_tpu_torch.parallel import distributed
 from boxer_tpu_torch.parallel.mesh import Layout, create_layout
 from boxer_tpu_torch.parallel.sharding import gather_state, tp_rule
+from boxer_tpu_torch.utils.timer import span
 
 
 @dataclass
@@ -161,11 +162,13 @@ def make_train_step(criterion, max_norm: float = 0.0,
         for a in range(targets["valid"].shape[0]):
             mb = microbatch(batch, a)
             key = DropoutKey(dropout_seed, update, a, dp.index, dp.size)
-            with _autocast(compute_dtype, targets["valid"].device):
+            with span("boxer.train.forward"), _autocast(
+                    compute_dtype, targets["valid"].device):
                 out = apply_model(model, mb, train=True, inference=False,
                                   dropout_key=key)
-            losses = criterion(out, mb["targets"], num_boxes=num_boxes)
-            total, stats = weighted_total(losses, weight_dict)
+            with span("boxer.train.loss"):
+                losses = criterion(out, mb["targets"], num_boxes=num_boxes)
+                total, stats = weighted_total(losses, weight_dict)
             if metrics and "_query_idx" in losses:
                 args = (_final(out), mb["targets"], losses["_query_idx"],
                         losses["_valid"])
@@ -173,7 +176,8 @@ def make_train_step(criterion, max_norm: float = 0.0,
                     parts.setdefault(name, []).append(
                         fn.parts(*args) if isinstance(fn, Metric)
                         else (fn(*args),))
-            (total / sp.size if sp.size > 1 else total).backward()
+            with span("boxer.train.backward"):
+                (total / sp.size if sp.size > 1 else total).backward()
             loss_acc = loss_acc + total.detach()
             for k, v in stats.items():
                 stats_acc[k] = stats_acc.get(k, 0.0) + v.detach()
@@ -192,31 +196,34 @@ def make_train_step(criterion, max_norm: float = 0.0,
                  if mp.size > 1 else grads)
         sums = [loss_acc, *stats_acc.values(),
                 *(t for ps in parts.values() for part in ps for t in part)]
-        if mp.size > 1:
-            _sum_over_ranks(whole, None)
-            for g in whole:
-                g.div_(mp.size)
-            if grad.size > 1:
-                _sum_over_ranks(cut, grad.group)
-        elif grad.size > 1 and grad.group is dp.group:
-            _sum_over_ranks(grads + sums, dp.group)
-            sums = []
-        elif grad.size > 1:
-            _sum_over_ranks(grads, grad.group)
-        if sums and dp.size > 1:
-            _sum_over_ranks(sums, dp.group)
+        with span("boxer.train.grad_sync"):
+            if mp.size > 1:
+                _sum_over_ranks(whole, None)
+                for g in whole:
+                    g.div_(mp.size)
+                if grad.size > 1:
+                    _sum_over_ranks(cut, grad.group)
+            elif grad.size > 1 and grad.group is dp.group:
+                _sum_over_ranks(grads + sums, dp.group)
+                sums = []
+            elif grad.size > 1:
+                _sum_over_ranks(grads, grad.group)
+            if sums and dp.size > 1:
+                _sum_over_ranks(sums, dp.group)
         raw_grads = None
         if debug_grads:
             raw_grads = gather_state(
                 {n: p.grad.clone() for n, p in named}, layout)
             raw_grads = {n: None if id(p) in unused else raw_grads[n]
                          for n, p in named}
-        norm = None
-        if mp.size > 1:
-            cut_sq = sum(g.float().square().sum() for g in cut)
-            norm = torch.sqrt(sum(g.float().square().sum() for g in whole)
-                              + distributed.all_reduce_sum(cut_sq, mp.group))
-        grad_norm = clip_by_global_norm(grads, max_norm, norm)
+        with span("boxer.train.optimizer"):
+            norm = None
+            if mp.size > 1:
+                cut_sq = sum(g.float().square().sum() for g in cut)
+                norm = torch.sqrt(
+                    sum(g.float().square().sum() for g in whole)
+                    + distributed.all_reduce_sum(cut_sq, mp.group))
+            grad_norm = clip_by_global_norm(grads, max_norm, norm)
         for name, ps in parts.items():
             fn = metrics[name]
             for part in ps:
@@ -229,8 +236,9 @@ def make_train_step(criterion, max_norm: float = 0.0,
             [v.float() for v in out_stats.values()]).tolist()))
         ok = math.isfinite(out_stats["grad_norm"])
         if ok:
-            set_lr(state.optimizer, state.schedule, state.step)
-            state.optimizer.step()
+            with span("boxer.train.optimizer"):
+                set_lr(state.optimizer, state.schedule, state.step)
+                state.optimizer.step()
             state.step += 1
         out_stats["skipped"] = 0.0 if ok else 1.0
         if debug_grads:

@@ -92,6 +92,7 @@ from boxer_tpu_torch.ops import combine_reduce as cr
 from boxer_tpu_torch.ops import flash_attention as fa
 from boxer_tpu_torch.ops import scatter_accum as sa
 from boxer_tpu_torch.tools.bench_combine import bound_ms, cuda_ms, gather_bytes
+from boxer_tpu_torch.utils.timer import device_events
 
 ROWS = 8 * 101 * 153
 # (P, M) on the main path
@@ -282,8 +283,7 @@ def device_ms(fn, iters=20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) \
+    return sum(e.self_device_time_total for e in device_events(prof)) \
         / 1e3 / iters
 
 
@@ -299,8 +299,7 @@ def device_split(fn, iters=20):
             fn()
         torch.cuda.synchronize()
     return {e.key: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            for e in device_events(prof)}
 
 
 def short_name(kernel):

@@ -30,9 +30,11 @@ time and calls of each of the port's kernels (by name:
 has it), `scatter_weighted`, `scatter_rows` and
 `rows_` (the row scatter's kernels, before and after it was split in
 four), `hungarian`, `Memset`), and the device time of the kernels that the
-matcher's `nn/matcher.py:hungarian` launches (the tree's module attribute
-is wrapped in a profiler range), of which its sorts (`aten::sort`: the
-valid rows' order and the pruning top-k); then one JSON line {"tree": ...,
+matcher's `nn/matcher.py:hungarian` launches (its `boxer.train.matcher`
+span; 0 in a tree without the port's spans), of which its sorts
+(`aten::sort`: the valid rows' order and the pruning top-k); the spans'
+own device-side ranges (`boxer.*`) are left out of the busy time. Then
+one JSON line {"tree": ...,
 "busy_ms": {run: ms}, "wall_ms": {run: [ms, ...]}, "kernels": {run:
 {kernel: ms}}, "matcher_ms": {run: ms}, "matcher_sort_ms": {run: ms}}.
 RUNs (segm_forward, segm_forward_mmajor, segm_val, segm, det, det_folded,
@@ -51,31 +53,21 @@ PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "instance_sample",
                 "scatter_weighted", "scatter_rows", "rows_", "hungarian",
                 "Memset")
 WALL_RUNS = 5
-MATCHER_RANGE = "profile_steps: matcher"
-
-
-def wrap_matcher():
-    """Run the tree's `nn/matcher.py:hungarian` inside MATCHER_RANGE."""
-    from boxer_tpu_torch.nn import matcher
-
-    inner = matcher.hungarian
-
-    def hungarian(*args, **kw):
-        with torch.profiler.record_function(MATCHER_RANGE):
-            return inner(*args, **kw)
-
-    matcher.hungarian = hungarian
+MATCHER_SPAN = "boxer.train.matcher"
+# `utils/timer.py:SPAN_PREFIX`, spelt out: the trees this profiles may
+# predate it
+SPAN_PREFIX = "boxer."
 
 
 def matcher_ms(prof):
-    """Device ms of the kernels launched inside MATCHER_RANGE, and of
+    """Device ms of the kernels launched inside the matcher's span, and of
     those its `aten::sort` calls launched."""
     def sorts(e):
         if e.name == "aten::sort":
             return e.device_time_total
         return sum(sorts(c) for c in e.cpu_children)
 
-    ranges = [e for e in prof.events() if e.name == MATCHER_RANGE
+    ranges = [e for e in prof.events() if e.name == MATCHER_SPAN
               and e.device_type == torch.autograd.DeviceType.CPU]
     return (sum(e.device_time_total for e in ranges) / 1e3,
             sum(sorts(e) for e in ranges) / 1e3)
@@ -102,7 +94,7 @@ def profile(fn):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.key != MATCHER_RANGE]
+              and not e.key.startswith(SPAN_PREFIX)]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     ours = {e.key: (e.self_device_time_total / 1e3, e.count) for e in events
             if any(k in e.key for k in PORT_KERNELS)}
@@ -121,7 +113,6 @@ def main(runs=()):
                          text=True, check=True).stdout.strip()
     print(f"{smi}; tree {tree}", flush=True)
     dev = torch.device("cuda", 0)
-    wrap_matcher()
     busy, walls, kernels, match, match_sort = {}, {}, {}, {}, {}
     runs = set(runs) or None
 

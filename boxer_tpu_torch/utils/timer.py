@@ -1,13 +1,25 @@
 """Wall-clock timing helpers; port of `boxer_tpu/utils/timer.py`.
 
 Parity: reference `e2edet/utils/timer.py:12-74` (ms resolution, hh:mm:ss
-formatting, ETA computation). Plus a `phase` context manager used for the
-trainer's debug-level phase profiling (reference `base_trainer.py:286-290`)
-with a `torch.cuda.synchronize` fence for honest device timings.
+formatting, ETA computation). Plus `span`, the named profiler ranges the
+model and the train step open at their layer boundaries (`boxer.*`): they
+land in a torch profiler's trace, on its clock, beside the kernels the
+host launched inside them, and cost one check each while nothing profiles.
 """
 
 import contextlib
 import time
+
+import torch
+
+_profiling = torch._C._autograd._profiler_enabled
+# the one context `span` hands out while no profiler runs: a
+# `record_function` costs a dispatcher call even then
+_OFF = contextlib.nullcontext()
+# every span's name starts with it: a profiler also lists each span as a
+# device-side annotation over the kernels it holds, which `device_events`
+# leaves out
+SPAN_PREFIX = "boxer."
 
 
 class Timer:
@@ -43,14 +55,17 @@ class Timer:
         return f"{int(h):02d}:{int(m):02d}:{int(s):02d}"
 
 
-@contextlib.contextmanager
-def phase_timer(store: dict, name: str, fence=None):
-    """Accumulate wall-time of a phase; with `fence` (a tensor) wait for
-    the card's queued work first, so the time includes device execution."""
-    t0 = time.perf_counter()
-    yield
-    if fence is not None and fence.is_cuda:
-        import torch
+def span(name: str):
+    """A profiler range `name` (`torch.profiler.record_function`) while a
+    torch profiler runs in this process, else a shared no-op context."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _OFF
 
-        torch.cuda.synchronize(fence.device)
-    store[name] = store.get(name, 0.0) + (time.perf_counter() - t0)
+
+def device_events(prof):
+    """The device's entries of a finished torch profiler's `key_averages()`:
+    kernels, copies and memsets, without the spans' annotations."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(SPAN_PREFIX)]

@@ -1087,11 +1087,13 @@ def card_vs_cpu(dev, combine="pmajor"):
 
 def profile(fn, wall_ms, label):
     """Run fn() once under torch.profiler after a warm-up call. Prints the
-    device's summed kernel time against the unprofiled wall time `wall_ms`
+    device's summed kernel time (the port's spans left out) against the unprofiled wall time `wall_ms`
     (the busy share; the rest the device idles while the host dispatches)
     and the top kernels by device time. Returns (busy ms, share, {kernel
     name: (device ms, calls)})."""
     from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from boxer_tpu_torch.utils.timer import device_events
 
     fn()
     torch.cuda.synchronize()
@@ -1099,8 +1101,7 @@ def profile(fn, wall_ms, label):
                               ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     log(f"profile, {label}: device busy {busy_ms:.2f} ms of a {wall_ms:.2f} "
         f"ms run ({100 * busy_ms / wall_ms:.1f}%); top kernels:")
