@@ -108,6 +108,11 @@ def library() -> ctypes.CDLL:
         lib.instance_sample_reduce.restype = i32
         lib.instance_sample_tile.argtypes = [i32] * 5 + [ctypes.POINTER(i32)]
         lib.instance_sample_tile.restype = i32
+        strides = ctypes.POINTER(i64)
+        lib.box_sample_reduce.argtypes = [
+            i32, i32, vp, ctypes.POINTER(i32), i32, vp, strides, vp, strides,
+            vp, strides, vp, i32, i32, i32, i32, i32, vp]
+        lib.box_sample_reduce.restype = i32
         _lib = lib
     return _lib
 

@@ -22,11 +22,12 @@ whole when its top-left corner lies in [-1, W-1] x [-1, H-1].
 Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
 `box_attention_qminor` has the JAX package's three `fold` modes:
 
-- fold=True, the inference path, outside autograd: the P-sum and the corner
-  combine run in one kernel per level, `quad_sample_reduce_raw` (K1, corner
-  weights formed in the kernel, P <= 8) or `quad_sample_reduce_w4` (K2,
-  precomputed corner weights, P > 8), or `quad_sample_reduce_mmajor` (K8,
-  taps in (m, p) order, every P) when `COMBINE_IMPL` is "mmajor";
+- fold=True, the inference path, outside autograd: one launch a call of
+  `box_sample_reduce` (K9, `ops/box_sample.py`), which forms the taps and
+  reads each tap's 2x2 corners straight from the value, with no quad table,
+  and sums every level and tap of an output in f32; or, when `COMBINE_IMPL`
+  is "mmajor", the quad tables and one launch a level of
+  `quad_sample_reduce_mmajor` (K8, taps in (m, p) order, every P);
 - fold=False, the per-tap path at any P: the levels go through
   `QuadSample`, an autograd Function over K2 whose backward scatters each
   level's table cotangent and forms its corner weights' cotangent in one
@@ -79,9 +80,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from boxer_tpu_torch.ops.box_sample import box_sample_reduce
 from boxer_tpu_torch.ops.combine_reduce import (corner_weights, pmajor_taps,
                                                 quad_sample_reduce_mmajor,
-                                                quad_sample_reduce_raw,
                                                 quad_sample_reduce_w4,
                                                 tap_rows)
 from boxer_tpu_torch.ops.instance_sample import (instance_sample_reduce,
@@ -93,13 +94,10 @@ from boxer_tpu_torch.utils.timer import span
 
 Shapes = Tuple[Tuple[int, int], ...]
 
-# taps per output up to which the raw-weight mode (K1) is used; above it the
-# corner weights are precomputed (K2), as in the JAX package
-ONEPASS_MAX_P = 8
 # taps per level above which fold=None takes the folded path
 # (`_FOLD_TAP_THRESHOLD`, boxer_tpu/ops/box_attention.py:612-617)
 FOLD_TAP_THRESHOLD = int(os.environ.get("BOXER_FOLD_THRESHOLD", "8"))
-# the fused inference combine: "pmajor" (K1/K2) or "mmajor" (K8)
+# the fused inference combine: "pmajor" (K9) or "mmajor" (K8)
 COMBINE_IMPL = os.environ.get("BOXER_COMBINE", "pmajor")
 
 
@@ -258,18 +256,11 @@ def _reduce_pmajor(x, n: int, m: int):
     return x
 
 
-def _fused_level(table, idx, lx, ly, w_tap):
-    """fold=True: one combine kernel for the level's (P, M) taps, outside
-    autograd. Returns (M, ch) f32."""
-    if COMBINE_IMPL not in ("pmajor", "mmajor"):
-        raise ValueError(f"COMBINE_IMPL {COMBINE_IMPL!r}: the port has "
-                         "'pmajor' and 'mmajor'")
-    if COMBINE_IMPL == "mmajor":
-        return quad_sample_reduce_mmajor(
-            table, *(t.t().contiguous() for t in (idx, lx, ly, w_tap)))
-    if idx.shape[0] <= ONEPASS_MAX_P:
-        return quad_sample_reduce_raw(table, idx, lx, ly, w_tap)
-    return quad_sample_reduce_w4(table, idx, corner_weights(lx, ly, w_tap))
+def _mmajor_level(table, idx, lx, ly, w_tap):
+    """fold=True under the m-major combine: K8 on the level's (P, M) taps,
+    outside autograd. Returns (M, ch) f32."""
+    return quad_sample_reduce_mmajor(
+        table, *(t.t().contiguous() for t in (idx, lx, ly, w_tap)))
 
 
 def _folded_level(table, idx, lx, ly, w_tap, dtype):
@@ -438,10 +429,11 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     attn_weight: (B, H, L, P, LQ), softmax-normalized over (L, P)
     returns      (B, LQ, H*Ch), or (B, H, LQ, Ch) when raw=True, in
                  value.dtype; accumulation is f32.
-    fold=True is the inference path (K1/K2 or K8, no autograd through
-    them); fold=False the differentiable per-tap path (`QuadSample`: K2,
-    K5); fold=None the differentiable folded path (`TakeRows`: K7b) when P >
-    FOLD_TAP_THRESHOLD, else the per-tap one, as in the JAX package.
+    fold=True is the inference path (K9, or K8 under the m-major combine,
+    no autograd through them); fold=False the differentiable per-tap path
+    (`QuadSample`: K2, K5); fold=None the differentiable folded path
+    (`TakeRows`: K7b) when P > FOLD_TAP_THRESHOLD, else the per-tap one, as
+    in the JAX package.
     """
     assert gx.shape[2] == len(shapes)
     with span("boxer.sampling.box"):
@@ -458,6 +450,13 @@ def _box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     b, s, nh, ch = value.shape
     npt, lq = gx.shape[3:]
     fused = fold is True
+    if fused and COMBINE_IMPL == "pmajor":
+        out = box_sample_reduce(value.contiguous(), shapes,
+                                *(t.float() for t in (gx, gy, attn_weight)))
+        return out.permute(0, 2, 1, 3) if raw else out.reshape(b, lq, nh * ch)
+    if fused and COMBINE_IMPL != "mmajor":
+        raise ValueError(f"COMBINE_IMPL {COMBINE_IMPL!r}: the port has "
+                         "'pmajor' and 'mmajor'")
     if fold is None:
         fold = npt > FOLD_TAP_THRESHOLD
 
@@ -468,7 +467,7 @@ def _box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     for table, (idx, lx, ly, _, w_tap) in zip(
             tables, _level_taps(shapes, gx, gy, attn_weight, b * nh)):
         if fused:
-            out = out + _fused_level(table, idx, lx, ly, w_tap)
+            out = out + _mmajor_level(table, idx, lx, ly, w_tap)
         elif fold:
             out = out + _folded_level(table, idx, lx, ly, w_tap, value.dtype)
         else:

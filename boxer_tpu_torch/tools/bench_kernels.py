@@ -1,8 +1,9 @@
-"""K1, K2, K3, K5/K6, K7a/K7b and K8 (or, with --h1, H1; with --k4, K4) at
-their main-path shapes, this tree's kernels against another tree's, in one
-process on one card.
+"""K1, K2, K3, K5/K6, K7a/K7b and K8 (or, with --h1, H1; with --k4, K4;
+with --k9, K9) at their main-path shapes, this tree's kernels against
+another tree's, in one process on one card.
 
     python -m boxer_tpu_torch.tools.bench_kernels [--h1 | --k4] --parent DIR
+    python -m boxer_tpu_torch.tools.bench_kernels --k9
 
 DIR is an unpacked copy of another commit of the repo (`git archive`);
 its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
@@ -68,6 +69,16 @@ against the plain version first; and two probes (K4_PROBES: every row read
 an L1 hit; no row reads), to show what bounds the kernel (their outputs are
 not compared); CUDA events, mean of 20, and device time as above, beside
 `chip_smoke.k4_bound`.
+
+With --k9 only K9 (`box_sample_reduce`, box attention's one-launch
+inference sampling) is timed, at the segm cell's two calls (`K9_CALLS`:
+batch 16 of 800x1216 in bf16, the encoder's P 4 over its 20,197 tokens and
+the decoder's P 196 over 300 queries, the taps laid out as the model's,
+`k9_case`): held against its plain version (rel err 1e-2) and two launches
+bitwise, then its time (CUDA events and device time), the plain version's,
+that of the route it replaced (quad tables, taps, K1 or K2 a level and the
+f32 sums, `quad_table_route`) and its bound. The other tree has no K9, so
+--parent is not read.
 
 Inputs are made on the card from a seed: a bf16 quad table of encoder
 level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
@@ -743,6 +754,137 @@ def run_k4(device, parent=None, log=print):
     return results
 
 
+# K9's rows: the segm cell's two box-attention calls at batch 16 of
+# 800x1216 in bf16, (name, P, LQ); an LQ of None is the encoder's, every
+# token a query
+SEGM_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))
+K9_CALLS = (("encoder", 4, None), ("decoder", 196, 300))
+K9_BATCH, K9_HEADS = 16, 8
+
+
+def k9_case(device, seed, npt, lq, b=K9_BATCH, nh=K9_HEADS,
+            shapes=SEGM_LEVELS, dtype=torch.bfloat16):
+    """K9's inputs on the card from a seed, laid out as the model lays
+    them: value (B, S, H, 32) normal, in `dtype`; gx, gy (B, H, L, P, LQ) a
+    k x k grid (P = k*k, x fastest, `make_kernel_indices`' offsets) over a
+    box a (b, h, level, query), and the attention weights, a softmax over
+    (L, P), f32. The encoder's queries (lq None) are the S tokens, each box
+    its token's 4-pixel reference window at its level moved and scaled by
+    up to 1/8 of its size; the decoder's are boxes with centres in [0.05,
+    0.95] and sides in [0.02, 0.5], moved by 0.01 at each level, so some
+    taps lie past a border."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nl, k = len(shapes), int(round(npt ** 0.5))
+    s = sum(h * w for h, w in shapes)
+
+    def unif(lo, hi, *shape):
+        return torch.rand(*shape, generator=gen, device=device) * (hi - lo) + lo
+
+    value = torch.randn(b, s, nh, cr.CH, generator=gen, device=device).to(
+        dtype)
+    if lq is None:
+        lq = s
+        ref = []
+        for hl, wl in shapes:
+            ys, xs = torch.meshgrid(torch.arange(hl, device=device),
+                                    torch.arange(wl, device=device),
+                                    indexing="ij")
+            ref.append(torch.stack([(xs.reshape(-1) + 0.5) / wl,
+                                    (ys.reshape(-1) + 0.5) / hl,
+                                    torch.full((hl * wl,), 4.0 / wl,
+                                               device=device),
+                                    torch.full((hl * wl,), 4.0 / hl,
+                                               device=device)]))
+        cx, cy, rw, rh = torch.cat(ref, dim=1)             # (S,) each
+        dx, dy, dw, dh = (unif(-1.0, 1.0, b, nh, nl, 1, lq) / 8
+                          for _ in range(4))
+        cx, cy = cx + dx * rw, cy + dy * rh
+        rw, rh = rw * (1 + dw), rh * (1 + dh)
+    else:
+        def centre():
+            return unif(0.05, 0.95, b, nh, 1, 1, lq) + 0.01 * torch.randn(
+                b, nh, nl, 1, lq, generator=gen, device=device)
+
+        cx, cy = centre(), centre()
+        rw, rh = unif(0.02, 0.5, b, nh, 1, 1, lq), unif(0.02, 0.5, b, nh, 1,
+                                                          1, lq)
+    grid = (torch.arange(k, device=device) + 0.5) / k - 0.5
+    kx, ky = grid.repeat(k)[:, None], grid.repeat_interleave(k)[:, None]
+    gx, gy = cx + kx * rw, cy + ky * rh
+    aw = torch.softmax(torch.randn(b, nh, nl * npt, lq, generator=gen,
+                                   device=device), dim=2)
+    return value, gx.contiguous(), gy.contiguous(), aw.reshape(
+        b, nh, nl, npt, lq)
+
+
+def k9_bound(value, gx):
+    """K9's bound: the value read once, gx, gy and the weights (f32) read
+    once, the output written once (`benchmark/counts:box_attention_bytes`);
+    operations, 4 corners of 32 channels a tap, at the f32 peak."""
+    b, _, nh, ch = value.shape
+    return bound_ms(nbytes(value) + 3 * gx.numel() * 4
+                    + b * nh * gx.shape[-1] * ch * value.element_size(),
+                    gx.numel() * 4 * ch * 2)
+
+
+def quad_table_route(value, shapes, gx, gy, aw):
+    """The inference route K9 replaced, from this tree's pieces: the quad
+    tables, each level's taps, K1 (P <= 8) or K2 a level, summed in f32,
+    cast. Returns (B, H, LQ, 32)."""
+    ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    b, _, nh, ch = value.shape
+    lq = gx.shape[-1]
+    out = torch.zeros((b * nh * lq, ch), dtype=torch.float32,
+                      device=value.device)
+    for table, (idx, lx, ly, _, w_tap) in zip(
+            ba._build_quad_tables(value, shapes),
+            ba._level_taps(shapes, gx, gy, aw, b * nh)):
+        out = out + (cr.quad_sample_reduce_raw(table, idx, lx, ly, w_tap)
+                     if idx.shape[0] <= 8 else cr.quad_sample_reduce_w4(
+                         table, idx, cr.corner_weights(lx, ly, w_tap)))
+    return out.to(value.dtype).reshape(b, nh, lq, ch)
+
+
+def run_k9(device, log=print):
+    """K9 at the segm cell's two calls (`K9_CALLS`): held against its plain
+    version (rel err 1e-2 in bf16) and two launches bitwise, then its time
+    (CUDA events and device time, each the mean of 20 calls), the plain
+    version's, the route it replaced (this tree's pieces, `quad_table_route`)
+    and the bound. Returns a list of dicts."""
+    from boxer_tpu_torch.ops import box_sample as bs
+
+    results = []
+    for i, (name, npt, lq) in enumerate(K9_CALLS):
+        value, gx, gy, aw = k9_case(device, 90 + i, npt, lq)
+        args = (value, SEGM_LEVELS, gx, gy, aw)
+        kernel = functools.partial(bs.box_sample_reduce, *args)
+        plain = functools.partial(bs.box_sample_reduce_plain, *args)
+        route = functools.partial(quad_table_route, *args)
+        first, again, want = kernel(), kernel(), plain()
+        err = rel_err(first, want)
+        route_err = rel_err(route().permute(0, 2, 1, 3), want)
+        if err > 1e-2 or route_err > 1e-2 or not torch.equal(first, again):
+            raise AssertionError(f"K9 {name}: rel err {err}, the route's "
+                                 f"{route_err}, bitwise "
+                                 f"{torch.equal(first, again)}")
+        del first, again, want
+        bound, by = k9_bound(value, gx)
+        r = dict(name=name, shape=f"B={K9_BATCH} H={K9_HEADS} L=4 P={npt} "
+                 f"LQ={gx.shape[-1]} bf16", ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+                 plain_ms=cuda_ms(plain), route_ms=cuda_ms(route),
+                 route_device_ms=device_ms(route), bound_ms=bound,
+                 bound_by=by, rel_err=err)
+        log(f"K9 {name} [{r['shape']}]: "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms, the quad-table route {r['route_ms']:.4f}"
+            f" ms (device {r['route_device_ms']:.4f}), bound {bound:.4f} ms "
+            f"({by}), rel err {err:.2e} (the route's {route_err:.2e})")
+        results.append(r)
+        del value, gx, gy, aw, args, kernel, plain, route
+        torch.cuda.empty_cache()
+    return results
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="unpacked copy of the tree to compare "
@@ -752,6 +894,9 @@ def main():
     ap.add_argument("--k4", action="store_true",
                     help="time K4 alone, at phase 3's segm shape, and "
                     "variants of this tree's K4 by tile")
+    ap.add_argument("--k9", action="store_true",
+                    help="time K9 alone, at the segm cell's two calls, "
+                    "beside its plain version and the route it replaced")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_kernels: no CUDA card; this tool times kernels")
@@ -767,6 +912,9 @@ def main():
         return
     if args.k4:
         run_k4(dev, args.parent, log=lambda s: print(s, flush=True))
+        return
+    if args.k9:
+        run_k9(dev, log=lambda s: print(s, flush=True))
         return
     run(dev, args.parent, log=lambda s: print(s, flush=True),
         model_inputs=chip_smoke.k7b_model_inputs(dev))

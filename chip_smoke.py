@@ -11,10 +11,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (CUDA events; for K7a/K7b a zeroed table allocated in the call, then
    `index_add_`, with `index_add_` alone into a standing table beside it)
    and its bound (bytes at 3.35 TB/s or operations at the peak of their
-   type): K1-K3 (inference; K1 at P=4, M=161,576 and the
-   detection decoder's M=2,400; K2 at P=196, M=2,400 and at the
-   training forward's P=4, M=161,576, P=4, M=2,400 and P=1, M=470,400; K3
-   at BH=8, L=300 in f32 and in bf16, its tensor-core kernel), K4 (the
+   type): K1-K3 (K1 at P=4, M=161,576 and M=2,400; K2 at P=196,
+   M=2,400 and at the training forward's P=4, M=161,576, P=4, M=2,400 and
+   P=1, M=470,400; K3 at BH=8, L=300 in f32 and in bf16, its tensor-core
+   kernel), K9 (box attention's inference sampling, one launch a call: the
+   segm cell's encoder call, batch 16, P=4 over the 20,197 tokens of
+   800x1216, and its decoder call, P=196 over 300 queries, bf16, with its
+   device time; `csrc/box_sample.cu`), K4 (the
    segm model's last decoder layer: both sums of its instance attention,
    B 1, H 8, LQ 300, 14x14 taps over the 4 levels of 800x1216, with bf16
    and with f32 tables, two launches bitwise equal, the kernel's tile
@@ -206,7 +209,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    with K5/K6 swapped for their plain version (loss terms and leaves
    within 1e-4) and with K2, K3, K5 and K6 swapped (loss terms 1e-4, the
    median leaf 1e-4, the worst 0.1), and the inference forward (fold=True:
-   K1, K2, K3, one K4) against world 1 and against K1-K4 swapped (every
+   K9, K3, one K4) against world 1 and against K9, K3 and K4 swapped (every
    output within 1e-4, the ranks' outputs bitwise equal); (15b) two bf16
    updates from the loader at sp2 x mp2 with a checkpoint at update 2
    equal to the ranks' gathered state, resumed at world 1 bitwise for one
@@ -256,7 +259,8 @@ OPTIM = {"type": "adamw", "params": {"lr": 2e-4, "lr_backbone": 2e-5,
 SCHEDULE = {"type": "multi_step", "params": {"lr_steps": [10 ** 9],
                                              "lr_ratio": 0.1,
                                              "use_warmup": False}}
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K8", "H1")
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K8", "K9",
+           "H1")
 # BoxeR-3D at the width of boxer_tpu/config/base_boxer3d_detection.yaml:
 # 82-137 as tools/mfu_bench.py:measure_boxer3d instantiates it (:202-221):
 # a 468x468 BEV grid of 0.32 m pillars, 32,000 voxels of 20 points
@@ -371,13 +375,13 @@ def per_run(**counts):
     return {k: counts.get(k, 0) for k in KERNELS}
 
 
-# launches per forward at every call site: K1 in 6 encoder layers x 4 levels
-# (+ 6 decoder layers x 4 levels when detection only), K2 in 5 decoder
-# layers x 4 levels, K3 in 6 decoder self-attentions, K4 in the segm model's
-# last decoder layer (its instance attention, all 4 levels in one launch);
-# under the m-major combine K8 takes every level of K1 and K2
-INFER_LAUNCHES = {("pmajor", True): per_run(K1=24, K2=20, K3=6, K4=1),
-                  ("pmajor", False): per_run(K1=48, K3=6),
+# launches per forward at every call site: K9 once a box-attention call, in
+# 6 encoder layers and 5 decoder layers (6 when detection only), K3 in 6
+# decoder self-attentions, K4 in the segm model's last decoder layer (its
+# instance attention, all 4 levels in one launch); under the m-major
+# combine K8 takes every level of the box-attention calls instead
+INFER_LAUNCHES = {("pmajor", True): per_run(K9=11, K3=6, K4=1),
+                  ("pmajor", False): per_run(K9=12, K3=6),
                   ("mmajor", True): per_run(K8=44, K3=6, K4=1),
                   ("mmajor", False): per_run(K8=48, K3=6)}
 # launches per train step at every call site: K2 is the forward of every
@@ -475,6 +479,10 @@ def check_kernels(dev):
             *qkv16),
         nbytes=4 * nbytes(qkv16[0]), flops=attn_flops, dtype="bf16",
         tol=1e-2, shape="BH=8 L=300 D=32 bf16")
+
+    # K9 at the segm cell's encoder call (the row the kernels line reports)
+    # and its decoder call
+    results.update(box_sample_rows(dev))
 
     # K4 at the segm forward's last decoder layer, in bf16 (the row the
     # kernels line reports) and f32 tables
@@ -702,6 +710,29 @@ def instance_rows(dev, rs):
             shape=f"B=1 H={nh} LQ={lq} k={k}, levels {SEGM_LEVELS} "
             f"({rows} quad rows read), {str(dtype)[6:]} tables, tile {tq} "
             f"queries x {warps} warps, {splits} blocks a cluster")
+    return cases
+
+
+def box_sample_rows(dev):
+    """Phase 3: K9 at the segm cell's two box-attention calls
+    (`bench_kernels.K9_CALLS`, inputs from `bench_kernels.k9_case`), two
+    launches bitwise equal; its bound (`bench_kernels.k9_bound`); its device
+    time is printed beside its CUDA-event time. Returns {name: case}."""
+    from boxer_tpu_torch.ops import box_sample as bs
+    from boxer_tpu_torch.tools import bench_kernels as bk
+
+    cases = {}
+    for i, (call, npt, lq) in enumerate(bk.K9_CALLS):
+        value, gx, gy, aw = bk.k9_case(dev, 90 + i, npt, lq)
+        args = (value, bk.SEGM_LEVELS, gx, gy, aw)
+        cases["K9" if i == 0 else f"K9 P={npt}"] = dict(
+            wrapper=bs.box_sample_reduce,
+            kernel=functools.partial(bs.box_sample_reduce, *args),
+            plain=functools.partial(bs.box_sample_reduce_plain, *args),
+            library=None, bound=bk.k9_bound(value, gx), device_ms=True,
+            bitwise=True, tol=1e-2,
+            shape=f"the segm {call} call: B={bk.K9_BATCH} H={bk.K9_HEADS} "
+            f"P={npt} LQ={gx.shape[-1]}, levels {bk.SEGM_LEVELS}, bf16")
     return cases
 
 
@@ -967,6 +998,7 @@ def make_image(hw, seed=0):
 
 
 def counters():
+    from boxer_tpu_torch.ops import box_sample as bs
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
     from boxer_tpu_torch.ops import hungarian as hg
@@ -978,7 +1010,8 @@ def counters():
             "K5": sa.scatter_add_rows_weighted,
             "K6": sa.scatter_add_rows_pmajor_weighted,
             "K7a": sa.scatter_add_rows, "K7b": sa.scatter_add_rows_pmajor,
-            "K8": cr.quad_sample_reduce_mmajor, "H1": hg.solve_assignment}
+            "K8": cr.quad_sample_reduce_mmajor, "K9": bs.box_sample_reduce,
+            "H1": hg.solve_assignment}
 
 
 @contextlib.contextmanager
@@ -1060,7 +1093,7 @@ def card_vs_cpu(dev, combine="pmajor"):
     image, mask = make_image(E2E_CANVAS, seed=1)
     post = {"canvas_hw": E2E_CANVAS, "topk": 100}
     used = (("K8", "K3", "K4") if combine == "mmajor"
-            else ("K1", "K2", "K3", "K4"))
+            else ("K9", "K3", "K4"))
     with torch.no_grad(), sampling(COMBINE_IMPL=combine):
         want = model(image, mask, postprocess=post)
         model.to(dev)
@@ -3952,23 +3985,22 @@ def collective_ms():
 
 @contextlib.contextmanager
 def plain_kernels(*names):
-    """Inside, the model's call sites of the named kernels (K1, K2, K3, K4
+    """Inside, the model's call sites of the named kernels (K2, K3, K4, K9
     and K56, the fused K5/K6 scatter) run their plain versions."""
     ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    from boxer_tpu_torch.ops import box_sample as bs
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
     from boxer_tpu_torch.ops import instance_sample as isr
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     swaps = {
-        "K1": (ba, "quad_sample_reduce_raw",
-               lambda table, idx, lx, ly, wt: cr.quad_sample_reduce_plain(
-                   table, idx, lx=lx, ly=ly, wt=wt)),
         "K2": (ba, "quad_sample_reduce_w4",
                lambda table, idx, w4: cr.quad_sample_reduce_plain(
                    table, idx, w4=w4)),
         "K3": (fa, "flash_attention", fa.flash_attention_plain),
         "K4": (ba, "instance_sample_reduce", isr.instance_sample_reduce_plain),
+        "K9": (ba, "box_sample_reduce", bs.box_sample_reduce_plain),
         "K56": (ba, "scatter_add_rows_weighted_dw4",
                 sa.scatter_accum_dw4_plain)}
     saved = [(mod, attr, getattr(mod, attr))
@@ -4153,14 +4185,14 @@ def mp_ranks(task_path, name):
 
 
 def inference_outputs(trainer, batch):
-    """15a: the trainer's inference step (fold=True: K1 in the encoder, K2
-    in the decoder's box attention, K4 in its last layer's instance
-    attention) in f32 on the batch's first microbatch, with the kernels and
-    then with K1, K2, K3 and K4 swapped for their plain versions:
-    [({output: host f32}, launches)] in that order."""
+    """15a: the trainer's inference step (fold=True: K9 in the encoder and
+    the decoder's box attention, K4 in its last layer's instance attention)
+    in f32 on the batch's first microbatch, with the kernels and then with
+    K9, K3 and K4 swapped for their plain versions: [({output: host f32},
+    launches)] in that order."""
     image = {"image": batch["image"][0], "mask": batch["mask"][0]}
     runs = []
-    for names in ((), ("K1", "K2", "K3", "K4")):
+    for names in ((), ("K9", "K3", "K4")):
         for f in counters().values():
             f.launches = 0
         with plain_kernels(*names):
@@ -4239,7 +4271,7 @@ def run_model_parallel(dev, smi):
     same images and weights (phase 12a's rule), each kernel's launches and
     shapes a rank, each kernel against its plain version on its inputs;
     at sp2 x mp2 the step with the kernels swapped for their plain
-    versions and the inference forward (K1) against world 1 and its plain
+    versions and the inference forward (K9) against world 1 and its plain
     kernels. 15b: 2 bf16 updates from the loader at sp2 x mp2 with a
     checkpoint at update 2, resumed at world 1 (model and optimizer state
     bitwise equal to the ranks' gathered state) for one more update. 15c:
@@ -4400,7 +4432,7 @@ def run_model_parallel(dev, smi):
         log(f"15a [{smi}]: sp2 x mp2 f32 inference (fold=True) at "
             f"{E2E_CANVAS}: against world 1 " + ", ".join(
                 f"{k} {e:.3e}" for k, e in vs_w1.items())
-            + "; against K1, K2, K3 and K4 swapped for their plain versions "
+            + "; against K9, K3 and K4 swapped for their plain versions "
             + ", ".join(f"{k} {e:.3e}" for k, e in vs_plain.items())
             + f"; every rank's outputs bitwise equal {same}; launches a "
             f"rank { {k: v for k, v in counts.items() if v} } (world 1 "
@@ -4409,10 +4441,10 @@ def run_model_parallel(dev, smi):
         infer_ok = (sorted(outs) == sorted(w1_outs) and len(outs) > 0
                     and max(vs_w1.values()) <= 1e-4
                     and max(vs_plain.values()) <= 1e-4 and same
-                    and counts["K1"] > 0 and counts["K4"] == 1
+                    and counts["K9"] > 0 and counts["K4"] == 1
                     and counts == w1_counts
                     and not any(plain_counts[k]
-                                for k in ("K1", "K2", "K3", "K4")))
+                                for k in ("K9", "K3", "K4")))
         if not (keys_ok and swap_ok and infer_ok):
             raise AssertionError(
                 f"15a: a sharded update departs from world 1 ({keys_ok}) or "
@@ -4669,7 +4701,10 @@ def main():
             ("K7b", "scatter_add_rows_pmajor", sacc,
              pallas + "scatter_accum.py:208"),
             ("K8", "quad_sample_reduce_mmajor", qsr,
-             pallas + "combine_reduce.py:249")]
+             pallas + "combine_reduce.py:249"),
+            ("K9", "box_sample_reduce", "box_sample.cu",
+             pallas + "combine_reduce.py:123,264 with their feed in "
+             "boxer_tpu/ops/box_attention.py:437")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
