@@ -4,7 +4,10 @@
 PointPillars backbone (`nn/backbone3d.py`), per-level input projections
 (1x1 conv + GroupNorm), `Box3dTransformer`, the `Detector3d` decoder head
 and the `MultiDetector3d` encoder head over 3 references a cell (its
-outputs are `enc_outputs` in training).
+outputs are `enc_outputs` in training). Spans (`utils/timer.py:span`) as
+BoxeR-2D's: `boxer.forward` around the call, `boxer.backbone` (with
+`boxer.pillars` and `boxer.neck` inside it, `nn/backbone3d.py`), the
+transformer's, and a second `boxer.decoder` around the `Detector3d` head.
 """
 
 import torch
@@ -17,6 +20,7 @@ from boxer_tpu_torch.nn.dropout import name_sites
 from boxer_tpu_torch.nn.init import reset_default_, xavier_uniform_
 from boxer_tpu_torch.nn.point_pillar import GN_EPS
 from boxer_tpu_torch.nn.predictor import Detector3d, MultiDetector3d
+from boxer_tpu_torch.utils.timer import span
 
 NUM_REFERENCES = 3
 
@@ -88,14 +92,19 @@ class BoxeR3D(nn.Module):
         if train and self.dropout > 0 and dropout_key is None:
             raise ValueError(f"dropout {self.dropout} in training needs a "
                              "dropout_key")
-        outs, pos = self.backbone(voxels, coordinates, num_points_per_voxel,
-                                  batch_size, tuple(grid_shape))
-        features = [self.input_proj[i](src.permute(0, 3, 1, 2)).permute(
-            0, 2, 3, 1) for i, (src, _) in enumerate(outs)]
-        hs, dec_ref_windows, _, _, enc_outputs = self.transformer(
-            features, pos, self.enc_detector, inference=inference,
-            dropout_key=dropout_key if train else None)
-        out = self.detector(hs, dec_ref_windows)
+        with span("boxer.forward"):
+            with span("boxer.backbone"):
+                outs, pos = self.backbone(voxels, coordinates,
+                                          num_points_per_voxel, batch_size,
+                                          tuple(grid_shape))
+                features = [self.input_proj[i](src.permute(0, 3, 1, 2))
+                            .permute(0, 2, 3, 1)
+                            for i, (src, _) in enumerate(outs)]
+            hs, dec_ref_windows, _, _, enc_outputs = self.transformer(
+                features, pos, self.enc_detector, inference=inference,
+                dropout_key=dropout_key if train else None)
+            with span("boxer.decoder"):
+                out = self.detector(hs, dec_ref_windows)
         if not inference:
             out["enc_outputs"] = enc_outputs
         return out

@@ -253,9 +253,10 @@ class Box3dAttention(_SamplingAttention):
     """Rotation-aware box attention over BEV features: a 5th box variable
     turns the k×k grid by `(ref_angle + dθ/16) * 2π` (with_rotation, the
     decoder); without it (the encoder) the grid is still turned, by the
-    reference window's own angle. Sampling is the per-tap differentiable
-    path (`fold` left at None: P = 4 taps), at inference too, as in JAX.
-    ref_windows: (B, LQ, 5) or per head (B, LQ, H, 5), (cx, cy, w, h,
+    reference window's own angle. `fold` as `BoxAttention`'s: True on the
+    inference forward (K9, the rotation already in the grid), None in
+    training, the per-tap differentiable path at P = 4 taps (K2, K5), as in
+    JAX. ref_windows: (B, LQ, 5) or per head (B, LQ, H, 5), (cx, cy, w, h,
     angle)."""
 
     def __init__(self, d_model: int, num_level: int, num_head: int,
@@ -293,7 +294,7 @@ class Box3dAttention(_SamplingAttention):
         return _valid_scaled(gx, gy, v_valid_ratios)
 
     def forward(self, query, value, v_shape: Shapes, v_mask, v_valid_ratios,
-                ref_windows):
+                ref_windows, fold=None):
         b, l1 = query.shape[:2]
         query, value = self._enter(query, value)
         value = self._project_value(value, v_mask)
@@ -304,7 +305,8 @@ class Box3dAttention(_SamplingAttention):
             b, self.num_head, self.num_level, self.num_point, l1)
         gx, gy = self._where_to_attend(query, v_valid_ratios,
                                        self._own_heads(ref_windows))
-        out = box_attention_qminor(value, v_shape, gx, gy, attn_q, raw=True)
+        out = box_attention_qminor(value, v_shape, gx, gy, attn_q, raw=True,
+                                   fold=fold)
         attn = attn.reshape(b, l1, self.num_head, self.num_level,
                             self.num_point)
         return self.out_proj.raw(out), attn

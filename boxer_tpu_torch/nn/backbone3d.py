@@ -4,7 +4,8 @@ of `boxer_tpu/nn/backbone3d.py`.
 Feature maps are NHWC at the interfaces, as in the JAX package; the neck's
 convolutions run NCHW inside. Parameter names: `reader.pfn_layers.{i}`,
 `neck.blocks.{i}.{3j}` (the j-th 3x3 conv of stage i) and `.{3j+1}` (its
-GroupNorm, flax's eps 1e-6).
+GroupNorm, flax's eps 1e-6). Spans (`utils/timer.py:span`): `boxer.pillars`
+around the pillar net and the BEV scatter, `boxer.neck` around the ConvNet.
 """
 
 from typing import Sequence, Tuple
@@ -15,6 +16,7 @@ from boxer_tpu_torch.nn.init import he_normal_
 from boxer_tpu_torch.nn.point_pillar import (GN_EPS, PillarFeatureNet,
                                              PointPillarsScatter)
 from boxer_tpu_torch.nn.position_encoding import build_position_encoding
+from boxer_tpu_torch.utils.timer import span
 
 
 class ConvNet(nn.Module):
@@ -69,10 +71,13 @@ class Backbone3d(nn.Module):
                 batch_size: int, input_shape: Tuple[int, int]):
         """Returns ([(feature NHWC, None)] of the last `return_layers`
         levels, [position encoding NHWC])."""
-        feats = self.reader(voxels, num_points_per_voxel, coordinates)
-        canvas = self.extractor(feats, coordinates, batch_size, input_shape)
-        outs = [(x.permute(0, 2, 3, 1), None) for x in self.neck(
-            canvas.permute(0, 3, 1, 2))[-self.return_layers:]]
+        with span("boxer.pillars"):
+            feats = self.reader(voxels, num_points_per_voxel, coordinates)
+            canvas = self.extractor(feats, coordinates, batch_size,
+                                    input_shape)
+        with span("boxer.neck"):
+            outs = [(x.permute(0, 2, 3, 1), None) for x in self.neck(
+                canvas.permute(0, 3, 1, 2))[-self.return_layers:]]
         pe = build_position_encoding(self.position_encoding, self.hidden_dim)
         return outs, [pe(x, None, self.ref_size).to(x.dtype) for x, _ in outs]
 

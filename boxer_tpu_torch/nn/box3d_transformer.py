@@ -12,7 +12,10 @@ the top of the model and is passed in. Dropout at the JAX package's sites
 (`boxer_tpu/nn/box3d_transformer.py:72`, `:96-108`), drawn from the train
 step's key (`nn/dropout.py`); no remat, as in JAX. Tensor parallel as
 the 2D transformer (`nn/box_transformer.py`); no sequence parallel (JAX's
-BoxeR-3D takes no `seq_shard`).
+BoxeR-3D takes no `seq_shard`). The inference forward samples through K9
+(`fold=True`), as the 2D one does; training per tap. Spans
+(`utils/timer.py:span`) as the 2D transformer's: `boxer.encoder`,
+`boxer.proposals`, `boxer.decoder`.
 """
 
 import functools
@@ -30,6 +33,7 @@ from boxer_tpu_torch.parallel.collectives import RowLinear, feed_forward
 from boxer_tpu_torch.utils.general import (flatten_with_shape,
                                            get_proposal_pos_embed,
                                            inverse_sigmoid, top_k)
+from boxer_tpu_torch.utils.timer import span
 
 Shapes = Tuple[Tuple[int, int], ...]
 LN_EPS = 1e-6       # flax LayerNorm's epsilon
@@ -74,10 +78,11 @@ class Box3dEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS)
         self.dropout = Dropout(dropout)
 
-    def forward(self, src, pos, v_shape: Shapes, ref_windows, key=None):
+    def forward(self, src, pos, v_shape: Shapes, ref_windows, key=None,
+                fold=None):
         drop = functools.partial(self.dropout, key=key)
         src2, _ = self.self_attn(src + pos, src, v_shape, None, None,
-                                 ref_windows)
+                                 ref_windows, fold=fold)
         src = self.norm1(src + drop(src2, index=0))
         src2 = feed_forward(self, src, key, 1)
         return self.norm2(src + drop(src2, index=2))
@@ -101,13 +106,13 @@ class Box3dDecoderLayer(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, tgt, query_pos, memory, v_shape: Shapes, ref_windows,
-                key=None):
+                key=None, fold=None):
         drop = functools.partial(self.dropout, key=key)
         q = tgt + query_pos
         tgt = self.norm1(tgt + drop(self.self_attn(q, q, tgt, dropout_key=key),
                                     index=0))
         tgt2, _ = self.multihead_attn(tgt + query_pos, memory, v_shape, None,
-                                      None, ref_windows)
+                                      None, ref_windows, fold=fold)
         tgt = self.norm2(tgt + drop(tgt2, index=1))
         tgt2 = feed_forward(self, tgt, key, 2)
         return self.norm3(tgt + drop(tgt2, index=3))
@@ -186,24 +191,30 @@ class Box3dTransformer(nn.Module):
         C), dec_ref_windows (B, NQ, 7), encoder output, src_ref_windows (B,
         S, 8, 5), enc_outputs); nl = 1 and enc_outputs None with
         inference=True, else every decoder layer and the encoder head's
-        outputs over all S * 3 proposals."""
-        src_ref_windows = create_ref_windows_3d(srcs, self.ref_size)
-        src, _, v_shape = flatten_with_shape(srcs, None)
-        src_pos = torch.cat([p.reshape(p.shape[0], -1, p.shape[-1])
-                             for p in pos_list], dim=1)
-        output = src
-        for layer in self.encoder.layers:
-            output = layer(output, src_pos, v_shape, src_ref_windows,
-                           key=dropout_key)
+        outputs over all S * 3 proposals. The box attentions sample through
+        K9 with `inference` (`fold=True`), else per tap (K2, K5)."""
+        fold = True if inference else None
+        with span("boxer.encoder"):
+            src_ref_windows = create_ref_windows_3d(srcs, self.ref_size)
+            src, _, v_shape = flatten_with_shape(srcs, None)
+            src_pos = torch.cat([p.reshape(p.shape[0], -1, p.shape[-1])
+                                 for p in pos_list], dim=1)
+            output = src
+            for layer in self.encoder.layers:
+                output = layer(output, src_pos, v_shape, src_ref_windows,
+                               key=dropout_key, fold=fold)
 
-        tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
-            enc_detector, output, src_ref_windows)
-        inter = []
-        for layer in self.decoder.layers:
-            tgt = layer(tgt, dec_pos, output, v_shape,
-                        dec_ref_windows[..., :5], key=dropout_key)
-            inter.append(tgt)
-        hs = torch.stack(inter[-1:] if inference else inter)
+        with span("boxer.proposals"):
+            tgt, dec_ref_windows, dec_pos, _ = self._get_enc_proposals(
+                enc_detector, output, src_ref_windows)
+        with span("boxer.decoder"):
+            inter = []
+            for layer in self.decoder.layers:
+                tgt = layer(tgt, dec_pos, output, v_shape,
+                            dec_ref_windows[..., :5], key=dropout_key,
+                            fold=fold)
+                inter.append(tgt)
+            hs = torch.stack(inter[-1:] if inference else inter)
         enc_outputs = None
         if not inference:
             enc = enc_detector(output[None], src_ref_windows)

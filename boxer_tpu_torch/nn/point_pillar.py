@@ -16,6 +16,18 @@ both cancel there and lose the digits, where the two-pass form keeps
 them (`tests/test_torch_boxer3d.py` holds the port to flax's pillar net
 run in float64, and a train step on one-point pillars to its float64
 run).
+
+A second, also by design: the decorated points reach the first PFN layer
+in f32, and that layer (its Linear, norm and max) runs in f32 whatever the
+weights' type and with autocast off; its output takes the next layer's
+type. The decoration holds the raw x and y of each point, up to 75 m in
+Waymo's range, where bf16's spacing is 0.5 m against a pillar 0.32 m
+wide: rounded before the Linear, every point of a far pillar moves by the
+same error, which no later layer averages away. The JAX package casts
+them to the Dense's type (flax promotes the input), so a bf16 model there
+rounds them; `tests/test_torch_boxer3d_reference.py` holds the port's
+bf16 and autocast pillar nets to their f32 run on far frames, which that
+cast does not meet.
 """
 
 from typing import Sequence, Tuple
@@ -57,11 +69,12 @@ class PFNLayer(nn.Module):
     def reset_parameters_(self, g):
         xavier_uniform_(self.linear.weight, g)
 
-    def forward(self, x, point_mask):
-        """x: (V, P, C); point_mask: (V, P) bool. Returns (V, 1, out) for the
-        last layer, else (V, P, 2 * out): the masked points' features beside
-        the voxel's max."""
-        h = self.linear(x)
+    def forward(self, x, point_mask, weight=None):
+        """x: (V, P, C); point_mask: (V, P) bool; weight: the Linear's
+        kernel in another type (the first layer's in f32), else its own.
+        Returns (V, 1, out) for the last layer, else (V, P, 2 * out): the
+        masked points' features beside the voxel's max."""
+        h = self.linear(x) if weight is None else F.linear(x, weight)
         h = F.relu(group_norm(h, self.norm))
         h = h.masked_fill(~point_mask[..., None], -1e9)
         h_max = h.amax(dim=1, keepdim=True)
@@ -73,8 +86,10 @@ class PFNLayer(nn.Module):
 
 class PillarFeatureNet(nn.Module):
     """Decorates each point with its offset from the pillar's point mean and
-    from the pillar's centre, then runs the PFN layers. The decoration runs
-    in f32 whatever the input's type, the layers in their weights' type."""
+    from the pillar's centre, then runs the PFN layers. The decoration and
+    the first PFN layer run in f32 whatever the input's, the weights' or
+    autocast's type (module docstring); the layers after it in their
+    weights' type, or autocast's."""
 
     def __init__(self, num_input_features: int = 4,
                  num_filters: Sequence[int] = (64,),
@@ -107,8 +122,11 @@ class PillarFeatureNet(nn.Module):
         point_mask = (torch.arange(p, device=features.device)[None, :]
                       < num_voxels[:, None])
         x = x.masked_fill(~point_mask[..., None], 0.0)
-        x = x.to(self.pfn_layers[0].linear.weight.dtype)
-        for layer in self.pfn_layers:
+        first, *rest = self.pfn_layers
+        with torch.autocast(x.device.type, enabled=False):
+            x = first(x, point_mask, weight=first.linear.weight.float())
+        x = x.to(first.linear.weight.dtype)
+        for layer in rest:
             x = layer(x, point_mask)
         return x.squeeze(1)
 

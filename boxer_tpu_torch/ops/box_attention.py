@@ -27,7 +27,10 @@ Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
   reads each tap's 2x2 corners straight from the value, with no quad table,
   and sums every level and tap of an output in f32; or, when `COMBINE_IMPL`
   is "mmajor", the quad tables and one launch a level of
-  `quad_sample_reduce_mmajor` (K8, taps in (m, p) order, every P);
+  `quad_sample_reduce_mmajor` (K8, taps in (m, p) order, every P). Its
+  callers: every box attention of the 2D and 3D inference forwards
+  (`nn/box_transformer.py`, `nn/box3d_transformer.py` with `inference`)
+  and the instance attention's layers that emit no RoI;
 - fold=False, the per-tap path at any P: the levels go through
   `QuadSample`, an autograd Function over K2 whose backward scatters each
   level's table cotangent and forms its corner weights' cotangent in one

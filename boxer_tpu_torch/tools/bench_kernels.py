@@ -91,6 +91,7 @@ import argparse
 import ctypes
 import functools
 import importlib
+import math
 import re
 import subprocess
 import sys
@@ -760,10 +761,15 @@ def run_k4(device, parent=None, log=print):
 SEGM_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))
 K9_CALLS = (("encoder", 4, None), ("decoder", 196, 300))
 K9_BATCH, K9_HEADS = 16, 8
+# the pp3d.infer_b4 cell's two calls: 4 frames, the 469x469 grid's two
+# levels, P 4 (L x P = 8: another warp split than segm's 16), rotated grids
+PP3D_LEVELS = ((235, 235), (118, 118))
+K9_3D_CALLS = (("encoder", 4, None), ("decoder", 4, 300))
+K9_3D_BATCH = 4
 
 
 def k9_case(device, seed, npt, lq, b=K9_BATCH, nh=K9_HEADS,
-            shapes=SEGM_LEVELS, dtype=torch.bfloat16):
+            shapes=SEGM_LEVELS, dtype=torch.bfloat16, turn=False):
     """K9's inputs on the card from a seed, laid out as the model lays
     them: value (B, S, H, 32) normal, in `dtype`; gx, gy (B, H, L, P, LQ) a
     k x k grid (P = k*k, x fastest, `make_kernel_indices`' offsets) over a
@@ -772,7 +778,8 @@ def k9_case(device, seed, npt, lq, b=K9_BATCH, nh=K9_HEADS,
     its token's 4-pixel reference window at its level moved and scaled by
     up to 1/8 of its size; the decoder's are boxes with centres in [0.05,
     0.95] and sides in [0.02, 0.5], moved by 0.01 at each level, so some
-    taps lie past a border."""
+    taps lie past a border. With `turn` each box's grid is turned about its
+    centre by an angle in [0, 2 pi), as `Box3dAttention` turns it."""
     gen = torch.Generator(device=device).manual_seed(seed)
     nl, k = len(shapes), int(round(npt ** 0.5))
     s = sum(h * w for h, w in shapes)
@@ -810,7 +817,12 @@ def k9_case(device, seed, npt, lq, b=K9_BATCH, nh=K9_HEADS,
                                                           1, lq)
     grid = (torch.arange(k, device=device) + 0.5) / k - 0.5
     kx, ky = grid.repeat(k)[:, None], grid.repeat_interleave(k)[:, None]
-    gx, gy = cx + kx * rw, cy + ky * rh
+    ox, oy = kx * rw, ky * rh
+    if turn:
+        angle = unif(0.0, 2 * math.pi, b, nh, nl, 1, lq)
+        cos, sin = torch.cos(angle), torch.sin(angle)
+        ox, oy = ox * cos - oy * sin, ox * sin + oy * cos
+    gx, gy = cx + ox, cy + oy
     aw = torch.softmax(torch.randn(b, nh, nl * npt, lq, generator=gen,
                                    device=device), dim=2)
     return value, gx.contiguous(), gy.contiguous(), aw.reshape(

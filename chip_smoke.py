@@ -17,7 +17,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernel), K9 (box attention's inference sampling, one launch a call: the
    segm cell's encoder call, batch 16, P=4 over the 20,197 tokens of
    800x1216, and its decoder call, P=196 over 300 queries, bf16, with its
-   device time; `csrc/box_sample.cu`), K4 (the
+   device time; and the 3D cell's two calls, batch 4, P=4 over the 69,149
+   tokens of 235x235 and 118x118 and over 300 queries, rotated grids;
+   `csrc/box_sample.cu`), K4 (the
    segm model's last decoder layer: both sums of its instance attention,
    B 1, H 8, LQ 300, 14x14 taps over the 4 levels of 800x1216, with bf16
    and with f32 tables, two launches bitwise equal, the kernel's tile
@@ -90,7 +92,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    1e-3, worst leaf 0.1), and the folded step with K7b swapped for its plain
    version (worst leaf 1e-4);
 9. BoxeR-3D at the Waymo config's width: bf16 inference at 468x468 on
-   32,000 drawn voxels (frames/s, launches K2 8 and K3 2 a forward, a
+   32,000 drawn voxels (frames/s, launches K9 4 and K3 2 a forward, a
    profiled forward), then one served frame: 180,000 points over the whole
    pc_range -> the voxelizer -> pad_voxels -> the model at the voxelizer's
    469x469 grid -> the top-125, ms by stage, every kept pillar on a canvas
@@ -129,7 +131,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    frames of 180,000 points, 20-70 objects with points in every box,
    9-column boxes) and its `create_gt_database`, only TRAINER_3D_CUTS cut:
    each update finite, not skipped, at the schedule's LR times each
-   group's base LR, with K2 8, K5 8, K3 2; K2 4 and K3 1 a val or test
+   group's base LR, with K2 8, K5 8, K3 2; K9 2 and K3 1 a val or test
    frame; db-sampled objects placed; the loader's first batch on the card
    bitwise equal to its host build from the same draws; the val metrics
    equal to `evaluate_results` of the val records; results.pkl with a
@@ -396,11 +398,12 @@ INFER_LAUNCHES = {("pmajor", True): per_run(K9=11, K3=6, K4=1),
 TRAIN_LAUNCHES = {True: per_run(K2=48, K3=12, K5=24, K6=24, H1=2),
                   False: per_run(K2=48, K3=6, K5=48, H1=2)}
 FOLDED_TRAIN_LAUNCHES = per_run(K3=6, K7b=48, H1=2)
-# BoxeR-3D: every sampling level runs per tap (P = 4, `QuadSample`) at
-# inference too: K2 in 2 encoder + 2 decoder layers x 2 levels, K3 in the 2
-# decoder self-attentions; a train step adds K5 in the backward of each
+# BoxeR-3D: at inference each box attention (2 encoder + 2 decoder layers)
+# samples both levels in one launch of K9, K3 runs the 2 decoder
+# self-attentions; a train step runs every sampling level per tap (P = 4,
+# `QuadSample`: K2 in 4 layers x 2 levels) and K5 in the backward of each,
 # and H1's two matches, as BoxeR-2D's
-INFER_3D_LAUNCHES = per_run(K2=8, K3=2)
+INFER_3D_LAUNCHES = per_run(K9=4, K3=2)
 TRAIN_3D_LAUNCHES = per_run(K2=8, K3=2, K5=8, H1=2)
 
 
@@ -480,8 +483,8 @@ def check_kernels(dev):
         nbytes=4 * nbytes(qkv16[0]), flops=attn_flops, dtype="bf16",
         tol=1e-2, shape="BH=8 L=300 D=32 bf16")
 
-    # K9 at the segm cell's encoder call (the row the kernels line reports)
-    # and its decoder call
+    # K9 at the segm cell's encoder call (the row the kernels line reports),
+    # its decoder call and the 3D cell's two calls
     results.update(box_sample_rows(dev))
 
     # K4 at the segm forward's last decoder layer, in bf16 (the row the
@@ -715,24 +718,33 @@ def instance_rows(dev, rs):
 
 def box_sample_rows(dev):
     """Phase 3: K9 at the segm cell's two box-attention calls
-    (`bench_kernels.K9_CALLS`, inputs from `bench_kernels.k9_case`), two
-    launches bitwise equal; its bound (`bench_kernels.k9_bound`); its device
-    time is printed beside its CUDA-event time. Returns {name: case}."""
+    (`bench_kernels.K9_CALLS`) and at the 3D cell's two
+    (`bench_kernels.K9_3D_CALLS`: batch 4, levels 235x235 and 118x118, P 4,
+    rotated grids), inputs from `bench_kernels.k9_case`, two launches
+    bitwise equal; its bound (`bench_kernels.k9_bound`); its device time is
+    printed beside its CUDA-event time. Returns {name: case}."""
     from boxer_tpu_torch.ops import box_sample as bs
     from boxer_tpu_torch.tools import bench_kernels as bk
 
+    calls = [("K9" if i == 0 else f"K9 P={npt}", "segm", call, npt, lq,
+              bk.K9_BATCH, bk.SEGM_LEVELS, False)
+             for i, (call, npt, lq) in enumerate(bk.K9_CALLS)]
+    calls += [(f"K9 3D {call}", "3D", call, npt, lq, bk.K9_3D_BATCH,
+               bk.PP3D_LEVELS, True) for call, npt, lq in bk.K9_3D_CALLS]
     cases = {}
-    for i, (call, npt, lq) in enumerate(bk.K9_CALLS):
-        value, gx, gy, aw = bk.k9_case(dev, 90 + i, npt, lq)
-        args = (value, bk.SEGM_LEVELS, gx, gy, aw)
-        cases["K9" if i == 0 else f"K9 P={npt}"] = dict(
+    for i, (name, model, call, npt, lq, b, levels, turn) in enumerate(calls):
+        value, gx, gy, aw = bk.k9_case(dev, 90 + i, npt, lq, b=b,
+                                       shapes=levels, turn=turn)
+        args = (value, levels, gx, gy, aw)
+        cases[name] = dict(
             wrapper=bs.box_sample_reduce,
             kernel=functools.partial(bs.box_sample_reduce, *args),
             plain=functools.partial(bs.box_sample_reduce_plain, *args),
             library=None, bound=bk.k9_bound(value, gx), device_ms=True,
             bitwise=True, tol=1e-2,
-            shape=f"the segm {call} call: B={bk.K9_BATCH} H={bk.K9_HEADS} "
-            f"P={npt} LQ={gx.shape[-1]}, levels {bk.SEGM_LEVELS}, bf16")
+            shape=f"the {model} {call} call: B={b} H={bk.K9_HEADS} "
+            f"P={npt} LQ={gx.shape[-1]}, levels {levels}, bf16"
+            + (", rotated" if turn else ""))
     return cases
 
 
@@ -1770,8 +1782,8 @@ def train_batch_3d(dev, seed=0):
 def run_3d_inference(dev, smi):
     """Phase 9: BoxeR-3D inference at full width in bf16, batch 1, 32,000
     voxels: a warm-up, then ITERS_3D forwards each on the host clock up to a
-    synchronize with the launch counters zeroed just before them (K2 = 8,
-    K3 = 2 a forward), one profiled forward; then one served frame, points
+    synchronize with the launch counters zeroed just before them (K9 = 4,
+    K3 = 2 a forward, no K2), one profiled forward; then one served frame, points
     -> voxelizer -> pad_voxels -> model -> top-125, timed by stage.
     Returns (frames/s, counts, result dict)."""
     from boxer_tpu_torch.dataset.waymo import format_for_evalai
