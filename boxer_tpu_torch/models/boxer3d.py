@@ -86,7 +86,8 @@ class BoxeR3D(nn.Module):
 
         Returns pred_logits (B, NQ, C), pred_boxes (B, NQ, 7) (cx, cy, cz,
         l, w, h, angle, normalized to [0, 1]) and aux_outputs; with
-        inference=False every decoder layer's outputs and enc_outputs. In
+        inference=False every decoder layer's outputs and enc_outputs; with
+        inference=True the pillar net is one launch of K10 on the card. In
         training at dropout > 0 `dropout_key` draws the masks: it is
         required there."""
         if train and self.dropout > 0 and dropout_key is None:
@@ -96,7 +97,8 @@ class BoxeR3D(nn.Module):
             with span("boxer.backbone"):
                 outs, pos = self.backbone(voxels, coordinates,
                                           num_points_per_voxel, batch_size,
-                                          tuple(grid_shape))
+                                          tuple(grid_shape),
+                                          inference=inference)
                 features = [self.input_proj[i](src.permute(0, 3, 1, 2))
                             .permute(0, 2, 3, 1)
                             for i, (src, _) in enumerate(outs)]

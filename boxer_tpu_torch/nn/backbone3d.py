@@ -53,7 +53,9 @@ class ConvNet(nn.Module):
 
 class Backbone3d(nn.Module):
     """The pillar reader, the BEV scatter and the ConvNet neck; the last
-    `return_layers` neck stages with their position encodings."""
+    `return_layers` neck stages with their position encodings. With
+    `inference` the reader runs K10 on the card, one launch for the whole
+    pillar net (`nn/point_pillar.py`); training runs its torch path."""
 
     def __init__(self, hidden_dim: int, reader_cfg: dict, neck_cfg: dict,
                  ref_size: int, position_encoding: str, return_layers: int):
@@ -68,11 +70,13 @@ class Backbone3d(nn.Module):
         self.num_channels = list(neck_cfg["ds_filters"])[-return_layers:]
 
     def forward(self, voxels, coordinates, num_points_per_voxel,
-                batch_size: int, input_shape: Tuple[int, int]):
+                batch_size: int, input_shape: Tuple[int, int],
+                inference: bool = False):
         """Returns ([(feature NHWC, None)] of the last `return_layers`
         levels, [position encoding NHWC])."""
         with span("boxer.pillars"):
-            feats = self.reader(voxels, num_points_per_voxel, coordinates)
+            feats = self.reader(voxels, num_points_per_voxel, coordinates,
+                                inference=inference)
             canvas = self.extractor(feats, coordinates, batch_size,
                                     input_shape)
         with span("boxer.neck"):

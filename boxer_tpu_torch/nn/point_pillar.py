@@ -28,6 +28,15 @@ them to the Dense's type (flax promotes the input), so a bf16 model there
 rounds them; `tests/test_torch_boxer3d_reference.py` holds the port's
 bf16 and autocast pillar nets to their f32 run on far frames, which that
 cast does not meet.
+
+Two paths, by what the call says: training (`inference=False`, the
+default) runs the torch forward above, `ops/pillar_net.py:
+pillar_features_plain`, autograd through the two-pass norm; inference
+(`inference=True`) calls `ops/pillar_net.py:pillar_features`, which on a
+CUDA tensor is one launch of the hand-written kernel K10
+(`csrc/pillar_net.cu`: the decoration, both layers, their norms in two
+passes in f32 and their maxes, the first layer in f32) and on a CPU tensor
+the same torch forward. Both notes above hold on either path.
 """
 
 from typing import Sequence, Tuple
@@ -37,6 +46,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from boxer_tpu_torch.nn.init import xavier_uniform_
+from boxer_tpu_torch.ops.pillar_net import (pillar_features,
+                                            pillar_features_plain)
 
 GN_EPS = 1e-6       # flax GroupNorm's epsilon
 
@@ -89,7 +100,8 @@ class PillarFeatureNet(nn.Module):
     from the pillar's centre, then runs the PFN layers. The decoration and
     the first PFN layer run in f32 whatever the input's, the weights' or
     autocast's type (module docstring); the layers after it in their
-    weights' type, or autocast's."""
+    weights' type, or autocast's. At inference on the card, one launch of
+    K10."""
 
     def __init__(self, num_input_features: int = 4,
                  num_filters: Sequence[int] = (64,),
@@ -103,32 +115,13 @@ class PillarFeatureNet(nn.Module):
             PFNLayer(ins[i], f, last_layer=i == n - 1)
             for i, f in enumerate(num_filters))
 
-    def forward(self, features, num_voxels, coors):
+    def forward(self, features, num_voxels, coors, inference: bool = False):
         """features: (V, P, F); num_voxels: (V,) points per pillar; coors:
-        (V, 4) [b, z, y, x]. Returns (V, num_filters[-1])."""
-        features = features.float()
-        p = features.shape[1]
-        denom = num_voxels.float().clamp(min=1.0)
-        points_mean = features[:, :, :3].sum(dim=1, keepdim=True) / denom[
-            :, None, None]
-        f_cluster = features[:, :, :3] - points_mean
-        vx, vy = self.voxel_size[0], self.voxel_size[1]
-        x_offset = vx / 2 + self.pc_range[0]
-        y_offset = vy / 2 + self.pc_range[1]
-        fx = features[:, :, 0] - (coors[:, 3].float()[:, None] * vx + x_offset)
-        fy = features[:, :, 1] - (coors[:, 2].float()[:, None] * vy + y_offset)
-        x = torch.cat([features, f_cluster, torch.stack([fx, fy], dim=-1)],
-                      dim=-1)
-        point_mask = (torch.arange(p, device=features.device)[None, :]
-                      < num_voxels[:, None])
-        x = x.masked_fill(~point_mask[..., None], 0.0)
-        first, *rest = self.pfn_layers
-        with torch.autocast(x.device.type, enabled=False):
-            x = first(x, point_mask, weight=first.linear.weight.float())
-        x = x.to(first.linear.weight.dtype)
-        for layer in rest:
-            x = layer(x, point_mask)
-        return x.squeeze(1)
+        (V, 4) [b, z, y, x]. Returns (V, num_filters[-1]). With inference
+        K10 on a CUDA tensor (module docstring), no `grad_fn`."""
+        fn = pillar_features if inference else pillar_features_plain
+        return fn(features, num_voxels, coors, self.voxel_size,
+                  self.pc_range, self.pfn_layers)
 
 
 class PointPillarsScatter(nn.Module):

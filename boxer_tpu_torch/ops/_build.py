@@ -113,6 +113,10 @@ def library() -> ctypes.CDLL:
             i32, i32, vp, ctypes.POINTER(i32), i32, vp, strides, vp, strides,
             vp, strides, vp, i32, i32, i32, i32, i32, vp]
         lib.box_sample_reduce.restype = i32
+        f32 = ctypes.c_float
+        lib.pillar_net.argtypes = [i32, i32, vp, vp, vp, i64, i32] + [
+            f32] * 6 + [vp] * 8
+        lib.pillar_net.restype = i32
         _lib = lib
     return _lib
 

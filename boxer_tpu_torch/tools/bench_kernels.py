@@ -1,9 +1,9 @@
 """K1, K2, K3, K5/K6, K7a/K7b and K8 (or, with --h1, H1; with --k4, K4;
-with --k9, K9) at their main-path shapes, this tree's kernels against
-another tree's, in one process on one card.
+with --k9, K9; with --k10, K10) at their main-path shapes, this tree's
+kernels against another tree's, in one process on one card.
 
     python -m boxer_tpu_torch.tools.bench_kernels [--h1 | --k4] --parent DIR
-    python -m boxer_tpu_torch.tools.bench_kernels --k9
+    python -m boxer_tpu_torch.tools.bench_kernels --k9 | --k10
 
 DIR is an unpacked copy of another commit of the repo (`git archive`);
 its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
@@ -79,6 +79,14 @@ bitwise, then its time (CUDA events and device time), the plain version's,
 that of the route it replaced (quad tables, taps, K1 or K2 a level and the
 f32 sums, `quad_table_route`) and its bound. The other tree has no K9, so
 --parent is not read.
+
+With --k10 only K10 (`pillar_features`, the pillar net's one-launch
+inference forward) is timed, at the pp3d.infer_b4 cell's shape (`k10_case`:
+4 frames of 60,000 pillars of 20 points, filters 64 and 128, bf16
+weights): held against its plain version (a pillar's relative error 1e-2)
+and two launches bitwise, then its time (CUDA events and device time), the
+plain version's, the memory each takes above its inputs, and its bound
+(`k10_bound`). --parent is not read.
 
 Inputs are made on the card from a seed: a bf16 quad table of encoder
 level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
@@ -897,6 +905,113 @@ def run_k9(device, log=print):
     return results
 
 
+# K10's row: the pp3d.infer_b4 cell's pillar net, 4 frames of 60,000
+# pillars of 20 points on the 469x469 grid of 0.32 m pillars over +-75 m,
+# filters (64, 128), bf16 weights
+K10_FRAMES, K10_PILLARS, K10_POINTS = 4, 60000, 20
+PP3D_VOXEL = (0.32, 0.32, 12.0)
+PP3D_RANGE = (-75.0, -75.0, -3.0, 75.0, 75.0, 5.0)
+
+
+def k10_case(device, seed, frames=K10_FRAMES, pillars=K10_PILLARS,
+             points=K10_POINTS, dtype=torch.bfloat16):
+    """K10's inputs on the card from a seed: each frame's pillars on
+    distinct cells of the 469x469 grid, 1-20 points a pillar (one in 16
+    empty), points inside their cell, z about the ground, intensity and
+    elongation in [0, 1), padding rows zero; and a `PillarFeatureNet` of
+    the cell's widths with seeded weights in `dtype`. Returns (features
+    (V, P, 5) f32, num_voxels (V,) int32, coors (V, 4) int32, the net)."""
+    from boxer_tpu_torch.nn.point_pillar import PillarFeatureNet
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nx = int(round((PP3D_RANGE[3] - PP3D_RANGE[0]) / PP3D_VOXEL[0]))
+    cells = torch.cat([torch.randperm(nx * nx, generator=gen,
+                                      device=device)[:pillars]
+                       for _ in range(frames)])
+    v = frames * pillars
+    ix, iy = cells % nx, cells // nx
+    n = torch.randint(1, points + 1, (v,), generator=gen, device=device)
+    n = torch.where(torch.rand(v, generator=gen, device=device) < 1 / 16,
+                    0, n).int()
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=device)
+
+    x = (ix[:, None] + rand(v, points)) * PP3D_VOXEL[0] + PP3D_RANGE[0]
+    y = (iy[:, None] + rand(v, points)) * PP3D_VOXEL[1] + PP3D_RANGE[1]
+    z = torch.randn(v, points, generator=gen, device=device)
+    feats = torch.stack([x, y, z, rand(v, points), rand(v, points)], -1)
+    feats = torch.where((torch.arange(points, device=device)[None, :]
+                         < n[:, None])[..., None], feats, 0.0).float()
+    b = torch.arange(frames, device=device).repeat_interleave(pillars)
+    coors = torch.stack([b, torch.zeros_like(b), iy, ix], 1).int()
+    net = PillarFeatureNet(5, (64, 128), PP3D_VOXEL, PP3D_RANGE)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for prm in net.parameters():
+            z = torch.randn(prm.shape, generator=g)
+            prm.copy_(z / math.sqrt(prm.shape[1]) if prm.dim() == 2
+                      else 1 + 0.1 * z)
+    return (feats.contiguous(), n.contiguous(), coors.contiguous(),
+            net.to(device, dtype).eval())
+
+
+def k10_bound(feats, out):
+    """K10's bound: the points, counts and coordinates read once and the
+    output written once; operations, both layers' products (2 x V x P x
+    (10 x 32 + 64 x 128)), at the bf16 peak (layer 1's share, in f32, is
+    4%)."""
+    v, p, _ = feats.shape
+    return bound_ms(nbytes(feats, out) + v * (1 + 4) * 4,
+                    2 * v * p * (10 * 32 + 64 * 128), "bf16")
+
+
+def pillar_err(got, want):
+    """The largest relative norm of a pillar's difference."""
+    got, want = got.double(), want.double()
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp(min=1e-12)).max())
+
+
+def run_k10(device, log=print):
+    """K10 at the pp3d.infer_b4 cell's shape (`k10_case`): held against
+    its plain version (a pillar's relative error 1e-2 in bf16) and two
+    launches bitwise, then its time (CUDA events and device time, each the
+    mean of 20 calls), the plain version's, and the bound. Returns a
+    dict."""
+    from boxer_tpu_torch.ops import pillar_net as pn
+
+    feats, n, coors, net = k10_case(device, 100)
+    args = (feats, n, coors, PP3D_VOXEL, PP3D_RANGE, net.pfn_layers)
+    kernel = functools.partial(pn.pillar_features, *args)
+    plain = functools.partial(pn.pillar_features_plain, *args)
+    with torch.no_grad():
+        first, again, want = kernel(), kernel(), plain()
+        err = pillar_err(first, want)
+        if err > 1e-2 or not torch.equal(first, again):
+            raise AssertionError(f"K10: pillar err {err}, bitwise "
+                                 f"{torch.equal(first, again)}")
+        bound, by = k10_bound(feats, first)
+        del first, again, want
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        ms, dev_ms = cuda_ms(kernel), device_ms(kernel)
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+        torch.cuda.reset_peak_memory_stats(device)
+        plain_ms = cuda_ms(plain)
+        plain_peak = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+    r = dict(shape=f"V={feats.shape[0]} P={feats.shape[1]} filters (64, "
+             f"128) bf16", ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+             bound_ms=bound, bound_by=by, pillar_err=err, peak_gib=peak,
+             plain_peak_gib=plain_peak)
+    log(f"K10 [{r['shape']}]: {ms:.4f} ms (device {dev_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), pillar err "
+        f"{err:.2e}; memory above the inputs {peak:.3f} GiB (plain "
+        f"{plain_peak:.3f})")
+    return r
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="unpacked copy of the tree to compare "
@@ -909,6 +1024,9 @@ def main():
     ap.add_argument("--k9", action="store_true",
                     help="time K9 alone, at the segm cell's two calls, "
                     "beside its plain version and the route it replaced")
+    ap.add_argument("--k10", action="store_true",
+                    help="time K10 alone, at the 3D cell's pillar net, "
+                    "beside its plain version")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_kernels: no CUDA card; this tool times kernels")
@@ -927,6 +1045,9 @@ def main():
         return
     if args.k9:
         run_k9(dev, log=lambda s: print(s, flush=True))
+        return
+    if args.k10:
+        run_k10(dev, log=lambda s: print(s, flush=True))
         return
     run(dev, args.parent, log=lambda s: print(s, flush=True),
         model_inputs=chip_smoke.k7b_model_inputs(dev))

@@ -20,17 +20,19 @@ parameters, bf16 autocast, under no_grad, train=False, inference=False:
 every decoder layer's instance attention with its RoI, 300 queries), on
 the forward's image; the folded step K7b in the backward
 of every box-attention level. BoxeR-3D runs at `chip_smoke`'s phases 9 and
-9c (468x468, bf16 forward of 32,000 voxels; a train step of 2 frames, f32
-parameters, bf16 autocast), where the tree's `chip_smoke` has them. Each
+9c (468x468, bf16 forward of 32,000 voxels of f32 points; a train step of
+2 frames, f32 parameters, bf16 autocast), where the tree's `chip_smoke` has
+them. Each
 runs twice to warm up, WALL_RUNS times each on the host clock up to a
 synchronize, once profiled. Prints, for each, the device's summed kernel
 time against the median wall time and the wall times' spread, the device
 time and calls of each of the port's kernels (by name:
 `quad_sample_reduce`, `flash_fwd`, `instance_sample` (K4, in a tree that
-has it), `scatter_weighted`, `scatter_rows` and
-`rows_` (the row scatter's kernels, before and after it was split in
-four), `hungarian`, `Memset`), and the device time of the kernels that the
-matcher's `nn/matcher.py:hungarian` launches (its `boxer.train.matcher`
+has it), `box_sample` (K9), `pillar_net` (K10), `scatter_weighted`,
+`scatter_rows` and `rows_` (the row scatter's kernels, before and after it
+was split in four), `hungarian`, `Memset`), and the device time of the
+kernels that the matcher's `nn/matcher.py:hungarian` launches (its
+`boxer.train.matcher`
 span; 0 in a tree without the port's spans), of which its sorts
 (`aten::sort`: the valid rows' order and the pruning top-k); the spans'
 own device-side ranges (`boxer.*`) are left out of the busy time. Then
@@ -50,8 +52,8 @@ import time
 import torch
 
 PORT_KERNELS = ("quad_sample_reduce", "flash_fwd", "instance_sample",
-                "scatter_weighted", "scatter_rows", "rows_", "hungarian",
-                "Memset")
+                "box_sample", "pillar_net", "scatter_weighted",
+                "scatter_rows", "rows_", "hungarian", "Memset")
 WALL_RUNS = 5
 MATCHER_SPAN = "boxer.train.matcher"
 # `utils/timer.py:SPAN_PREFIX`, spelt out: the trees this profiles may
@@ -171,7 +173,7 @@ def main(runs=()):
         grid = cs.grid_3d(cs.PC_RANGE_3D)
         model = cs.build_model_3d(cs.PC_RANGE_3D).to(dev, torch.bfloat16)
         vox, coords, npts = cs.random_voxels_3d(grid, cs.VOXELS_3D, 1, 0)
-        args = (torch.from_numpy(vox).to(dev, torch.bfloat16),
+        args = (torch.from_numpy(vox).to(dev),
                 torch.from_numpy(coords).to(dev),
                 torch.from_numpy(npts).to(dev), grid, 1)
         with torch.no_grad():

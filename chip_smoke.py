@@ -19,7 +19,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    800x1216, and its decoder call, P=196 over 300 queries, bf16, with its
    device time; and the 3D cell's two calls, batch 4, P=4 over the 69,149
    tokens of 235x235 and 118x118 and over 300 queries, rotated grids;
-   `csrc/box_sample.cu`), K4 (the
+   `csrc/box_sample.cu`), K10 (the pillar net at inference, one launch a
+   forward: the pp3d.infer_b4 cell's 4 frames of 60,000 pillars of 20
+   points, filters 64 and 128, bf16, a pillar's relative error, two
+   launches bitwise equal, its device time; `csrc/pillar_net.cu`), K4 (the
    segm model's last decoder layer: both sums of its instance attention,
    B 1, H 8, LQ 300, 14x14 taps over the 4 levels of 800x1216, with bf16
    and with f32 tables, two launches bitwise equal, the kernel's tile
@@ -92,8 +95,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    1e-3, worst leaf 0.1), and the folded step with K7b swapped for its plain
    version (worst leaf 1e-4);
 9. BoxeR-3D at the Waymo config's width: bf16 inference at 468x468 on
-   32,000 drawn voxels (frames/s, launches K9 4 and K3 2 a forward, a
-   profiled forward), then one served frame: 180,000 points over the whole
+   32,000 drawn voxels of f32 points (frames/s, launches K9 4, K3 2 and
+   K10 1 a forward, a profiled forward), then one served frame: 180,000
+   points over the whole
    pc_range -> the voxelizer -> pad_voxels -> the model at the voxelizer's
    469x469 grid -> the top-125, ms by stage, every kept pillar on a canvas
    cell of its own; (9b) card against CPU at 128x128 in f32 with perturbed
@@ -131,9 +135,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    frames of 180,000 points, 20-70 objects with points in every box,
    9-column boxes) and its `create_gt_database`, only TRAINER_3D_CUTS cut:
    each update finite, not skipped, at the schedule's LR times each
-   group's base LR, with K2 8, K5 8, K3 2; K9 2 and K3 1 a val or test
-   frame; db-sampled objects placed; the loader's first batch on the card
-   bitwise equal to its host build from the same draws; the val metrics
+   group's base LR, with K2 8, K5 8, K3 2; K9 2, K3 1 and K10 0.5 (one
+   a batch of 2) a val or test frame; db-sampled objects placed; the
+   loader's first batch on the card bitwise equal to its host build from
+   the same draws; the val metrics
    equal to `evaluate_results` of the val records; results.pkl with a
    record per val and per test frame; config.yaml, the checkpoints of
    updates 2 and 4, model_final; a resumed trainer with update 4's model,
@@ -262,7 +267,7 @@ SCHEDULE = {"type": "multi_step", "params": {"lr_steps": [10 ** 9],
                                              "lr_ratio": 0.1,
                                              "use_warmup": False}}
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K8", "K9",
-           "H1")
+           "K10", "H1")
 # BoxeR-3D at the width of boxer_tpu/config/base_boxer3d_detection.yaml:
 # 82-137 as tools/mfu_bench.py:measure_boxer3d instantiates it (:202-221):
 # a 468x468 BEV grid of 0.32 m pillars, 32,000 voxels of 20 points
@@ -398,12 +403,13 @@ INFER_LAUNCHES = {("pmajor", True): per_run(K9=11, K3=6, K4=1),
 TRAIN_LAUNCHES = {True: per_run(K2=48, K3=12, K5=24, K6=24, H1=2),
                   False: per_run(K2=48, K3=6, K5=48, H1=2)}
 FOLDED_TRAIN_LAUNCHES = per_run(K3=6, K7b=48, H1=2)
-# BoxeR-3D: at inference each box attention (2 encoder + 2 decoder layers)
-# samples both levels in one launch of K9, K3 runs the 2 decoder
-# self-attentions; a train step runs every sampling level per tap (P = 4,
-# `QuadSample`: K2 in 4 layers x 2 levels) and K5 in the backward of each,
-# and H1's two matches, as BoxeR-2D's
-INFER_3D_LAUNCHES = per_run(K9=4, K3=2)
+# BoxeR-3D: at inference the pillar net is one launch of K10, each box
+# attention (2 encoder + 2 decoder layers) samples both levels in one
+# launch of K9, K3 runs the 2 decoder self-attentions; a train step runs
+# every sampling level per tap (P = 4, `QuadSample`: K2 in 4 layers x 2
+# levels) and K5 in the backward of each, and H1's two matches, as
+# BoxeR-2D's; its pillar net is the torch path
+INFER_3D_LAUNCHES = per_run(K9=4, K3=2, K10=1)
 TRAIN_3D_LAUNCHES = per_run(K2=8, K3=2, K5=8, H1=2)
 
 
@@ -490,6 +496,9 @@ def check_kernels(dev):
     # K4 at the segm forward's last decoder layer, in bf16 (the row the
     # kernels line reports) and f32 tables
     results.update(instance_rows(dev, rs))
+
+    # K10 at the 3D cell's pillar net
+    results.update(pillar_rows(dev))
 
     # 3b. the backward scatters, f32 cotangents as the backward hands them,
     # the bf16 table the forward sampled: at each shape the fused kernel
@@ -599,7 +608,8 @@ def check_kernels(dev):
         torch.cuda.synchronize()
         pairs = list(zip(got, want)) if isinstance(want, tuple) else [
             (got, want)]
-        r["rel_err"] = max(rel_err(a.float(), b.float()) for a, b in pairs)
+        err = r.get("err", rel_err)
+        r["rel_err"] = max(err(a.float(), b.float()) for a, b in pairs)
         r["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
                                for a, b in pairs)
         if r.get("bitwise"):
@@ -746,6 +756,32 @@ def box_sample_rows(dev):
             f"P={npt} LQ={gx.shape[-1]}, levels {levels}, bf16"
             + (", rotated" if turn else ""))
     return cases
+
+
+def pillar_rows(dev):
+    """Phase 3: K10 against its plain version at the pp3d.infer_b4 cell's
+    pillar net (`bench_kernels.k10_case`: 4 frames of 60,000 pillars of 20
+    points, filters 64 and 128, bf16 weights), judged by a pillar's
+    relative error (`bench_kernels.pillar_err`; an empty pillar's -1e9
+    would swamp the largest-element error), two launches bitwise equal;
+    its bound (`bench_kernels.k10_bound`); its device time is printed
+    beside its CUDA-event time. Returns {name: case}."""
+    from boxer_tpu_torch.ops import pillar_net as pn
+    from boxer_tpu_torch.tools import bench_kernels as bk
+
+    feats, n, coors, net = bk.k10_case(dev, 100)
+    args = (feats, n, coors, bk.PP3D_VOXEL, bk.PP3D_RANGE, net.pfn_layers)
+    with torch.no_grad():
+        out = pn.pillar_features(*args)
+    return {"K10": dict(
+        wrapper=pn.pillar_features,
+        kernel=torch.no_grad()(functools.partial(pn.pillar_features, *args)),
+        plain=torch.no_grad()(functools.partial(pn.pillar_features_plain,
+                                                *args)),
+        library=None, bound=bk.k10_bound(feats, out), device_ms=True,
+        bitwise=True, err=bk.pillar_err, tol=1e-2,
+        shape=f"the 3D cell's pillar net: V={feats.shape[0]} P="
+        f"{feats.shape[1]}, filters (64, 128), bf16")}
 
 
 def box_attention_grads(dev):
@@ -1015,6 +1051,7 @@ def counters():
     from boxer_tpu_torch.ops import flash_attention as fa
     from boxer_tpu_torch.ops import hungarian as hg
     from boxer_tpu_torch.ops import instance_sample as isr
+    from boxer_tpu_torch.ops import pillar_net as pn
     from boxer_tpu_torch.ops import scatter_accum as sa
 
     return {"K1": cr.quad_sample_reduce_raw, "K2": cr.quad_sample_reduce_w4,
@@ -1023,7 +1060,7 @@ def counters():
             "K6": sa.scatter_add_rows_pmajor_weighted,
             "K7a": sa.scatter_add_rows, "K7b": sa.scatter_add_rows_pmajor,
             "K8": cr.quad_sample_reduce_mmajor, "K9": bs.box_sample_reduce,
-            "H1": hg.solve_assignment}
+            "K10": pn.pillar_features, "H1": hg.solve_assignment}
 
 
 @contextlib.contextmanager
@@ -1783,17 +1820,18 @@ def run_3d_inference(dev, smi):
     """Phase 9: BoxeR-3D inference at full width in bf16, batch 1, 32,000
     voxels: a warm-up, then ITERS_3D forwards each on the host clock up to a
     synchronize with the launch counters zeroed just before them (K9 = 4,
-    K3 = 2 a forward, no K2), one profiled forward; then one served frame, points
-    -> voxelizer -> pad_voxels -> model -> top-125, timed by stage.
+    K3 = 2, K10 = 1 a forward, no K2), one profiled forward; then one
+    served frame, points -> voxelizer -> pad_voxels -> model -> top-125,
+    timed by stage.
     Returns (frames/s, counts, result dict)."""
     from boxer_tpu_torch.dataset.waymo import format_for_evalai
 
     grid = grid_3d(PC_RANGE_3D)
     model = build_model_3d(PC_RANGE_3D).to(dev, torch.bfloat16)
     vox, coords, npts = random_voxels_3d(grid, VOXELS_3D, 1, seed=0)
-    args = (torch.from_numpy(vox).to(dev, torch.bfloat16),
-            torch.from_numpy(coords).to(dev), torch.from_numpy(npts).to(dev),
-            grid, 1)
+    # the points stay f32, as the loader hands them (K10 takes f32 alone)
+    args = (torch.from_numpy(vox).to(dev), torch.from_numpy(coords).to(dev),
+            torch.from_numpy(npts).to(dev), grid, 1)
     with torch.no_grad():
         model(*args)
         torch.cuda.synchronize()
@@ -1837,8 +1875,8 @@ def run_3d_inference(dev, smi):
         live = len(v)
         v, c, n = pad_voxels(v, c, n, 0, SERVE_VOXELS)
         t1 = time.perf_counter()
-        dev_args = (torch.from_numpy(v).to(dev, torch.bfloat16),
-                    torch.from_numpy(c).to(dev), torch.from_numpy(n).to(dev))
+        dev_args = (torch.from_numpy(v).to(dev), torch.from_numpy(c).to(dev),
+                    torch.from_numpy(n).to(dev))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         with torch.no_grad():
@@ -4716,7 +4754,10 @@ def main():
              pallas + "combine_reduce.py:249"),
             ("K9", "box_sample_reduce", "box_sample.cu",
              pallas + "combine_reduce.py:123,264 with their feed in "
-             "boxer_tpu/ops/box_attention.py:437")]
+             "boxer_tpu/ops/box_attention.py:437"),
+            ("K10", "pillar_features", "pillar_net.cu",
+             "no pallas_call: the XLA pillar net of "
+             "boxer_tpu/nn/point_pillar.py")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
