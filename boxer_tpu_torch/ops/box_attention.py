@@ -25,12 +25,10 @@ Taps are folded p-major: row order (p, b, h, lq), M = B*H*LQ.
 - fold=True, the inference path, outside autograd: one launch a call of
   `box_sample_reduce` (K9, `ops/box_sample.py`), which forms the taps and
   reads each tap's 2x2 corners straight from the value, with no quad table,
-  and sums every level and tap of an output in f32; or, when `COMBINE_IMPL`
-  is "mmajor", the quad tables and one launch a level of
-  `quad_sample_reduce_mmajor` (K8, taps in (m, p) order, every P). Its
-  callers: every box attention of the 2D and 3D inference forwards
-  (`nn/box_transformer.py`, `nn/box3d_transformer.py` with `inference`)
-  and the instance attention's layers that emit no RoI;
+  and sums every level and tap of an output in f32. Its callers: every box
+  attention of the 2D and 3D inference forwards (`nn/box_transformer.py`,
+  `nn/box3d_transformer.py` with `inference`) and the instance attention's
+  layers that emit no RoI;
 - fold=False, the per-tap path at any P: the levels go through
   `QuadSample`, an autograd Function over K2 whose backward scatters each
   level's table cotangent and forms its corner weights' cotangent in one
@@ -68,15 +66,14 @@ backward one launch of K5 a level, which gives the table's cotangent (kept
 in f32 through the quad-table transpose) and the four corner dots that the
 sampling grid's and the attention weights' cotangents are formed from.
 
-Two module constants read the JAX package's environment variables once, at
-import: `FOLD_TAP_THRESHOLD` (`BOXER_FOLD_THRESHOLD`, default 8) and
-`COMBINE_IMPL` (`BOXER_COMBINE`, "pmajor" or "mmajor"; the JAX package's
-"slices" is an XLA formulation with no kernel, and the fused path raises
-on it).
+`FOLD_TAP_THRESHOLD` is the constant 8, the JAX package's default; tests
+patch the module constant. The JAX package's other inference combines
+(m-major, and "slices", an XLA formulation) have no route here: K8
+(`quad_sample_reduce_mmajor`), the kernel that stands for its m-major
+one, is an op of its own.
 """
 
 import contextlib
-import os
 import threading
 from typing import Tuple
 
@@ -85,7 +82,6 @@ import torch.nn.functional as F
 
 from boxer_tpu_torch.ops.box_sample import box_sample_reduce
 from boxer_tpu_torch.ops.combine_reduce import (corner_weights, pmajor_taps,
-                                                quad_sample_reduce_mmajor,
                                                 quad_sample_reduce_w4,
                                                 tap_rows)
 from boxer_tpu_torch.ops.instance_sample import (instance_sample_reduce,
@@ -99,9 +95,7 @@ Shapes = Tuple[Tuple[int, int], ...]
 
 # taps per level above which fold=None takes the folded path
 # (`_FOLD_TAP_THRESHOLD`, boxer_tpu/ops/box_attention.py:612-617)
-FOLD_TAP_THRESHOLD = int(os.environ.get("BOXER_FOLD_THRESHOLD", "8"))
-# the fused inference combine: "pmajor" (K9) or "mmajor" (K8)
-COMBINE_IMPL = os.environ.get("BOXER_COMBINE", "pmajor")
+FOLD_TAP_THRESHOLD = 8
 
 
 def _build_quad_tables(value, shapes: Shapes):
@@ -257,13 +251,6 @@ def _reduce_pmajor(x, n: int, m: int):
         x = sum(x[i * blk * m:(i + 1) * blk * m] for i in range(f))
         n = blk
     return x
-
-
-def _mmajor_level(table, idx, lx, ly, w_tap):
-    """fold=True under the m-major combine: K8 on the level's (P, M) taps,
-    outside autograd. Returns (M, ch) f32."""
-    return quad_sample_reduce_mmajor(
-        table, *(t.t().contiguous() for t in (idx, lx, ly, w_tap)))
 
 
 def _folded_level(table, idx, lx, ly, w_tap, dtype):
@@ -432,8 +419,8 @@ def box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     attn_weight: (B, H, L, P, LQ), softmax-normalized over (L, P)
     returns      (B, LQ, H*Ch), or (B, H, LQ, Ch) when raw=True, in
                  value.dtype; accumulation is f32.
-    fold=True is the inference path (K9, or K8 under the m-major combine,
-    no autograd through them); fold=False the differentiable per-tap path
+    fold=True is the inference path (K9, no autograd through it);
+    fold=False the differentiable per-tap path
     (`QuadSample`: K2, K5); fold=None the differentiable folded path
     (`TakeRows`: K7b) when P > FOLD_TAP_THRESHOLD, else the per-tap one, as
     in the JAX package.
@@ -452,14 +439,10 @@ def _box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
         return out if raw else _merge_heads(out)
     b, s, nh, ch = value.shape
     npt, lq = gx.shape[3:]
-    fused = fold is True
-    if fused and COMBINE_IMPL == "pmajor":
+    if fold is True:
         out = box_sample_reduce(value.contiguous(), shapes,
                                 *(t.float() for t in (gx, gy, attn_weight)))
         return out.permute(0, 2, 1, 3) if raw else out.reshape(b, lq, nh * ch)
-    if fused and COMBINE_IMPL != "mmajor":
-        raise ValueError(f"COMBINE_IMPL {COMBINE_IMPL!r}: the port has "
-                         "'pmajor' and 'mmajor'")
     if fold is None:
         fold = npt > FOLD_TAP_THRESHOLD
 
@@ -469,9 +452,7 @@ def _box_attention_qminor(value, shapes: Shapes, gx, gy, attn_weight,
     per_tap = []
     for table, (idx, lx, ly, _, w_tap) in zip(
             tables, _level_taps(shapes, gx, gy, attn_weight, b * nh)):
-        if fused:
-            out = out + _mmajor_level(table, idx, lx, ly, w_tap)
-        elif fold:
+        if fold:
             out = out + _folded_level(table, idx, lx, ly, w_tap, value.dtype)
         else:
             per_tap += [table, idx, corner_weights(lx, ly, w_tap)]

@@ -135,13 +135,18 @@ def launch(fn: Callable, world_size: int, backend: str, args: Sequence = (),
     (`devices` None: the ranks use no card). Returns when every rank has
     returned; raises when a rank fails (the others are terminated) or,
     past `timeout` seconds, kills every rank and raises TimeoutError.
-    `fn` must be importable by name (a module's top-level function)."""
+    `fn` must be importable by name (a module's top-level function).
+    Ranks without a card share this process's threads: each takes
+    `torch.get_num_threads() // world_size`, at least one, so a budget
+    given to the launcher (`OMP_NUM_THREADS`) holds for its ranks."""
     if devices is not None and len(devices) != world_size:
         raise ValueError(f"{len(devices)} devices for {world_size} ranks")
     port = _free_port()
+    threads = max(1, torch.get_num_threads() // world_size)
     ctx = torch.multiprocessing.start_processes(
         _rank_main, args=(fn, tuple(args), world_size, backend, port,
-                          None if devices is None else tuple(devices)),
+                          None if devices is None else tuple(devices),
+                          threads),
         nprocs=world_size, join=False, start_method="spawn")
     deadline = None if timeout is None else time.monotonic() + timeout
     try:
@@ -157,15 +162,14 @@ def launch(fn: Callable, world_size: int, backend: str, args: Sequence = (),
                 p.join()
 
 
-def _rank_main(rank, fn, args, world_size, backend, port, devices):
+def _rank_main(rank, fn, args, world_size, backend, port, devices, threads):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size),
                       LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
                       MASTER_PORT=str(port))
     if devices is not None:
         torch.cuda.set_device(devices[rank])
     else:
-        # CPU ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+        torch.set_num_threads(threads)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world_size)
     try:

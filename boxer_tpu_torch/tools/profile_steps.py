@@ -1,20 +1,19 @@
-"""Device time of one full-width BoxeR-2D R50 segm inference forward (under
-the p-major and the m-major combine), one segm val forward and one train
-step, segm, detection (per tap) and detection folded, and of one
-full-width BoxeR-3D forward and train step, under torch.profiler, for the
-tree on PYTHONPATH.
+"""Device time of one full-width BoxeR-2D R50 segm inference forward, one
+segm val forward and one train step, segm, detection (per tap) and
+detection folded, and of one full-width BoxeR-3D forward and train step,
+under torch.profiler, for the tree on PYTHONPATH.
 
     PYTHONPATH=TREE python boxer_tpu_torch/tools/profile_steps.py [RUN ...]
 
 TREE is the root of a checkout (this one, or a `git archive` of another
 commit): its `boxer_tpu_torch` package and its `chip_smoke.py` (whose
 `build_model`, `make_image`, `train_setup` and `train_batch` this script
-uses, and its `sampling` to set `COMBINE_IMPL` and `FOLD_TAP_THRESHOLD`, so
-a tree that has them and not this file can be profiled too) are imported
+uses, and its `sampling` to set `FOLD_TAP_THRESHOLD`, so a tree that has
+them and not this file can be profiled too) are imported
 from there. The forward runs at `chip_smoke`'s phase 6 (bf16 weights, batch
 1, 800x1216, top-100 postprocess with masks), each train step at its recipe
 (batch 1, 800x1216, 20 targets, f32 parameters, bf16 autocast, AdamW); the
-m-major forward runs K8 at every level; the val forward runs as the
+val forward runs as the
 trainer's val step runs it (`parallel/steps.py:make_eval_step`: f32
 parameters, bf16 autocast, under no_grad, train=False, inference=False:
 every decoder layer's instance attention with its RoI, 300 queries), on
@@ -39,7 +38,7 @@ own device-side ranges (`boxer.*`) are left out of the busy time. Then
 one JSON line {"tree": ...,
 "busy_ms": {run: ms}, "wall_ms": {run: [ms, ...]}, "kernels": {run:
 {kernel: ms}}, "matcher_ms": {run: ms}, "matcher_sort_ms": {run: ms}}.
-RUNs (segm_forward, segm_forward_mmajor, segm_val, segm, det, det_folded,
+RUNs (segm_forward, segm_val, segm, det, det_folded,
 boxer3d: its forward and its step) pick runs; all by default.
 """
 
@@ -135,16 +134,13 @@ def main(runs=()):
     def chosen(*keys):
         return runs is None or bool(runs & set(keys))
 
-    if chosen("segm_forward", "segm_forward_mmajor"):
+    if chosen("segm_forward"):
         model = cs.build_model(True).to(dev, torch.bfloat16)
         image, mask = (t.to(dev) for t in cs.make_image(cs.CANVAS))
         post = {"canvas_hw": cs.CANVAS, "topk": 100}
-        for combine, key in (("pmajor", "segm_forward"),
-                             ("mmajor", "segm_forward_mmajor")):
-            if chosen(key):
-                with torch.no_grad(), cs.sampling(COMBINE_IMPL=combine):
-                    report(key, *profile(
-                        lambda: model(image, mask, postprocess=post)))
+        with torch.no_grad():
+            report("segm_forward", *profile(
+                lambda: model(image, mask, postprocess=post)))
         del model
         torch.cuda.empty_cache()
     if chosen("segm_val"):

@@ -56,9 +56,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
    seeded random weights, segm with the deferred top-100 mask decode, then
    detection only; img/s, and the kernels' launch counts over the timed
    forwards, which must match every call site (one K4 a segm forward);
-   (4c) the same with the m-major combine (`COMBINE_IMPL = "mmajor"`: K8
-   at every sampling level), one profiled m-major segm forward, then card
-   against CPU as in phase 5 under it;
+   (4c: removed, with the m-major inference route it ran);
 5. the same weights and image on a 256x384 canvas in f32 (no TF32), card
    (kernels, K4 among them) against CPU (plain versions): identical top-k
    labels, scores and boxes within atol 1e-3, fewer than 1e-3 of mask
@@ -385,12 +383,9 @@ def per_run(**counts):
 # launches per forward at every call site: K9 once a box-attention call, in
 # 6 encoder layers and 5 decoder layers (6 when detection only), K3 in 6
 # decoder self-attentions, K4 in the segm model's last decoder layer (its
-# instance attention, all 4 levels in one launch); under the m-major
-# combine K8 takes every level of the box-attention calls instead
-INFER_LAUNCHES = {("pmajor", True): per_run(K9=11, K3=6, K4=1),
-                  ("pmajor", False): per_run(K9=12, K3=6),
-                  ("mmajor", True): per_run(K8=44, K3=6, K4=1),
-                  ("mmajor", False): per_run(K8=48, K3=6)}
+# instance attention, all 4 levels in one launch)
+INFER_LAUNCHES = {True: per_run(K9=11, K3=6, K4=1),
+                  False: per_run(K9=12, K3=6)}
 # launches per train step at every call site: K2 is the forward of every
 # sampling level (6 encoder + 6 decoder layers x 4 levels), K5 the backward
 # of each box-attention level, K6 of each instance-attention level, K3 the 6
@@ -1065,8 +1060,8 @@ def counters():
 
 @contextlib.contextmanager
 def sampling(**constants):
-    """Set module constants of the sampling op (`COMBINE_IMPL`,
-    `FOLD_TAP_THRESHOLD`) for a phase and restore them after it."""
+    """Set module constants of the sampling op (`FOLD_TAP_THRESHOLD`) for
+    a phase and restore them after it."""
     ba = importlib.import_module("boxer_tpu_torch.ops.box_attention")
 
     saved = {k: getattr(ba, k) for k in constants}
@@ -1096,15 +1091,14 @@ def timed(fn, iters, dev):
     return times, {k: f.launches for k, f in counters().items()}, out
 
 
-def run_slice(dev, use_mask, iters, label, combine="pmajor"):
-    """Phases 4 and 4c: a warm-up forward, then `iters` forwards each timed
-    on the host clock up to a synchronize, with the launch counters zeroed
-    just before them, under the given combine. Returns (img/s at the median
-    forward, counts)."""
+def run_slice(dev, use_mask, iters, label):
+    """Phase 4: a warm-up forward, then `iters` forwards each timed on the
+    host clock up to a synchronize, with the launch counters zeroed just
+    before them. Returns (img/s at the median forward, counts)."""
     model = build_model(use_mask).to(dev, torch.bfloat16)
     image, mask = (t.to(dev) for t in make_image(CANVAS))
     post = {"canvas_hw": CANVAS, "topk": 100}
-    with torch.no_grad(), sampling(COMBINE_IMPL=combine):
+    with torch.no_grad():
         model(image, mask, postprocess=post)
         torch.cuda.synchronize()
         times, counts, out = timed(
@@ -1126,8 +1120,7 @@ def run_slice(dev, use_mask, iters, label, combine="pmajor"):
                                  f"!= {shape}")
         if out[key].is_floating_point() and not torch.isfinite(out[key]).all():
             raise AssertionError(f"{label}: {key} not finite")
-    expect = {k: v * iters
-              for k, v in INFER_LAUNCHES[(combine, use_mask)].items()}
+    expect = {k: v * iters for k, v in INFER_LAUNCHES[use_mask].items()}
     if counts != expect:
         raise AssertionError(f"{label}: launches {counts} != {expect}")
     del model
@@ -1135,15 +1128,13 @@ def run_slice(dev, use_mask, iters, label, combine="pmajor"):
     return fps, counts
 
 
-def card_vs_cpu(dev, combine="pmajor"):
-    """Phases 5 and 4c: same weights and image, f32, card (kernels) vs CPU
-    (plain), under the given combine."""
+def card_vs_cpu(dev):
+    """Phase 5: same weights and image, f32, card (kernels) vs CPU
+    (plain)."""
     model = build_model(True, seed=1, noise_seed=2)
     image, mask = make_image(E2E_CANVAS, seed=1)
     post = {"canvas_hw": E2E_CANVAS, "topk": 100}
-    used = (("K8", "K3", "K4") if combine == "mmajor"
-            else ("K9", "K3", "K4"))
-    with torch.no_grad(), sampling(COMBINE_IMPL=combine):
+    with torch.no_grad():
         want = model(image, mask, postprocess=post)
         model.to(dev)
         before = {k: f.launches for k, f in counters().items()}
@@ -1151,14 +1142,13 @@ def card_vs_cpu(dev, combine="pmajor"):
                                             postprocess=post).items()}
     torch.cuda.synchronize()
     after = {k: f.launches for k, f in counters().items()}
-    if any(after[k] == before[k] for k in used):
+    if any(after[k] == before[k] for k in ("K9", "K3", "K4")):
         raise AssertionError("card run did not go through every kernel")
     label_eq = bool((got["labels"] == want["labels"]).all())
     score_err = float((got["scores"] - want["scores"]).abs().max())
     box_err = float((got["boxes"] - want["boxes"]).abs().max())
     mask_diff = float((got["masks"] != want["masks"]).float().mean())
-    log(f"card vs CPU at {E2E_CANVAS} f32, {combine} combine: labels equal "
-        f"{label_eq}, "
+    log(f"card vs CPU at {E2E_CANVAS} f32: labels equal {label_eq}, "
         f"score max abs err {score_err:.3e}, box max abs err {box_err:.3e} px,"
         f" mask pixels differing {mask_diff:.3e}")
     if not (label_eq and score_err <= 1e-3 and box_err <= 1e-3
@@ -1202,14 +1192,14 @@ def k5_call_ms(by_kernel):
     return ms / calls
 
 
-def profile_forward(dev, forward_ms, combine="pmajor"):
-    """Phases 6 and 4c: one segm forward under the profiler."""
+def profile_forward(dev, forward_ms):
+    """Phase 6: one segm forward under the profiler."""
     model = build_model(True).to(dev, torch.bfloat16)
     image, mask = (t.to(dev) for t in make_image(CANVAS))
     post = {"canvas_hw": CANVAS, "topk": 100}
-    with torch.no_grad(), sampling(COMBINE_IMPL=combine):
+    with torch.no_grad():
         profile(lambda: model(image, mask, postprocess=post), forward_ms,
-                f"segm forward, {combine} combine")
+                "segm forward")
     del model
     torch.cuda.empty_cache()
 
@@ -4638,20 +4628,12 @@ def main():
     assign = check_assignment(dev, smi)
     log(f"phase 3d took {time.perf_counter() - t3d:.1f} s")
 
-    # 4. the inference slice at full width; 4c. under the m-major combine
+    # 4. the inference slice at full width (4c: removed)
     runs = {}
     segm_fps, runs["segm"] = run_slice(dev, True, SEGM_ITERS,
                                        f"segm R50 {CANVAS} bf16 [{smi}]")
     det_fps, runs["det"] = run_slice(dev, False, DET_ITERS,
                                      f"detection R50 {CANVAS} bf16 [{smi}]")
-    mm_segm_fps, runs["segm mmajor"] = run_slice(
-        dev, True, SEGM_ITERS, f"segm R50 {CANVAS} bf16, m-major combine "
-        f"[{smi}]", combine="mmajor")
-    mm_det_fps, runs["det mmajor"] = run_slice(
-        dev, False, DET_ITERS, f"detection R50 {CANVAS} bf16, m-major "
-        f"combine [{smi}]", combine="mmajor")
-    profile_forward(dev, 1e3 / mm_segm_fps, combine="mmajor")
-    card_vs_cpu(dev, combine="mmajor")
 
     # 5. card against CPU
     card_vs_cpu(dev)
@@ -4763,7 +4745,7 @@ def main():
     kernels = []
     for key, name, src, replaces in rows:
         r = kern[key]
-        launches = (r["op_launches"] if key == "K7a"
+        launches = (r["op_launches"] if key in ("K7a", "K8")
                     else sum(c[key] for c in runs.values()))
         kernels.append(dict(name=name, route="cuda",
                             source=f"boxer_tpu_torch/csrc/{src}",
@@ -4787,8 +4769,7 @@ def main():
                             launches=sum(v["launches"] for v in variants),
                             **{k: r[k] for k in keys}))
     log(f"slices [{smi}]: segm {segm_fps:.3f} img/s, detection "
-        f"{det_fps:.3f} img/s (m-major combine: {mm_segm_fps:.3f}, "
-        f"{mm_det_fps:.3f}); train segm {segm_ms:.2f} ms/step (peak "
+        f"{det_fps:.3f} img/s; train segm {segm_ms:.2f} ms/step (peak "
         f"{segm_peak:.2f} GiB, device busy {100 * segm_busy[1]:.1f}%), "
         f"train detection {det_ms:.2f} ms/step (peak {det_peak:.2f} GiB), "
         f"folded {fold_ms:.2f} ms/step (peak {fold_peak:.2f} GiB, device busy "

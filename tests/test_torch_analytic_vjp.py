@@ -22,6 +22,7 @@ The JAX side of the op cases is one jitted `jax.grad` a case, traced once
 under the switch in a module-scoped fixture.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 
 import numpy as np

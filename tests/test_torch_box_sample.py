@@ -20,6 +20,7 @@ on a card without jax they run with `python -m pytest --noconftest -p
 no:cacheprovider -m gpu tests/test_torch_box_sample.py`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 
 import numpy as np

@@ -8,11 +8,12 @@ the ~128 proposal logits do not tie). Held: the encoder's proposal logits
 (rel err <= 1e-4) and the selected proposal indices (exactly equal), then
 scores within atol 1e-4, boxes within atol 1e-4 of the canvas size (the
 pixel values reach ~100, where f32 noise alone is ~1e-5), identical labels,
-and fewer than 1e-3 of mask pixels different. The same holds under the
-m-major combine (`BOXER_COMBINE=mmajor`: K8's plain version in the port,
-the JAX package's XLA formulation on the CPU).
+and fewer than 1e-3 of mask pixels different. The same holds with the
+JAX package under its m-major combine (its XLA formulation on the CPU),
+against the port's one inference route, K9's plain version.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 import subprocess
 import sys
@@ -135,21 +136,24 @@ def test_boxer2d_matches_jax(use_mask, residual_mode, padded):
 
 @pytest.mark.parametrize("use_mask", [True, False], ids=["segm", "det"])
 def test_boxer2d_mmajor_combine_matches_jax(monkeypatch, use_mask):
-    """Every fused sampling level through K8 (its plain version): the 4
-    levels of the encoder layer and of each decoder layer but a segm
-    model's last (its dual-output instance attention has no combine)."""
+    """The JAX package under its m-major combine against the port's one
+    inference route: one K9 call (its plain version) for the encoder layer
+    and for each decoder layer but a segm model's last (its dual-output
+    instance attention is K4's), and not one K8 call at model level."""
     tb = importlib.import_module("boxer_tpu_torch.ops.box_attention")
+    cr = importlib.import_module("boxer_tpu_torch.ops.combine_reduce")
 
     monkeypatch.setattr(importlib.import_module("boxer_tpu.ops.box_attention"),
                         "_COMBINE_IMPL", "mmajor")
-    monkeypatch.setattr(tb, "COMBINE_IMPL", "mmajor")
     calls = []
-    k8 = tb.quad_sample_reduce_mmajor
-    monkeypatch.setattr(tb, "quad_sample_reduce_mmajor",
-                        lambda *a: calls.append(1) or k8(*a))
+    for mod, name in ((tb, "box_sample_reduce"),
+                      (cr, "quad_sample_reduce_mmajor"),
+                      (cr, "quad_sample_reduce_mmajor_plain")):
+        monkeypatch.setattr(mod, name, lambda *a, f=getattr(mod, name), n=name:
+                            calls.append(n) or f(*a))
     _boxer2d_matches_jax(use_mask, "v1", padded=True)
-    assert len(calls) == 4 * (TINY["enc_layers"] + TINY["dec_layers"]
-                              - use_mask)
+    assert calls == ["box_sample_reduce"] * (
+        TINY["enc_layers"] + TINY["dec_layers"] - use_mask)
 
 
 def test_port_weights_load_into_jax_model():

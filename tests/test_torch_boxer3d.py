@@ -26,6 +26,7 @@ pillar net only (`use_fast_variance=False`, the `pfn_two_pass` fixture);
 the JAX package is not changed.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import functools
 import math
 from types import SimpleNamespace

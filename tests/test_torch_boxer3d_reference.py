@@ -25,6 +25,7 @@ the CPU with no JAX.
   never forms the per-tap route's taps; a training forward the reverse.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 import math
 import sys

@@ -21,6 +21,7 @@ against the JAX package, on the CPU.
 - The TensorBoard event file round trip of `tests/test_tb_writer.py`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import filecmp
 import json
 import os

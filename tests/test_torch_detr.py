@@ -31,6 +31,7 @@ package, on the CPU.
   exits "no CUDA device".
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import json
 import os
 import shutil

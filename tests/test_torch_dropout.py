@@ -25,6 +25,7 @@ JAX package's dropout sites, and the key's own properties, on the CPU.
   at dropout > 0 training without a key raises.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import numpy as np
 import pytest
 import torch

@@ -29,6 +29,7 @@ imported only inside the JAX cases, so on a card without jax they run with
 tests/test_torch_hungarian.py`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import functools
 
 import numpy as np

@@ -16,6 +16,7 @@ imported only inside the JAX cases, so on a card without jax it runs with
 tests/test_torch_instance_sample.py`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 
 import numpy as np

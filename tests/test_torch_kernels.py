@@ -19,6 +19,7 @@ cases, so on a card without jax they run with
 tests/test_torch_kernels.py`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 
 import numpy as np

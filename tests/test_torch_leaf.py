@@ -9,6 +9,7 @@ a tiny config, FLOPs > 0, one structure line a parameter),
 (a PNG of the image's size).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib.util
 import os
 import re

@@ -16,6 +16,7 @@ package (and scipy for the assignment), on the CPU.
   port for 3 steps give every group's params within rel 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import numpy as np
 import pytest
 import torch

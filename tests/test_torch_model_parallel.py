@@ -23,8 +23,8 @@ JAX side runs in the test's process (imported inside the tests).
   mp2 (no padding mask: JAX's DETR turns its mask round).
 - Dropout 0.1 at sp2 x mp2: one update equal to the port's world-1 update
   under the same key (stats 1e-5, gradients 1e-4 of the largest, see the
-  test). The world-1 references run in a process of their own, on one
-  thread as each rank.
+  test). The world-1 references run in a process of their own, launched
+  as the ranks are.
 - The trainer at sp2 x mp2: a checkpoint at update 2 resumed at world 1
   (model and optimizer state bitwise), a world-1 checkpoint resumed at sp2
   x mp2 (each rank's gathered state bitwise), val and test results hold
@@ -40,6 +40,7 @@ JAX side runs in the test's process (imported inside the tests).
   reassembly round-trip.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import json
 import os
 import shutil
@@ -118,7 +119,6 @@ def _update(task, opts):
 def _update_ranks(task_path, opts, out_dir):
     import torch.distributed as dist
 
-    torch.set_num_threads(1)
     task = torch.load(task_path, weights_only=False)
     torch.save(_update(task, opts),
                os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
@@ -135,7 +135,6 @@ def _trainer_ranks(cfg_path, opts, root):
                                                    optimizer_state_dict,
                                                    param_names)
 
-    torch.set_num_threads(1)
     task = torch.load(root / "task.pt", weights_only=False)
     out = {"dropout": _update(task, task["opts"] + opts)}
 
@@ -167,7 +166,6 @@ def _zero1_ranks(cfg_path, root):
                                                    optimizer_state_dict,
                                                    param_names)
 
-    torch.set_num_threads(1)
     run = _trainer(cfg_path, _layout_opts(2, 1, 2) + [
         "training.max_update=2", "training.checkpoint_interval=2",
         "training.run_type=train", f"training.save_dir={root}/zero1"])
@@ -187,8 +185,6 @@ def _waymo_db_ranks(opts, root):
     draws after the first run, its restored draws and its last step."""
     import torch.distributed as dist
 
-    torch.set_num_threads(1)
-
     def trainer(extra):
         return _trainer(WAYMO_CONFIG, opts + _layout_opts(1, 1, 2) + extra,
                         "detection3d", "boxer3d")
@@ -207,7 +203,6 @@ def _waymo_db_ranks(opts, root):
 def _sp2_trainer_ranks(cfg_path, root):
     import torch.distributed as dist
 
-    torch.set_num_threads(1)
     trainer = _trainer(cfg_path, [
         "distributed.sp=2", "training.max_update=1",
         "training.run_type=train", f"training.save_dir={root}/sp2"])
@@ -255,9 +250,10 @@ def _ranks_agree(ranks, dp, sp, mp):
 
 
 def _world1(task_file, opts, out):
-    """The port's world-1 update of the task in a process of its own, as
-    each rank runs (one thread: CPU kernels sum in another order on more,
-    which moves a few leaves by 1e-3)."""
+    """The port's world-1 update of the task in a process of its own,
+    launched as the ranks are: under the suite's thread budget it runs on
+    one thread, as each rank does (CPU kernels sum in another order on
+    more, which moves a few leaves by 1e-3)."""
     out.mkdir()
     _launch(_update_ranks, task_file, opts, out, world=1)
     return _ranks_out(out, 1)[0]

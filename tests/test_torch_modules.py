@@ -10,6 +10,7 @@ kernels take their plain versions here. Tolerance: rel err <= 1e-4 (f32
 sums taken in another order, through a few layers).
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 import math
 

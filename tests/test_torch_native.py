@@ -6,6 +6,7 @@ a failed compile; importing it builds nothing, and the JAX package's
 prebuilt library is never loaded.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import subprocess
 import sys
 from pathlib import Path

@@ -17,6 +17,7 @@
   and the train step sums them over microbatches.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import numpy as np
 import pytest
 import torch

@@ -37,9 +37,11 @@ neither JAX nor the JAX package; the JAX side runs in the test's process
   one padded), and a world-1 resume of that checkpoint raises.
 - The loader's seeds: as before at one replica, the rank folded in at two.
 - The process-group helpers at world 2, and the launcher's timeout and a
-  failing rank.
+  failing rank; CPU ranks share the launching process's threads, and the
+  test process holds `torch_threads`'s budget.
 """
 
+import torch_threads  # (first: the CPU thread budget)
 import json
 import os
 import pickle
@@ -253,6 +255,13 @@ def _failing_ranks():
 
     if dist.get_rank() == 1:
         raise RuntimeError("rank 1 fails")
+
+
+def _threads_ranks(out_dir):
+    import torch.distributed as dist
+
+    torch.save(torch.get_num_threads(),
+               os.path.join(out_dir, f"rank{dist.get_rank()}.pt"))
 
 
 # ---------------------------------------------------------------------------
@@ -811,3 +820,20 @@ def test_launch_kills_ranks_past_timeout():
 def test_launch_raises_when_a_rank_fails():
     with pytest.raises(Exception, match="rank 1 fails"):
         _launch(_failing_ranks)
+
+
+@pytest.mark.parametrize("threads,each", [(1, 1), (2, 1), (4, 2)])
+def test_cpu_ranks_share_the_launchers_threads(tmp_path, threads, each):
+    """Two CPU ranks take half the launching process's threads, at least
+    one each, whatever the machine's core count."""
+    with torch_threads.threads(threads):
+        _launch(_threads_ranks, tmp_path)
+    assert _ranks_out(tmp_path) == [each, each]
+
+
+def test_worker_holds_its_thread_budget():
+    """The CPUs this process may run on, shared among xdist's workers."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    want = max(1, len(os.sched_getaffinity(0)) // workers)
+    assert torch.get_num_threads() == want
+    assert os.environ["OMP_NUM_THREADS"] == str(want)

@@ -26,6 +26,7 @@ bitwise equal. On a card without jax:
 tests/test_torch_pillar_net.py`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import math
 
 import numpy as np

@@ -1,6 +1,7 @@
 """Torch→Flax backbone weight porting: key remap coverage + numerical parity
 of FrozenBN/conv against torch reference ops on synthetic weights."""
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ as many times as without remat: its output is saved, not recomputed; the
 backward scatters (K5/K6's plain version) run as many times too.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 
 import pytest

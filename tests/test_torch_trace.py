@@ -9,6 +9,7 @@ weights, with the top-k postprocess; the train step is
 `test_torch_boxer3d_reference.py`'s small BoxeR-3D on one seeded frame.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import numpy as np
 import pytest
 import torch

@@ -26,6 +26,7 @@ whole train step against the JAX package, on the CPU.
   NaN skip.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import importlib
 
 import numpy as np

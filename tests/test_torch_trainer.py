@@ -47,6 +47,7 @@ masks, non-contiguous category ids), with the tiny model of
   input projections' conv biases have no gradient but rounding noise.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import json
 import os
 import subprocess

@@ -26,6 +26,7 @@ on the CPU, on the same seeded inputs: numpy paths bitwise, metrics within
   sorted by score, JAX's are not), and `results.pkl`.
 """
 
+import torch_threads  # noqa: F401  (first: the CPU thread budget)
 import copy
 import os
 import pickle
