@@ -117,6 +117,9 @@ def library() -> ctypes.CDLL:
         lib.pillar_net.argtypes = [i32, i32, vp, vp, vp, i64, i32] + [
             f32] * 6 + [vp] * 8
         lib.pillar_net.restype = i32
+        lib.group_norm_relu.argtypes = [i32, i32, i32, vp, i32, i64, i32,
+                                        i32, f32, vp, vp, vp, vp, vp]
+        lib.group_norm_relu.restype = i32
         _lib = lib
     return _lib
 

@@ -1,9 +1,9 @@
 """K1, K2, K3, K5/K6, K7a/K7b and K8 (or, with --h1, H1; with --k4, K4;
-with --k9, K9; with --k10, K10) at their main-path shapes, this tree's
-kernels against another tree's, in one process on one card.
+with --k9, K9; with --k10, K10; with --k11, K11) at their main-path shapes,
+this tree's kernels against another tree's, in one process on one card.
 
     python -m boxer_tpu_torch.tools.bench_kernels [--h1 | --k4] --parent DIR
-    python -m boxer_tpu_torch.tools.bench_kernels --k9 | --k10
+    python -m boxer_tpu_torch.tools.bench_kernels --k9 | --k10 | --k11
 
 DIR is an unpacked copy of another commit of the repo (`git archive`);
 its `boxer_tpu_torch/csrc` is built beside this tree's and loaded as a
@@ -87,6 +87,15 @@ weights): held against its plain version (a pillar's relative error 1e-2)
 and two launches bitwise, then its time (CUDA events and device time), the
 plain version's, the memory each takes above its inputs, and its bound
 (`k10_bound`). --parent is not read.
+
+With --k11 only K11 (`group_norm_relu`, the BEV neck's GroupNorm + ReLU at
+inference) is timed, at the pp3d.infer_b4 cell's eight calls (`K11_CALLS`:
+batch 4, 2 of 256 x 469 x 469, 4 of 512 x 235 x 235, 2 of 1024 x 118 x
+118, NHWC bf16, `k11_case`): at each shape held against its plain version
+(rel err 1e-2) and two launches bitwise, then its time (CUDA events and
+device time), the plain version's, torch's `GroupNorm` + `ReLU` on the
+NCHW tensor (a yardstick the port never calls) and its bound (`k11_bound`);
+then the eight calls' sums. --parent is not read.
 
 Inputs are made on the card from a seed: a bf16 quad table of encoder
 level 0 at 800x1216 (8 heads x 101 x 153 rows), random rows, f32 weights
@@ -1012,6 +1021,88 @@ def run_k10(device, log=print):
     return r
 
 
+# K11's rows: the pp3d.infer_b4 cell's neck, batch 4: ((C, H, W), calls)
+K11_CALLS = (((256, 469, 469), 2), ((512, 235, 235), 4),
+             ((1024, 118, 118), 2))
+K11_BATCH = 4
+
+
+def k11_case(device, seed, c, h, w, batch=K11_BATCH, dtype=torch.bfloat16):
+    """K11's inputs on the card from a seed: x (batch, h, w, c) NHWC in
+    `dtype`, a convolution's output with an offset a channel (normal, 0.3)
+    on a unit normal; weight 1 + 0.1 normal and bias 0.1 normal in
+    `dtype`. Returns (x, weight, bias)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    x = (randn(batch, h, w, c) + 0.3 * randn(c)).to(dtype)
+    return x, (1 + 0.1 * randn(c)).to(dtype), (0.1 * randn(c)).to(dtype)
+
+
+def k11_bound(x, out):
+    """K11's bound: x read twice (statistics, then apply) and the output
+    written once; its few operations a value are far below the bytes."""
+    return bound_ms(2 * nbytes(x) + nbytes(out), 0)
+
+
+def library_group_norm_relu(x, weight, bias, eps):
+    """The yardstick: torch's `GroupNorm(32, C)` and `ReLU` on the NCHW
+    copy of x (made here, outside the call)."""
+    nchw = x.permute(0, 3, 1, 2).contiguous()
+    return lambda: torch.relu(torch.nn.functional.group_norm(
+        nchw, 32, weight, bias, eps))
+
+
+def run_k11(device, log=print):
+    """K11 at the pp3d.infer_b4 cell's eight calls (`K11_CALLS`): at each
+    shape held against its plain version (rel err 1e-2 in bf16) and two
+    launches bitwise, then its time (CUDA events and device time, each the
+    mean of 20 calls), the plain version's, torch's GroupNorm + ReLU on the
+    NCHW tensor and the bound; then the eight calls' sums. Returns a list
+    of dicts, the sums last."""
+    from boxer_tpu_torch.nn.point_pillar import GN_EPS
+    from boxer_tpu_torch.ops import group_norm as gn
+
+    rows, keys = [], ("ms", "device_ms", "plain_ms", "library_ms",
+                      "bound_ms")
+    for (c, h, w), calls in K11_CALLS:
+        x, weight, bias = k11_case(device, c, c, h, w)
+        args = (x, weight, bias, GN_EPS)
+        kernel = functools.partial(gn.group_norm_relu, *args)
+        plain = functools.partial(gn.group_norm_relu_plain, *args)
+        library = library_group_norm_relu(*args)
+        first, again, want = kernel(), kernel(), plain()
+        err = rel_err(first, want)
+        lib_err = rel_err(library().permute(0, 2, 3, 1), want)
+        if err > 1e-2 or not torch.equal(first, again):
+            raise AssertionError(f"K11 {c}x{h}x{w}: rel err {err}, bitwise "
+                                 f"{torch.equal(first, again)}")
+        bound, _ = k11_bound(x, first)
+        del first, again, want
+        r = dict(shape=f"B={K11_BATCH} {c}x{h}x{w} bf16", calls=calls,
+                 ms=cuda_ms(kernel), device_ms=device_ms(kernel),
+                 plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                 bound_ms=bound, rel_err=err, library_rel_err=lib_err)
+        log(f"K11 [{r['shape']}] x{calls}: {r['ms']:.4f} ms (device "
+            f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, torch "
+            f"GroupNorm + ReLU (NCHW) {r['library_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes, {100 * bound / r['device_ms']:.1f}% of "
+            f"it), rel err {err:.2e} (torch's {lib_err:.2e})")
+        rows.append(r)
+        del x, args, kernel, plain, library
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] * r["calls"] for r in rows) for k in keys}
+    share = 100 * total["bound_ms"] / total["device_ms"]
+    log(f"K11, the cell's 8 calls: {total['ms']:.4f} ms (device "
+        f"{total['device_ms']:.4f}), plain {total['plain_ms']:.4f} ms, torch "
+        f"GroupNorm + ReLU {total['library_ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({share:.1f}% of it), largest rel err "
+        f"{max(r['rel_err'] for r in rows):.2e}")
+    return rows + [dict(shape="the cell's 8 calls", **total)]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="unpacked copy of the tree to compare "
@@ -1027,6 +1118,9 @@ def main():
     ap.add_argument("--k10", action="store_true",
                     help="time K10 alone, at the 3D cell's pillar net, "
                     "beside its plain version")
+    ap.add_argument("--k11", action="store_true",
+                    help="time K11 alone, at the 3D cell's eight neck "
+                    "norms, beside its plain version and torch's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench_kernels: no CUDA card; this tool times kernels")
@@ -1048,6 +1142,10 @@ def main():
         return
     if args.k10:
         run_k10(dev, log=lambda s: print(s, flush=True))
+        return
+    if args.k11:
+        with torch.no_grad():
+            run_k11(dev, log=lambda s: print(s, flush=True))
         return
     run(dev, args.parent, log=lambda s: print(s, flush=True),
         model_inputs=chip_smoke.k7b_model_inputs(dev))

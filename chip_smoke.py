@@ -22,7 +22,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    `csrc/box_sample.cu`), K10 (the pillar net at inference, one launch a
    forward: the pp3d.infer_b4 cell's 4 frames of 60,000 pillars of 20
    points, filters 64 and 128, bf16, a pillar's relative error, two
-   launches bitwise equal, its device time; `csrc/pillar_net.cu`), K4 (the
+   launches bitwise equal, its device time; `csrc/pillar_net.cu`), K11 (the
+   BEV neck's GroupNorm + ReLU at inference, two launches a call: the
+   pp3d.infer_b4 cell's three shapes, batch 4, NHWC bf16, 256 x 469 x 469,
+   512 x 235 x 235 and 1024 x 118 x 118, two launches bitwise equal, its
+   device time, torch's GroupNorm + ReLU on the NCHW tensor as the
+   library call; `csrc/group_norm_relu.cu`), K4 (the
    segm model's last decoder layer: both sums of its instance attention,
    B 1, H 8, LQ 300, 14x14 taps over the 4 levels of 800x1216, with bf16
    and with f32 tables, two launches bitwise equal, the kernel's tile
@@ -93,9 +98,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    1e-3, worst leaf 0.1), and the folded step with K7b swapped for its plain
    version (worst leaf 1e-4);
 9. BoxeR-3D at the Waymo config's width: bf16 inference at 468x468 on
-   32,000 drawn voxels of f32 points (frames/s, launches K9 4, K3 2 and
-   K10 1 a forward, a profiled forward), then one served frame: 180,000
-   points over the whole
+   32,000 drawn voxels of f32 points (frames/s, launches K9 4, K3 2, K10
+   1 and K11 8 a forward, a profiled forward), then one served frame:
+   180,000 points over the whole
    pc_range -> the voxelizer -> pad_voxels -> the model at the voxelizer's
    469x469 grid -> the top-125, ms by stage, every kept pillar on a canvas
    cell of its own; (9b) card against CPU at 128x128 in f32 with perturbed
@@ -133,10 +138,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
    frames of 180,000 points, 20-70 objects with points in every box,
    9-column boxes) and its `create_gt_database`, only TRAINER_3D_CUTS cut:
    each update finite, not skipped, at the schedule's LR times each
-   group's base LR, with K2 8, K5 8, K3 2; K9 2, K3 1 and K10 0.5 (one
-   a batch of 2) a val or test frame; db-sampled objects placed; the
-   loader's first batch on the card bitwise equal to its host build from
-   the same draws; the val metrics
+   group's base LR, with K2 8, K5 8, K3 2; K9 2, K3 1, K10 0.5 (one
+   a batch of 2) and K11 4 a val or test frame; db-sampled objects
+   placed; the loader's first batch on the card bitwise equal to its
+   host build from the same draws; the val metrics
    equal to `evaluate_results` of the val records; results.pkl with a
    record per val and per test frame; config.yaml, the checkpoints of
    updates 2 and 4, model_final; a resumed trainer with update 4's model,
@@ -265,7 +270,7 @@ SCHEDULE = {"type": "multi_step", "params": {"lr_steps": [10 ** 9],
                                              "lr_ratio": 0.1,
                                              "use_warmup": False}}
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7a", "K7b", "K8", "K9",
-           "K10", "H1")
+           "K10", "K11", "H1")
 # BoxeR-3D at the width of boxer_tpu/config/base_boxer3d_detection.yaml:
 # 82-137 as tools/mfu_bench.py:measure_boxer3d instantiates it (:202-221):
 # a 468x468 BEV grid of 0.32 m pillars, 32,000 voxels of 20 points
@@ -398,13 +403,14 @@ INFER_LAUNCHES = {True: per_run(K9=11, K3=6, K4=1),
 TRAIN_LAUNCHES = {True: per_run(K2=48, K3=12, K5=24, K6=24, H1=2),
                   False: per_run(K2=48, K3=6, K5=48, H1=2)}
 FOLDED_TRAIN_LAUNCHES = per_run(K3=6, K7b=48, H1=2)
-# BoxeR-3D: at inference the pillar net is one launch of K10, each box
+# BoxeR-3D: at inference the pillar net is one launch of K10, each of the
+# neck's 8 GroupNorm + ReLU one call of K11 (two kernels), each box
 # attention (2 encoder + 2 decoder layers) samples both levels in one
 # launch of K9, K3 runs the 2 decoder self-attentions; a train step runs
 # every sampling level per tap (P = 4, `QuadSample`: K2 in 4 layers x 2
 # levels) and K5 in the backward of each, and H1's two matches, as
 # BoxeR-2D's; its pillar net is the torch path
-INFER_3D_LAUNCHES = per_run(K9=4, K3=2, K10=1)
+INFER_3D_LAUNCHES = per_run(K9=4, K3=2, K10=1, K11=8)
 TRAIN_3D_LAUNCHES = per_run(K2=8, K3=2, K5=8, H1=2)
 
 
@@ -494,6 +500,9 @@ def check_kernels(dev):
 
     # K10 at the 3D cell's pillar net
     results.update(pillar_rows(dev))
+
+    # K11 at the 3D cell's three neck shapes
+    results.update(neck_norm_rows(dev))
 
     # 3b. the backward scatters, f32 cotangents as the backward hands them,
     # the bf16 table the forward sampled: at each shape the fused kernel
@@ -779,6 +788,35 @@ def pillar_rows(dev):
         f"{feats.shape[1]}, filters (64, 128), bf16")}
 
 
+def neck_norm_rows(dev):
+    """Phase 3: K11 against its plain version at the pp3d.infer_b4 cell's
+    three neck shapes (`bench_kernels.K11_CALLS`, `k11_case`: batch 4, NHWC
+    bf16), two launches bitwise equal; torch's GroupNorm + ReLU on the
+    NCHW tensor as the library call (a yardstick the port never calls);
+    its bound (`bench_kernels.k11_bound`); its device time is printed
+    beside its CUDA-event time. Returns {name: case}, "K11" the stage-1
+    shape."""
+    from boxer_tpu_torch.nn.point_pillar import GN_EPS
+    from boxer_tpu_torch.ops import group_norm as gn
+    from boxer_tpu_torch.tools import bench_kernels as bk
+
+    cases = {}
+    for i, ((c, h, w), calls) in enumerate(bk.K11_CALLS):
+        args = (*bk.k11_case(dev, c, c, h, w), GN_EPS)
+        with torch.no_grad():
+            out = gn.group_norm_relu(*args)
+        cases["K11" if i == 0 else f"K11 {c}x{h}x{w}"] = dict(
+            wrapper=gn.group_norm_relu,
+            kernel=functools.partial(gn.group_norm_relu, *args),
+            plain=functools.partial(gn.group_norm_relu_plain, *args),
+            library=bk.library_group_norm_relu(*args),
+            bound=bk.k11_bound(args[0], out), device_ms=True, bitwise=True,
+            tol=1e-2, shape=f"the 3D cell's neck norm, {calls} a forward: "
+            f"B={bk.K11_BATCH} {h}x{w}x{c} NHWC bf16")
+        del out
+    return cases
+
+
 def box_attention_grads(dev):
     """Phase 3c: the gradients of `box_attention` (reference contract,
     default fold) at P=16, the folded path through `TakeRows` and K7b, at the
@@ -1044,6 +1082,7 @@ def counters():
     from boxer_tpu_torch.ops import box_sample as bs
     from boxer_tpu_torch.ops import combine_reduce as cr
     from boxer_tpu_torch.ops import flash_attention as fa
+    from boxer_tpu_torch.ops import group_norm as gn
     from boxer_tpu_torch.ops import hungarian as hg
     from boxer_tpu_torch.ops import instance_sample as isr
     from boxer_tpu_torch.ops import pillar_net as pn
@@ -1055,7 +1094,8 @@ def counters():
             "K6": sa.scatter_add_rows_pmajor_weighted,
             "K7a": sa.scatter_add_rows, "K7b": sa.scatter_add_rows_pmajor,
             "K8": cr.quad_sample_reduce_mmajor, "K9": bs.box_sample_reduce,
-            "K10": pn.pillar_features, "H1": hg.solve_assignment}
+            "K10": pn.pillar_features, "K11": gn.group_norm_relu,
+            "H1": hg.solve_assignment}
 
 
 @contextlib.contextmanager
@@ -4739,7 +4779,10 @@ def main():
              "boxer_tpu/ops/box_attention.py:437"),
             ("K10", "pillar_features", "pillar_net.cu",
              "no pallas_call: the XLA pillar net of "
-             "boxer_tpu/nn/point_pillar.py")]
+             "boxer_tpu/nn/point_pillar.py"),
+            ("K11", "group_norm_relu", "group_norm_relu.cu",
+             "no pallas_call: the XLA GroupNorm and ReLU of "
+             "boxer_tpu/nn/backbone3d.py")]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     kernels = []
